@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version at the main path's shapes, renders three 1920x1080 frames
-through ``render_frame``, and runs the render CLI.
+PyTorch version at the main path's shapes, renders seven 1920x1080 frames
+through ``render_frame`` (forward, shadowed and refractive), and runs the
+render CLI.
 
     python3 chip_smoke.py
 
 Phases (one line of output each, or more):
   1. device: the card's name and power limit (nvidia-smi)
   2. build: nvcc over raytracebvh_tpu_torch/csrc/*.cu, with its seconds
-  3. kernels: K1 (traversal) and K2 (row gather) against their plain
-     versions on the very inputs the main path hands them, and their
-     times beside the plain versions' (CUDA events, median of 5)
-  4. main path: the dense, sparse and large frames; every kernel's launch
-     count over that run; frame ms and Mrays/s (median of 5 after one
-     warm-up); the dense image against the all-plain-PyTorch render
+  3. kernels: K1 (nearest-hit traversal), K2 (row gather) and K4 (any-hit
+     traversal) against their plain versions on the very inputs the main
+     path hands them; their times beside the plain versions' (CUDA events,
+     median of 5), their bounds, and a library call where one computes the
+     same function
+  4. main path: the dense, sparse and large frames, then dense_shadows,
+     sparse_shadows, large_shadows and refract; every kernel's launch
+     count over each frame (counts set to 0 just before it, read just
+     after); frame ms and Mrays/s (median of 5 after one warm-up); each
+     image but sparse's and large's against the all-plain-PyTorch render
   5. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
-     the 3 072-triangle scene
+     the 3 072-triangle scene, plain and with --shadows --refract
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -25,6 +30,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,7 +44,19 @@ import torch
 W, H = 1920, 1080
 K1_SAMPLE_BOUNCE = 65536  # first-bounce rays held against the plain walk
 K1_SAMPLE_LARGE = 262144  # large-tree primary rays held against it
-MATCH_MIN = 0.9999  # K1 hit/leaf agreement, and dense-image pixels
+K4_SAMPLE_LARGE = 262144  # large-tree shadow rays held against it
+MATCH_MIN = 0.9999  # K1 hit/leaf agreement, and image pixels within 1e-4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# float32 operations of one node step of a walk: the slab test (6 sub,
+# 6 mul, 10 min/max) and 4 compares; the Moeller-Trumbore test of the
+# steps that reach a leaf's box (~54 more) is not counted, so the bound
+# from it is a lower bound
+OPS_PER_STEP = 26
+# the dense frame aims at the sphere at (12.5, 0, 0): grid column 2, row 1,
+# material (2 + 1) % 3 = 0, which the refract frame makes transparent with
+# tests/test_refraction.py's values
+GLASS_MATERIAL, GLASS_ALPHA, GLASS_DENSITY = 0, 0.4, 0.7
 
 
 class SmokeFailure(Exception):
@@ -54,11 +72,21 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def glass_scene(scene):
+    """``scene`` with material GLASS_MATERIAL semi-transparent."""
+    m = scene.materials
+    alpha, density = m.alpha.clone(), m.optical_density.clone()
+    alpha[GLASS_MATERIAL] = GLASS_ALPHA
+    density[GLASS_MATERIAL] = GLASS_DENSITY
+    return dataclasses.replace(scene, materials=dataclasses.replace(
+        m, alpha=alpha, optical_density=density))
+
+
 def frames_on(device):
     """name -> (scene, camera, cfg): the bench's 1080p configs
-    (bench.py:76-77, :104-107, :522) on its procedural scenes.
+    (bench.py:76-77, :104-107, :122, :302, :522) on its procedural scenes.
 
-    The dense frame keeps the bench's dense config but frames one sphere:
+    The dense frames keep the bench's dense config but frame one sphere:
     its ortho_scale=256 was set for Image_Test.obj, and on the fallback
     sphere grid it looks into the gap between spheres (0% of rays hit:
     tests/test_torch_camera.py::test_dense_frame_window_on_sphere_grid).
@@ -72,13 +100,21 @@ def frames_on(device):
     cam = Camera.default(device)
     aimed = cam.replace(eye=torch.tensor([12.5, 5.0, -100.0], device=device),
                         at=torch.tensor([12.5, 0.0, 0.0], device=device))
+    dense = base.replace(ortho_scale=27.0, ray_chunk=0, ray_tile=16,
+                         texture_dtype="uint8")
+    sparse = base.replace(ray_chunk=25600)
+    large_cfg = base.replace(bounces=0, ray_tile=16, ray_chunk=0)
     return {
-        "dense": (small, aimed, base.replace(
-            ortho_scale=27.0, ray_chunk=0, ray_tile=16,
-            texture_dtype="uint8")),
-        "sparse": (small, cam, base.replace(ray_chunk=25600)),
-        "large": (large, cam, base.replace(bounces=0, ray_tile=16,
-                                           ray_chunk=0)),
+        "dense": (small, aimed, dense),
+        "sparse": (small, cam, sparse),
+        "large": (large, cam, large_cfg),
+        "dense_shadows": (small, aimed, dense.replace(
+            bounces=0, enable_shadows=True)),
+        "sparse_shadows": (small, cam, sparse.replace(
+            bounces=0, enable_shadows=True)),
+        "large_shadows": (large, cam, large_cfg.replace(enable_shadows=True)),
+        "refract": (glass_scene(small), aimed, dense.replace(
+            enable_refraction=True)),
     }
 
 
@@ -112,18 +148,29 @@ def wall_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``ops`` float32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 class Recorder:
-    """Wraps a kernel wrapper, keeping the arguments of every call: the
-    inputs the main path really hands the kernel."""
+    """Wraps a function of a module, keeping the arguments (and results)
+    of every call: the inputs the main path really hands a kernel."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.inner = getattr(module, name)
         self.calls = []
+        self.results = []
 
     def __call__(self, *args, **kw):
         self.calls.append((args, kw))
-        return self.inner(*args, **kw)
+        out = self.inner(*args, **kw)
+        self.results.append(out)
+        return out
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -134,16 +181,23 @@ class Recorder:
 
 
 def capture(scene, cam, cfg):
-    """One frame, recording K1's and K2's arguments."""
+    """One frame, recording the arguments of K1, K2 and K4."""
     from raytracebvh_tpu_torch import render_frame
     from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
 
     with Recorder(traverse_cuda, "traverse") as k1, \
             Recorder(gather_cuda, "gather_rows") as k2, \
+            Recorder(traverse_cuda, "traverse_any") as k4, \
             torch.inference_mode():
         render_frame(scene, cam, cfg)
     torch.cuda.synchronize()
-    return k1.calls, k2.calls
+    return k1.calls, k2.calls, k4.calls
+
+
+def sample_rays(rays, idx):
+    from raytracebvh_tpu_torch.core.types import Rays
+
+    return Rays(rays.origin[idx].contiguous(), rays.direction[idx].contiguous())
 
 
 def k1_parity(name, bvh, rays, eps):
@@ -207,37 +261,71 @@ def _tie_or_edge(bvh, rays, got, want, bad):
     return tie | edge
 
 
+def k4_parity(name, bvh, rays, eps, max_t):
+    """K4 against the plain any-hit walk on the same rays: every flag
+    equal, no ray cut by the step cap, and the occluded share of live
+    shadow rays strictly between 0 and 1.  Returns max |got - want|."""
+    from raytracebvh_tpu_torch.ops import traverse as plain
+    from raytracebvh_tpu_torch.ops import traverse_cuda
+
+    traverse_cuda.reset_truncated()
+    got = traverse_cuda.traverse_any(bvh, rays, eps, max_t)
+    want = plain.traverse_any(bvh, rays, eps, max_t)
+    torch.cuda.synchronize()
+    trunc = traverse_cuda.truncated_rays()
+    nbad = int((got != want).sum())
+    live = rays.origin[:, 0] < 1e29  # dead lanes start at 1e30
+    nlive = int(live.sum())
+    share = float(want[live].float().mean()) if nlive else 0.0
+    log(f"  K4 {name}: {rays.origin.shape[0]} rays, {nlive} live, "
+        f"occluded share of live {share:.4f}, {nbad} mismatches, "
+        f"truncated {trunc}")
+    check(nbad == 0, f"K4 {name}: {nbad} mismatches")
+    check(trunc == 0, f"K4 {name}: {trunc} rays cut by the step cap")
+    check(0.0 < share < 1.0, f"K4 {name}: occluded share {share}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def walk_bound(rays, steps, tables, out_bytes_per_ray, in_bytes_per_ray):
+    """Bound of one walk kernel launch: each ray's inputs read once, its
+    outputs written once, the two tables read once; OPS_PER_STEP float32
+    operations per node step the walk really took."""
+    nrays = rays.origin.shape[0]
+    nbytes = (nrays * (in_bytes_per_ray + out_bytes_per_ray)
+              + sum(t.numel() * t.element_size() for t in tables))
+    total_steps = int(steps.sum())
+    ms, by = bound(nbytes, OPS_PER_STEP * total_steps)
+    return ms, by, nbytes, total_steps
+
+
 def phase_kernels(frames):
-    from raytracebvh_tpu_torch.core.types import Rays
     from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
     from raytracebvh_tpu_torch.ops import traverse as plain
     from raytracebvh_tpu_torch.ops.shade import (pack_texture_quads,
                                                  quantize_quads_u8)
 
     result = {}
+    gen = torch.Generator(device="cpu").manual_seed(0)
     scene_d, cam_d, cfg_d = frames["dense"]
-    k1_calls, k2_calls = capture(scene_d, cam_d, cfg_d)
+    k1_calls, k2_calls, _ = capture(scene_d, cam_d, cfg_d)
     check(len(k1_calls) == 2 and len(k2_calls) == 4,
           f"dense frame made {len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
     bvh_d, prim_rays, eps = k1_calls[0][0][:3]
+    bvh_d = traverse_cuda.with_tables(bvh_d)
     bounce_rays = k1_calls[1][0][1]
-    gen = torch.Generator(device="cpu").manual_seed(0)
     live = (bounce_rays.origin[:, 0] < 1e29).nonzero().squeeze(1).cpu()
     pick = live[torch.randperm(live.numel(), generator=gen)[:K1_SAMPLE_BOUNCE]]
-    pick = pick.to(prim_rays.origin.device)
-    bounce_sample = Rays(bounce_rays.origin[pick].contiguous(),
-                         bounce_rays.direction[pick].contiguous())
+    bounce_sample = sample_rays(bounce_rays, pick.to(prim_rays.origin.device))
     log(f"  K1 dense bounce sample: {pick.numel()} of {live.numel()} live "
         f"first-bounce rays")
     errs = [k1_parity("dense primary", bvh_d, prim_rays, eps),
             k1_parity("dense bounce", bvh_d, bounce_sample, eps)]
 
-    l_calls, _ = capture(*frames["large"])
+    l_calls, _, _ = capture(*frames["large"])
     bvh_l, rays_l = l_calls[0][0][:2]
     pick = torch.randperm(rays_l.origin.shape[0], generator=gen)[
         :K1_SAMPLE_LARGE].to(rays_l.origin.device)
-    large_sample = Rays(rays_l.origin[pick].contiguous(),
-                        rays_l.direction[pick].contiguous())
+    large_sample = sample_rays(rays_l, pick)
     log(f"  K1 large sample: {K1_SAMPLE_LARGE} of {rays_l.origin.shape[0]} "
         f"primary rays, {bvh_l.n_leaves} leaves")
     errs.append(k1_parity("large primary", bvh_l, large_sample, eps))
@@ -246,10 +334,18 @@ def phase_kernels(frames):
     plain_ms = cuda_ms(lambda: plain.traverse(bvh_d, prim_rays, eps))
     ms_l = cuda_ms(lambda: traverse_cuda.traverse(bvh_l, large_sample, eps))
     plain_ms_l = cuda_ms(lambda: plain.traverse(bvh_l, large_sample, eps))
+    _, steps = traverse_cuda.traverse(bvh_d, prim_rays, eps,
+                                      return_steps=True)
+    b_ms, b_by, nbytes, nsteps = walk_bound(
+        prim_rays, steps, (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
     log(f"  K1 time, dense primary ({prim_rays.origin.shape[0]} rays): "
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; large sample: "
         f"{ms_l:.3f} ms vs plain {plain_ms_l:.3f} ms")
-    result["K1"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    log(f"  K1 bound, dense primary: {nsteps} node steps "
+        f"({nsteps / prim_rays.origin.shape[0]:.2f} a ray), {nbytes} bytes "
+        f"-> {b_ms:.4f} ms, by {b_by}; no PyTorch call computes a traversal")
+    result["K1"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # K2: the frame's own indices into its own tables
     leaf_attrs, leaf_ids = k2_calls[0][0]
@@ -268,68 +364,157 @@ def phase_kernels(frames):
         check(torch.equal(got, want), f"K2 {what}: max |diff| {err}")
         t = cuda_ms(lambda: gather_cuda.gather_rows(tbl, idx))
         tp = cuda_ms(lambda: gather_cuda.gather_rows_torch(tbl, idx))
+        # the library yardstick: torch.index_select of the same rows, [R, C]
+        # row-major (K2 writes channel-major [C, R]); f32 tables only
+        tl = (cuda_ms(lambda: torch.index_select(tbl, 0, idx))
+              if tbl.dtype == torch.float32 else None)
+        nbytes = (tbl.numel() * tbl.element_size() + idx.numel() * 4
+                  + idx.numel() * tbl.shape[1] * 4)
+        ops = idx.numel() * tbl.shape[1] if tbl.dtype == torch.uint8 else 0
+        b_ms, b_by = bound(nbytes, ops)
         log(f"  K2 {what} {tuple(tbl.shape)} x {idx.numel()} ids: exact; "
-            f"{t:.3f} ms vs plain {tp:.3f} ms")
-        k2[what] = (err, t, tp)
-    _, t, tp = k2["leaf_attrs f32"]
+            f"{t:.3f} ms vs plain {tp:.3f} ms, index_select "
+            f"{'-' if tl is None else f'{tl:.3f} ms'}; bound {b_ms:.4f} ms "
+            f"({nbytes} bytes, by {b_by})")
+        k2[what] = (err, t, tp, b_ms, b_by, tl)
+    _, t, tp, b_ms, b_by, tl = k2["leaf_attrs f32"]
     result["K2"] = dict(max_abs_err=max(v[0] for v in k2.values()),
-                        ms=t, plain_ms=tp)
+                        ms=t, plain_ms=tp, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=tl)
+
+    # K4: every shadow ray of the dense shadow frame, and a sample of the
+    # large one's
+    _, _, k4_calls = capture(*frames["dense_shadows"])
+    check(len(k4_calls) == 1, f"dense_shadows made {len(k4_calls)} K4 calls")
+    bvh_s, shadow_rays, eps, max_t = k4_calls[0][0][:4]
+    bvh_s = traverse_cuda.with_tables(bvh_s)
+    errs = [k4_parity("dense shadows", bvh_s, shadow_rays, eps, max_t)]
+    _, _, k4_large = capture(*frames["large_shadows"])
+    check(len(k4_large) == 1, f"large_shadows made {len(k4_large)} K4 calls")
+    bvh_ls, rays_ls, _, max_t_ls = k4_large[0][0][:4]
+    live = (rays_ls.origin[:, 0] < 1e29).nonzero().squeeze(1).cpu()
+    pick = live[torch.randperm(live.numel(), generator=gen)[:K4_SAMPLE_LARGE]]
+    pick = pick.to(rays_ls.origin.device)
+    log(f"  K4 large sample: {pick.numel()} of {live.numel()} live shadow "
+        f"rays, {bvh_ls.n_leaves} leaves")
+    check(pick.numel() >= min(K4_SAMPLE_LARGE, live.numel()) > 0,
+          "large_shadows: too few live shadow rays")
+    errs.append(k4_parity("large shadows", bvh_ls, sample_rays(rays_ls, pick),
+                          eps, max_t_ls[pick].contiguous()))
+    ms = cuda_ms(lambda: traverse_cuda.traverse_any(bvh_s, shadow_rays, eps,
+                                                    max_t))
+    plain_ms = cuda_ms(lambda: plain.traverse_any(bvh_s, shadow_rays, eps,
+                                                  max_t))
+    ms_l = cuda_ms(lambda: traverse_cuda.traverse_any(bvh_ls, rays_ls, eps,
+                                                      max_t_ls))
+    _, steps = traverse_cuda.traverse_any(bvh_s, shadow_rays, eps, max_t,
+                                          return_steps=True)
+    b_ms, b_by, nbytes, nsteps = walk_bound(
+        shadow_rays, steps, (bvh_s.node_table, bvh_s.leaf_table), 1, 28)
+    log(f"  K4 time, dense shadows ({shadow_rays.origin.shape[0]} rays): "
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; large shadows (all "
+        f"{rays_ls.origin.shape[0]} rays): {ms_l:.3f} ms")
+    log(f"  K4 bound, dense shadows: {nsteps} node steps "
+        f"({nsteps / shadow_rays.origin.shape[0]:.2f} a ray), {nbytes} bytes "
+        f"-> {b_ms:.4f} ms, by {b_by}; no PyTorch call computes a traversal")
+    result["K4"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return result
 
 
-def hit_rate(img, cfg):
+def hit_mask(img, cfg):
     bg = torch.tensor(cfg.background, device=img.device)
-    return 1.0 - float((img - bg).abs().lt(1e-6).all(-1).float().mean())
+    return ~(img - bg).abs().lt(1e-6).all(-1)
+
+
+def render_counted(name, scene, cam, cfg):
+    """One frame with every launch count set to 0 just before it; the
+    image, the counts read just after, and the refraction weights of the
+    primary pass."""
+    from raytracebvh_tpu_torch import pipeline, render_frame
+    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+
+    with Recorder(pipeline, "_launch_soa") as launch, torch.inference_mode():
+        traverse_cuda.launches = traverse_cuda.any_launches = 0
+        gather_cuda.launches = 0
+        img = render_frame(scene, cam, cfg)
+        torch.cuda.synchronize()
+        counts = {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
+                  "K4": traverse_cuda.any_launches}
+    refr = [out[4] for out in launch.results]
+    return img, counts, refr
 
 
 def phase_main_path(frames):
-    """The frames through render_frame; returns the launch counts."""
+    """The frames through render_frame; returns the launch counts summed
+    over the frames."""
     from raytracebvh_tpu_torch import render_frame
-    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+    from raytracebvh_tpu_torch.config import traversal_passes
+    from raytracebvh_tpu_torch.ops import traverse_cuda
 
-    images = {}
-    traverse_cuda.launches = gather_cuda.launches = 0
+    images, totals = {}, {"K1": 0, "K2": 0, "K4": 0}
     traverse_cuda.reset_truncated()
     for name, (scene, cam, cfg) in frames.items():
-        k1_0, k2_0 = traverse_cuda.launches, gather_cuda.launches
-        with torch.inference_mode():
-            img = render_frame(scene, cam, cfg)
-        torch.cuda.synchronize()
+        img, n, refr = render_counted(name, scene, cam, cfg)
         images[name] = img
-        d1 = traverse_cuda.launches - k1_0
-        d2 = gather_cuda.launches - k2_0
-        rate = hit_rate(img, cfg)
+        hits = hit_mask(img, cfg)
+        rate = float(hits.float().mean())
         log(f"  {name}: {tuple(img.shape)}, hit rate {rate:.4f}, "
-            f"K1 launches {d1}, K2 launches {d2}")
+            f"launches {n}")
         check(tuple(img.shape) == (H, W, 4), f"{name}: image shape")
         check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
         check(rate > 0, f"{name}: no ray hit")
-        check(d1 > 0 and d2 > 0, f"{name}: a kernel was not launched")
-    launches = {"K1": traverse_cuda.launches, "K2": gather_cuda.launches}
+        check(n["K1"] > 0 and n["K2"] > 0, f"{name}: a kernel was not launched")
+        if not cfg.enable_shadows:
+            check(n["K4"] == 0, f"{name}: K4 launched without shadows")
+        elif cfg.ray_chunk:
+            # one K4 launch per shaded chunk; a culled chunk launches none
+            shaded = int(hits.reshape(-1, cfg.ray_chunk).any(-1).sum())
+            nchunks = W * H // cfg.ray_chunk
+            log(f"  {name}: {shaded} of {nchunks} chunks shaded")
+            check(n["K4"] == shaded < nchunks,
+                  f"{name}: {n['K4']} K4 launches for {shaded} shaded chunks")
+        else:
+            check(n["K4"] == 1, f"{name}: {n['K4']} K4 launches, not 1")
+        if cfg.enable_refraction:
+            check(n["K1"] == traversal_passes(cfg),
+                  f"{name}: {n['K1']} K1 launches")
+            w = torch.cat(refr)
+            share = float((w != 0).float().mean())
+            log(f"  {name}: share of pixels with a non-zero refraction "
+                f"weight {share:.4f}")
+            check(share > 0, f"{name}: no pixel refracts")
+        for k in totals:
+            totals[k] += n[k]
     trunc = traverse_cuda.truncated_rays()
-    log(f"  main path launches: {launches}, truncated rays {trunc}")
+    log(f"  main path launches: {totals}, truncated rays {trunc}")
     check(trunc == 0, f"{trunc} rays cut by the step cap on the main path")
 
     for name, (scene, cam, cfg) in frames.items():
         with torch.inference_mode():
             ms = wall_ms(lambda: render_frame(scene, cam, cfg))
-        rays = W * H * (1 + cfg.bounces)
-        log(f"  {name}: {ms:.2f} ms/frame, {rays / max(ms, 1e-9) / 1e3:.2f} Mrays/s "
-            f"({rays} rays)")
+        rays = W * H * traversal_passes(cfg)
+        log(f"  {name}: {ms:.2f} ms/frame, {rays / max(ms, 1e-9) / 1e3:.2f} "
+            f"Mrays/s ({rays} rays)")
 
-    scene, cam, cfg = frames["dense"]
-    plain_cfg = cfg.replace(traversal_backend="torch",
-                            shade_gather_backend="torch",
-                            texture_gather_backend="torch")
-    with torch.inference_mode():
-        ref = render_frame(scene, cam, plain_cfg)
-        ms = wall_ms(lambda: render_frame(scene, cam, plain_cfg), reps=1)
-    diff = (images["dense"] - ref).abs().amax(-1)
-    frac = float(diff.le(1e-4).float().mean())
-    log(f"  dense vs plain PyTorch render: max |diff| {float(diff.max()):.3g}, "
-        f"{frac:.6f} of pixels within 1e-4; plain render {ms:.1f} ms/frame")
-    check(frac >= MATCH_MIN, f"dense image: only {frac} of pixels match")
-    return launches
+    for name in ("dense", "dense_shadows", "sparse_shadows", "large_shadows",
+                 "refract"):
+        scene, cam, cfg = frames[name]
+        plain_cfg = cfg.replace(traversal_backend="torch",
+                                shade_gather_backend="torch",
+                                texture_gather_backend="torch")
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = render_frame(scene, cam, plain_cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        diff = (images[name] - ref).abs().amax(-1)
+        frac = float(diff.le(1e-4).float().mean())
+        log(f"  {name} vs plain PyTorch render: max |diff| "
+            f"{float(diff.max()):.3g}, {frac:.6f} of pixels within 1e-4; "
+            f"plain render {ms:.1f} ms/frame")
+        check(frac >= MATCH_MIN, f"{name} image: only {frac} of pixels match")
+    return totals
 
 
 def write_obj_scene(scene, directory):
@@ -353,7 +538,9 @@ def write_obj_scene(scene, directory):
                              ("Ks", m.specular)):
                 f.write(f"{key} " + " ".join(
                     repr(float(x)) for x in arr[k, :3]) + "\n")
-            f.write(f"Ns {float(m.shininess[k])!r}\nmap_Kd checker.bmp\n")
+            f.write(f"Ns {float(m.shininess[k])!r}\n"
+                    f"Ni {float(m.optical_density[k])!r}\n"
+                    f"d {float(m.alpha[k])!r}\nmap_Kd checker.bmp\n")
     lines = ["mtllib scene.mtl"]
     lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in verts.tolist()]
     lines += [f"vt {u!r} {1.0 - v!r}" for u, v in uv.tolist()]
@@ -376,19 +563,21 @@ def phase_cli(scene, device):
 
     with tempfile.TemporaryDirectory() as tmp:
         obj = write_obj_scene(scene, tmp)
-        out = os.path.join(tmp, "out.bmp")
-        t0 = time.perf_counter()
-        rc = cli.main(["--obj", obj, "--width", str(W), "--height", str(H),
-                       "--bounces", "1", "--frames", "3", "--out", out,
-                       "--device", device])
-        dt = time.perf_counter() - t0
-        check(rc == 0, f"cli exited {rc}")
-        check(os.path.isfile(out), "cli wrote no image")
-        img = read_bmp(out)
-        log(f"  cli: exit {rc}, wrote {img.shape[1]}x{img.shape[0]} BMP in "
-            f"{dt:.1f} s, {int((img != 128).any(-1).sum())} non-background "
-            f"pixels")
-        check(img.shape == (H, W, 3), f"cli image shape {img.shape}")
+        for extra in ([], ["--shadows", "--refract"]):
+            out = os.path.join(tmp, "out.bmp")
+            t0 = time.perf_counter()
+            rc = cli.main(["--obj", obj, "--width", str(W), "--height",
+                           str(H), "--bounces", "1", "--frames", "3",
+                           "--out", out, "--device", device, *extra])
+            dt = time.perf_counter() - t0
+            check(rc == 0, f"cli {extra} exited {rc}")
+            check(os.path.isfile(out), f"cli {extra} wrote no image")
+            img = read_bmp(out)
+            os.remove(out)
+            log(f"  cli {' '.join(extra) or '(plain)'}: exit {rc}, wrote "
+                f"{img.shape[1]}x{img.shape[0]} BMP in {dt:.1f} s, "
+                f"{int((img != 128).any(-1).sum())} non-background pixels")
+            check(img.shape == (H, W, 3), f"cli image shape {img.shape}")
 
 
 def main() -> int:
@@ -428,18 +617,20 @@ def main() -> int:
         log("phase 4 main path:")
         launches = phase_main_path(frames)
         log("phase 5 cli:")
-        phase_cli(frames["dense"][0], dev.type)
+        phase_cli(frames["refract"][0], dev.type)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",
                       "raytracebvh_tpu/ops/traverse_hbm.py:652"),
                "K2": ("raytracebvh_tpu_torch/csrc/gather.cu",
-                      "raytracebvh_tpu/ops/gather_hbm.py:180")}
+                      "raytracebvh_tpu/ops/gather_hbm.py:180"),
+               "K4": ("raytracebvh_tpu_torch/csrc/traverse.cu",
+                      "raytracebvh_tpu/ops/traverse_hbm.py:652")}
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k][0],
              replaces=sources[k][1], launches=launches[k], **kern[k])
-        for k in ("K1", "K2")]}))
+        for k in ("K1", "K2", "K4")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a frame's time goes, for the PyTorch + CUDA port on one NVIDIA
-GPU: chip_smoke.py's three 1920x1080 frames (dense, sparse, large), each
-rendered under ``torch.profiler``.
+GPU: chip_smoke.py's 1920x1080 frames (dense, sparse, large, the three
+shadowed ones and refract), each rendered under ``torch.profiler``.
 
     python3 profile_frames.py [--frames 3] [--top 10]
 
@@ -9,7 +9,7 @@ Per frame it prints: the unprofiled frame time (host clock ended by a
 synchronize, median of 5 after a warm-up), the BVH build alone (same
 clock), the profiled wall time per frame, the device busy time (the union
 of kernel intervals in the trace), the idle share 1 - busy / profiled
-wall, kernels per frame, K1's and K2's device time, and the ``--top``
+wall, kernels per frame, K1's, K2's and K4's device time, and the ``--top``
 kernels by device time.  The profiler adds host time, so the idle share
 is an upper bound of the unprofiled frame's.  Exits non-zero without a
 CUDA device.
@@ -30,8 +30,10 @@ import torch
 
 from chip_smoke import W, H, frames_on, wall_ms
 
-K1_KERNEL = "traverse_kernel"
-K2_KERNELS = ("gather_f32_kernel", "gather_u8_kernel")
+# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4
+KERNELS = {"K1": ("traverse_kernel<false>",),
+           "K2": ("gather_f32_kernel", "gather_u8_kernel"),
+           "K4": ("traverse_kernel<true>",)}
 
 
 def kernel_events(trace_path):
@@ -81,16 +83,16 @@ def profile_frame(name, scene, cam, cfg, nframes, top):
     for kname, _, dur in kernels:
         per[kname][0] += dur / 1e3 / nframes
         per[kname][1] += 1
-    k1 = sum(v[0] for k, v in per.items() if K1_KERNEL in k)
-    k2 = sum(v[0] for k, v in per.items() if any(g in k for g in K2_KERNELS))
-    n1 = sum(v[1] for k, v in per.items() if K1_KERNEL in k) // nframes
-    n2 = sum(v[1] for k, v in per.items()
-             if any(g in k for g in K2_KERNELS)) // nframes
+    ours = []
+    for k, names in KERNELS.items():
+        mine = [v for kname, v in per.items() if any(g in kname for g in names)]
+        ours.append(f"{k} {sum(v[0] for v in mine):.3f} ms "
+                    f"({sum(v[1] for v in mine) // nframes} launches)")
     print(f"== {name}: frame {frame_ms:.2f} ms unprofiled, build alone "
           f"{build_ms:.2f} ms, profiled wall {wall:.2f} ms/frame, device busy "
           f"{busy:.2f} ms -> idle share {1 - busy / wall:.3f}; "
-          f"{len(kernels) // nframes} kernels/frame; K1 {k1:.3f} ms "
-          f"({n1} launches), K2 {k2:.3f} ms ({n2} launches)", flush=True)
+          f"{len(kernels) // nframes} kernels/frame; {', '.join(ours)}",
+          flush=True)
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])[:top]
     for kname, (ms, count) in ranked:
         print(f"  {ms:9.3f} ms {count // nframes:7d}x  {kname[:100]}")

@@ -39,6 +39,10 @@ _SIGNATURES = {
     # hit, dist, leaf, steps (nullable), truncated, stream
     "rtbvh_traverse": [_P, _P, _P, _P, _I, _I, _F, _I,
                        _P, _P, _P, _P, _P, _P],
+    # origin, direction, max_t, nodes, leaves, nrays, n_leaves, eps,
+    # max_steps, occluded, steps (nullable), truncated, stream
+    "rtbvh_traverse_any": [_P, _P, _P, _P, _P, _I, _I, _F, _I,
+                           _P, _P, _P, _P],
     # table, rows, channels, idx, nrays, out, stream
     "rtbvh_gather_f32": [_P, _I, _I, _P, _I, _P, _P],
     "rtbvh_gather_u8": [_P, _I, _I, _P, _I, _P, _P],

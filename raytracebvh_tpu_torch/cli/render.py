@@ -4,7 +4,10 @@ Usage:
     python -m raytracebvh_tpu_torch.cli.render [--obj Obj/Test.obj]
         [--out out.bmp] [--width 800] [--height 800] [--bounces 3]
         [--frames 1] [--orbit-yaw 0.1] [--device cuda|cpu]
-        [--backend auto|torch|cuda]
+        [--backend auto|torch|cuda] [--shadows [--light X Y Z]] [--refract]
+
+It renders on the CUDA device unless ``--device cpu`` asks for the CPU;
+without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -50,13 +53,14 @@ def main(argv=None):
                    default="auto",
                    help="traversal and gather backend (auto: the CUDA "
                         "kernels on a GPU, plain PyTorch on the CPU)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="where to render (default: cuda when a GPU is "
-                        "visible, else cpu)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to render (default cuda; exits 1 when no "
+                        "CUDA device is visible)")
     p.add_argument("--refract", action="store_true",
-                   help="enable the refraction pass (not ported yet)")
+                   help="enable the refraction pass (transparent "
+                        "materials, blended over the reflection result)")
     p.add_argument("--shadows", action="store_true",
-                   help="fire shadow rays at --light (not ported yet)")
+                   help="fire shadow rays at --light from primary hits")
     p.add_argument("--light", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"),
                    help="world-space light position for --shadows")
@@ -74,18 +78,15 @@ def main(argv=None):
 
     from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame
     from raytracebvh_tpu_torch.camera import orbit
+    from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.io.bmp import write_bmp
     from raytracebvh_tpu_torch.io.obj import load_obj
     from raytracebvh_tpu_torch.utils.assets import find_asset
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
     if device == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda but no CUDA device is visible",
-              file=sys.stderr)
-        return 1
-    if args.refract or args.shadows:
-        print("error: --refract and --shadows are not ported yet",
-              file=sys.stderr)
+        print("error: no CUDA device is visible (pass --device cpu to "
+              "render on the CPU)", file=sys.stderr)
         return 1
     path = args.obj if os.path.isfile(args.obj) else find_asset(args.obj)
     if path is None:
@@ -106,6 +107,8 @@ def main(argv=None):
         traversal_backend=backend,
         shade_gather_backend=backend,
         texture_gather_backend=backend,
+        enable_refraction=args.refract,
+        enable_shadows=args.shadows,
         **(dict(light_pos=tuple(args.light)) if args.light else {}),
     )
     cam = Camera.default(device)
@@ -114,7 +117,7 @@ def main(argv=None):
         if device == "cuda":
             torch.cuda.synchronize()
 
-    rays_per_frame = cfg.width * cfg.height * (1 + cfg.bounces)
+    rays_per_frame = cfg.width * cfg.height * traversal_passes(cfg)
     if args.metrics and not args.sync:
         print("note: --metrics implies --sync (per-frame timing)")
         args.sync = True

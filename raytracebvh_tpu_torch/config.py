@@ -71,6 +71,14 @@ class RenderConfig:
         return getattr(torch, self.dtype)
 
 
+def traversal_passes(cfg: RenderConfig) -> int:
+    """Traversal passes of width x height rays in one frame, as the
+    bench counts them: primary, each bounce, the shadow pass, and a
+    refraction pass per bounce."""
+    return (1 + cfg.bounces + int(cfg.enable_shadows)
+            + (cfg.bounces if cfg.enable_refraction else 0))
+
+
 def resolve_backend(cfg: RenderConfig, field: str) -> str:
     """'torch' (the plain version) or 'cuda' (the kernel's wrapper, which
     alone looks at the tensors' device) for the backend field ``field`` of

@@ -1,12 +1,22 @@
-// K1: nearest-hit BVH traversal, one thread per ray.
+// K1: nearest-hit BVH traversal, and K4: any-hit (occlusion) traversal.
+// One thread per ray; both are one walk, a template on AnyHit.
 //
-// Replaces the JAX package's HBM refill traversal
+// K1 replaces the JAX package's HBM refill traversal
 // (raytracebvh_tpu/ops/traverse_hbm.py, _make_refill_kernel(any_hit=False),
 // launched by _run_refill through traverse_hbm_pallas).  Contract: equal to
 // the plain raytracebvh_tpu_torch/ops/traverse.py traverse -- the same hit,
 // leaf (0 where there is no hit) and distance for every ray.
 //
-// What bounds it on an H100: latency.  Each step of a walk is a dependent
+// K4 replaces the same kernel built with any_hit=True
+// (_make_refill_kernel(any_hit=True), through traverse_any_hbm_pallas): the
+// shadow rays.  Contract: equal to the plain traverse_any -- occluded where
+// any triangle meets the ray at t in (eps, max_t[r]).  It differs from K1
+// in three places: a box is pruned unless tmin <= max_t, a triangle counts
+// only when t < max_t, and a ray leaves the walk on its first occluder.
+// max_t is computed by the caller (dist * (1 - 1e-4) in PyTorch) and
+// compared here as the same float32 value the plain version compares.
+//
+// What bounds them on an H100: latency.  Each step of a walk is a dependent
 // chain -- load the node, test its box, pick the next node from the links
 // just loaded -- so a thread waits on one global load per step (two more
 // at a leaf), and the SM hides that only with many warps in flight.  The
@@ -15,9 +25,12 @@
 // resident; a node is one 32-byte load (two float4), a leaf triangle three
 // float4 with the edges precomputed once per build; the tables stay in
 // global memory, and the 50 MB L2 holds them whole (0.34 MB for 3 072
-// triangles, 11.5 MB for 102 400).  The TPU kernel's rank-space windows,
-// refill slots, pump and wsweep answered VMEM capacity and lock-step
-// lanes; a GPU warp diverges instead, so none of it is carried over.
+// triangles, 11.5 MB for 102 400).  K4's walks are shorter than K1's: no
+// nearest-hit pruning, but an occluded ray stops at its first occluder,
+// and a dead shadow ray (origin 1e30) misses the root on step one.  The
+// TPU kernel's rank-space windows, refill slots, pump and wsweep answered
+// VMEM capacity and lock-step lanes; a GPU warp diverges instead, so none
+// of it is carried over, for either kernel.
 //
 // Parity with the plain PyTorch version (built with -fmad=false, IEEE
 // division):
@@ -29,8 +42,9 @@
 //    left to right as the torch expression is.
 //  * Dead rays (origin 1e30) and padding leaves (empty boxes, bbmin.x >
 //    bbmax.x) fall out of the same arithmetic as in the plain version.
-//  * The step cap is per ray; a ray that reaches it keeps its best hit so
-//    far and adds one to *truncated, so a caller can see the cut.
+//  * The step cap is per ray; a ray that reaches it keeps its result so
+//    far (best hit, or not occluded) and adds one to *truncated, so a
+//    caller can see the cut.
 
 #include <cuda_runtime.h>
 
@@ -46,8 +60,12 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 // nodes: [2n] x (float4 bbmin.xyz|bbmax.x, float4 bbmax.yz|entry|skip)
 // leaves: [n] x (float4 v0.xyz|e1.x, float4 e1.yz|e2.xy, float4 e2.z|pad)
+// AnyHit: reads max_t, writes hit_out (occluded); dist_out and leaf_out
+// are unused.  Otherwise max_t is unused.
+template <bool AnyHit>
 __global__ void traverse_kernel(const float* __restrict__ origin,
                                 const float* __restrict__ direction,
+                                const float* __restrict__ max_t,
                                 const float4* __restrict__ nodes,
                                 const float4* __restrict__ leaves,
                                 int nrays, int n_leaves, float eps,
@@ -62,6 +80,7 @@ __global__ void traverse_kernel(const float* __restrict__ origin,
   const float dx = direction[3 * r], dy = direction[3 * r + 1],
               dz = direction[3 * r + 2];
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  const float ray_max = AnyHit ? max_t[r] : 0.0f;
 
   int node = n_leaves;  // root
   bool hit = false;
@@ -79,9 +98,10 @@ __global__ void traverse_kernel(const float* __restrict__ origin,
     const float tmax = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
                                max_nan(t0z, t1z));
     const bool nonempty = a.x <= a.w;
-    const bool bhit = (0.0f <= tmax) && (tmin <= tmax) && nonempty &&
-                      (!hit || tmin <= dist);
+    const bool prune_ok = AnyHit ? (tmin <= ray_max) : (!hit || tmin <= dist);
+    const bool bhit = (0.0f <= tmax) && (tmin <= tmax) && nonempty && prune_ok;
     const bool is_leaf = node < n_leaves;
+    bool found = false;
     if (bhit && is_leaf) {  // Moeller-Trumbore against the leaf triangle
       const float4 l0 = __ldg(&leaves[3 * node]);
       const float4 l1 = __ldg(&leaves[3 * node + 1]);
@@ -104,19 +124,41 @@ __global__ void traverse_kernel(const float* __restrict__ origin,
       const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
       const bool tri_ok = det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                           u + v <= 1.0f && t > eps;
-      if (tri_ok && (!hit || t < dist)) {
+      if (AnyHit) {
+        found = tri_ok && t < ray_max;
+        hit = hit || found;
+      } else if (tri_ok && (!hit || t < dist)) {
         dist = t;
         leaf = node;
         hit = true;
       }
     }
-    node = (bhit && !is_leaf) ? __float_as_int(b.z) : __float_as_int(b.w);
+    node = found ? -1  // the any-hit early out
+                 : (bhit && !is_leaf) ? __float_as_int(b.z) : __float_as_int(b.w);
   }
   if (node >= 0) atomicAdd(truncated, 1);
   hit_out[r] = hit ? 1 : 0;
-  dist_out[r] = dist;
-  leaf_out[r] = leaf;
+  if (!AnyHit) {
+    dist_out[r] = dist;
+    leaf_out[r] = leaf;
+  }
   if (steps_out != nullptr) steps_out[r] = it;
+}
+
+template <bool AnyHit>
+int launch(const float* origin, const float* direction, const float* max_t,
+           const void* nodes, const void* leaves, int nrays, int n_leaves,
+           float eps, int max_steps, unsigned char* hit, float* dist, int* leaf,
+           int* steps, int* truncated, void* stream) {
+  const int block = 128;
+  const int grid = (nrays + block - 1) / block;
+  if (grid > 0) {
+    traverse_kernel<AnyHit><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        origin, direction, max_t, static_cast<const float4*>(nodes),
+        static_cast<const float4*>(leaves), nrays, n_leaves, eps, max_steps,
+        hit, dist, leaf, steps, truncated);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -126,15 +168,20 @@ extern "C" int rtbvh_traverse(const float* origin, const float* direction,
                               int n_leaves, float eps, int max_steps,
                               unsigned char* hit, float* dist, int* leaf,
                               int* steps, int* truncated, void* stream) {
-  const int block = 128;
-  const int grid = (nrays + block - 1) / block;
-  if (grid > 0) {
-    traverse_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        origin, direction, static_cast<const float4*>(nodes),
-        static_cast<const float4*>(leaves), nrays, n_leaves, eps, max_steps,
-        hit, dist, leaf, steps, truncated);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(origin, direction, nullptr, nodes, leaves, nrays,
+                       n_leaves, eps, max_steps, hit, dist, leaf, steps,
+                       truncated, stream);
+}
+
+extern "C" int rtbvh_traverse_any(const float* origin, const float* direction,
+                                  const float* max_t, const void* nodes,
+                                  const void* leaves, int nrays, int n_leaves,
+                                  float eps, int max_steps,
+                                  unsigned char* occluded, int* steps,
+                                  int* truncated, void* stream) {
+  return launch<true>(origin, direction, max_t, nodes, leaves, nrays, n_leaves,
+                      eps, max_steps, occluded, nullptr, nullptr, steps,
+                      truncated, stream);
 }
 
 extern "C" const char* rtbvh_error_string(int err) {

@@ -1,7 +1,9 @@
-"""Nearest-hit traversal, kernel K1 (``csrc/traverse.cu``): replaces the
-JAX package's HBM refill traversal (``ops/traverse_hbm.py``
-``_make_refill_kernel(any_hit=False)``).  Same contract as the plain
-``ops.traverse.traverse``, which runs instead for CPU tensors.
+"""Nearest-hit traversal, kernel K1, and any-hit traversal, kernel K4
+(both ``csrc/traverse.cu``): they replace the JAX package's HBM refill
+traversal (``ops/traverse_hbm.py`` ``_make_refill_kernel``, with
+``any_hit=False`` and ``any_hit=True``).  Same contracts as the plain
+``ops.traverse.traverse`` and ``traverse_any``, which run instead for CPU
+tensors.
 
 The kernel reads two tables, packed once per build (``pack_tables``):
 a node table [2n, 8] float32 (bbmin xyz, bbmax xyz, and the entry and
@@ -18,9 +20,11 @@ from .. import _kernels
 from ..core.types import BVH, HitRecord, Rays
 from . import traverse as traverse_plain
 
-launches = 0  # K1 launches (chip_smoke.py checks the main path reaches it)
+# launches of K1 and K4 (chip_smoke.py checks the main path reaches them)
+launches = 0
+any_launches = 0
 # per device: int32[1] count of rays that reached max_steps before the end
-# of their walk (their record is the best hit so far)
+# of their walk (their record is the result so far), K1 and K4 alike
 _truncated: dict = {}
 
 
@@ -50,12 +54,46 @@ def pack_tables(bvh: BVH):
 
 
 def with_tables(bvh: BVH) -> BVH:
-    """``bvh`` with its K1 tables packed (a no-op when they are, and on
+    """``bvh`` with its K1/K4 tables packed (a no-op when they are, and on
     the CPU, where the plain walk needs none)."""
     if bvh.node_table is not None or bvh.prim.device.type == "cpu":
         return bvh
     nodes, leaves = pack_tables(bvh)
     return bvh.replace(node_table=nodes, leaf_table=leaves)
+
+
+def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
+    """Check the rays and tables a launch reads; (bvh with its tables,
+    per-ray step cap, truncation counter)."""
+    origin, direction = rays.origin, rays.direction
+    dev = origin.device
+    if dev.type != "cuda" or direction.device != dev:
+        raise ValueError(f"{what}: rays on {origin.device} and "
+                         f"{direction.device}")
+    for name, t in (("origin", origin), ("direction", direction)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 3
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous [R, 3] "
+                             f"float32 tensor; got {t.dtype} {tuple(t.shape)}")
+    if origin.shape != direction.shape:
+        raise ValueError(f"{what}: origin and direction shapes differ")
+    bvh = with_tables(bvh)
+    n = bvh.n_leaves
+    for name, t, shape in (("node_table", bvh.node_table, (2 * n, 8)),
+                           ("leaf_table", bvh.leaf_table, (n, 12))):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{what}: {name} must be a 16-byte aligned contiguous "
+                f"{shape} float32 tensor on {dev}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if dev not in _truncated:
+        # a normal tensor even under inference_mode, so a reset outside it
+        # may zero it in place
+        with torch.inference_mode(False):
+            _truncated[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return bvh, (max_steps if max_steps > 0 else 4 * n), _truncated[dev]
 
 
 def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
@@ -69,32 +107,8 @@ def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
     if origin.device.type == "cpu":
         return traverse_plain.traverse(bvh, rays, epsilon, max_steps,
                                        return_steps)
+    bvh, max_steps, truncated = _prepare(bvh, rays, "traverse", max_steps)
     dev = origin.device
-    if dev.type != "cuda" or direction.device != dev:
-        raise ValueError(f"traverse: rays on {origin.device} and "
-                         f"{direction.device}")
-    for name, t in (("origin", origin), ("direction", direction)):
-        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 3
-                or not t.is_contiguous()):
-            raise ValueError(f"traverse: {name} must be a contiguous [R, 3] "
-                             f"float32 tensor; got {t.dtype} {tuple(t.shape)}")
-    if origin.shape != direction.shape:
-        raise ValueError("traverse: origin and direction shapes differ")
-    bvh = with_tables(bvh)
-    n = bvh.n_leaves
-    nodes, leaves = bvh.node_table, bvh.leaf_table
-    for name, t, shape in (("node_table", nodes, (2 * n, 8)),
-                           ("leaf_table", leaves, (n, 12))):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(
-                f"traverse: {name} must be a 16-byte aligned contiguous "
-                f"{shape} float32 tensor on {dev}; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    if max_steps <= 0:
-        max_steps = 4 * n
-
     nrays = origin.shape[0]
     hit = torch.empty(nrays, dtype=torch.bool, device=dev)
     dist = torch.empty(nrays, dtype=torch.float32, device=dev)
@@ -103,26 +117,69 @@ def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
     rec = HitRecord(hit=hit, distance=dist, leaf=leaf)
     if nrays == 0:
         return (rec, steps) if return_steps else rec
-    if dev not in _truncated:
-        # a normal tensor even under inference_mode, so a reset outside it
-        # may zero it in place
-        with torch.inference_mode(False):
-            _truncated[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.load().rtbvh_traverse(
-            origin.data_ptr(), direction.data_ptr(), nodes.data_ptr(),
-            leaves.data_ptr(), nrays, n, epsilon, max_steps,
-            hit.data_ptr(), dist.data_ptr(), leaf.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(), bvh.node_table.data_ptr(),
+            bvh.leaf_table.data_ptr(), nrays, bvh.n_leaves, epsilon,
+            max_steps, hit.data_ptr(), dist.data_ptr(), leaf.data_ptr(),
             steps.data_ptr() if return_steps else None,
-            _truncated[dev].data_ptr(), stream)
+            truncated.data_ptr(), stream)
     _kernels.check(err, "K1 traverse launch")
     launches += 1
     return (rec, steps) if return_steps else rec
+
+
+def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
+                 max_steps: int = 0, return_steps: bool = False):
+    """K4 for CUDA tensors, ``ops.traverse.traverse_any`` for CPU tensors:
+    [R] bool, occluded where a triangle meets the ray at t in
+    (epsilon, max_t).  ``max_t`` is a contiguous [R] float32 tensor.
+
+    ``max_steps`` caps each ray's walk (0 = 4n); a ray that reaches the
+    cap without an occluder reads False and adds one to
+    ``truncated_rays()``.  ``return_steps`` also returns the [R] int32
+    per-ray step counts."""
+    origin = rays.origin
+    if origin.device.type == "cpu":
+        return traverse_plain.traverse_any(bvh, rays, epsilon, max_t,
+                                           max_steps, return_steps)
+    bvh, max_steps, truncated = _prepare(bvh, rays, "traverse_any",
+                                         max_steps)
+    dev = origin.device
+    nrays = origin.shape[0]
+    if (not isinstance(max_t, torch.Tensor) or max_t.device != dev
+            or max_t.dtype != torch.float32 or tuple(max_t.shape) != (nrays,)
+            or not max_t.is_contiguous()):
+        raise ValueError(
+            f"traverse_any: max_t must be a contiguous [{nrays}] float32 "
+            f"tensor on {dev}")
+    occ = torch.empty(nrays, dtype=torch.bool, device=dev)
+    steps = torch.empty(nrays, dtype=torch.int32, device=dev)
+    if nrays == 0:
+        return (occ, steps) if return_steps else occ
+    global any_launches
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.load().rtbvh_traverse_any(
+            origin.data_ptr(), rays.direction.data_ptr(), max_t.data_ptr(),
+            bvh.node_table.data_ptr(), bvh.leaf_table.data_ptr(), nrays,
+            bvh.n_leaves, epsilon, max_steps, occ.data_ptr(),
+            steps.data_ptr() if return_steps else None,
+            truncated.data_ptr(), stream)
+    _kernels.check(err, "K4 traverse_any launch")
+    any_launches += 1
+    return (occ, steps) if return_steps else occ
 
 
 def traverse_for(backend: str):
     """The traversal a resolved backend names (``config.resolve_backend``):
     'cuda' -> ``traverse``, 'torch' -> ``ops.traverse.traverse``."""
     return traverse if backend == "cuda" else traverse_plain.traverse
+
+
+def traverse_any_for(backend: str):
+    """The any-hit traversal a resolved backend names: 'cuda' ->
+    ``traverse_any``, 'torch' -> ``ops.traverse.traverse_any``."""
+    return traverse_any if backend == "cuda" else traverse_plain.traverse_any

@@ -7,9 +7,10 @@ ids by plain tensor code, as in the JAX package.  On CUDA tensors the
 traversal is kernel K1 (``ops.traverse_cuda``) and the leaf-attribute
 and texture-quad row gathers are kernel K2 (``ops.gather_cuda``); the
 ``*_backend`` fields of the config pick them (see ``config.py``).
-
-Shadows and refraction are not ported yet: ``render_frame`` raises
-NotImplementedError for them.
+Shadow rays (``enable_shadows``) go through the any-hit traversal, kernel
+K4 on CUDA tensors; occlusion is discrete and computed under
+``.detach()``, like the hit ids.  ``enable_refraction`` adds the
+refraction chain and blends it over the reflection result.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .config import SORT_BACKENDS, RenderConfig, resolve_backend
 from .core.types import BVH, Camera, HitRecord, Rays, Scene
 from .ops import bvh as bvh_ops
 from .ops import gather_cuda
-from .ops.ieee import div
+from .ops.ieee import div, sqrt
 from .ops import morton as morton_ops
 from .ops import shade as shade_ops
 from .ops import sort as sort_ops
@@ -155,11 +156,49 @@ def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig) -> HitRecord:
     return traverse(bvh, rays, cfg.epsilon, cfg.max_traversal_steps)
 
 
+def light_in_ray_space(cfg: RenderConfig, wvp, dtype):
+    """``cfg.light_pos`` (world) -> tuple of 3 scalar tensors in tracing
+    space: 'reference' mode traces WVP-transformed geometry with no
+    w-divide, so the light rides the same transform; 'perspective' mode
+    traces in world space.  On ``wvp``'s device."""
+    light = torch.tensor(cfg.light_pos, dtype=dtype, device=wvp.device)
+    if cfg.camera_mode == "reference":
+        light = transform_points(light[None], wvp.to(dtype))[0]
+    return (light[0], light[1], light[2])
+
+
+def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
+    """Per-ray visibility factor from one any-hit shadow ray toward the
+    light: ``cfg.shadow_factor`` where a primary hit is occluded, else 1.
+    Discrete, and computed under ``.detach()``, like the hit ids."""
+    t = rec.distance.detach()
+    o3 = tuple(o.detach() for o in o3)
+    d3 = tuple(d.detach() for d in d3)
+    light3 = tuple(x.detach() for x in light3)
+    hx = tuple(o3[i] + d3[i] * t for i in range(3))
+    L = tuple(light3[i] - hx[i] for i in range(3))
+    dist = sqrt(shade_ops.dot3(L, L))
+    invd = 1.0 / torch.clamp(dist, min=1e-30)
+    dirn = tuple(L[i] * invd for i in range(3))
+    # offset along the shadow direction; stop just short of the light
+    so = tuple(hx[i] + dirn[i] * cfg.ray_offset for i in range(3))
+    max_t = dist * (1.0 - 1e-4)
+    # dead lanes (primary misses) start far outside every box
+    so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
+    traverse_any = traverse_cuda.traverse_any_for(
+        resolve_traversal_backend(cfg))
+    occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
+                       max_t.contiguous(), cfg.max_traversal_steps)
+    occ = occ & rec.hit
+    return torch.where(occ, t.new_full((), cfg.shadow_factor), 1.0)
+
+
 def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
-                   tex_quads, cfg: RenderConfig):
+                   tex_quads, cfg: RenderConfig, vis=None):
     """Re-evaluation of a hit from its leaf id: position, normal, surface
-    colour (renderPixel * specular) and shininess.  One [40]-channel row
-    gather per ray (K2 on CUDA) fetches everything."""
+    colour (renderPixel * specular, the diffuse term scaled by the shadow
+    factor ``vis`` when given), shininess, alpha and optical density.
+    One [40]-channel row gather per ray (K2 on CUDA) fetches everything."""
     gather = gather_cuda.gather_for(
         resolve_backend(cfg, "shade_gather_backend"))
     A = gather(bvh.leaf_attrs, rec.leaf)
@@ -203,20 +242,26 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
     tex = shade_ops.sample_texture_quads(
         tex_quads, scene.tex_hw, tex_id, uvu, uvv, hmax, wmax,
         backend=resolve_backend(cfg, "texture_gather_backend"))
-    # saturate(ambient + diffuse * tex) * specular
+    # saturate(ambient + vis * diffuse * tex) * specular
+    diffuse = [a(28 + c) if vis is None else vis * a(28 + c) for c in range(4)]
     color = tuple(
-        torch.clamp(a(24 + c) + a(28 + c) * tex[c], 0.0, 1.0) * a(32 + c)
+        torch.clamp(a(24 + c) + diffuse[c] * tex[c], 0.0, 1.0) * a(32 + c)
         for c in range(4))
-    return hit_loc, normal, color, a(36)
+    return hit_loc, normal, color, a(36), a(38), a(37)
 
 
 def _launch_soa(scene: Scene, bvh: BVH, o3, d3, cfg: RenderConfig,
-                tex_quads, rec=None):
-    """Primary-ray pass: (color4, (refl_o3, refl_d3), refl_intensity)."""
+                tex_quads, light3=None, rec=None):
+    """Primary-ray pass: (color4, (refl_o3, refl_d3), refl_intensity,
+    (refr_o3, refr_d3), refr_intensity).  Shadow rays are fired when
+    ``cfg.enable_shadows`` and ``light3`` is given."""
     if rec is None:
         rec = _traverse_ids(bvh, _rays_of(o3, d3), cfg)
-    hit_loc, normal, hit_color, shininess = _shade_hit_soa(
-        scene, bvh, o3, d3, rec, tex_quads, cfg)
+    vis = None
+    if cfg.enable_shadows and light3 is not None:
+        vis = _shadow_vis(bvh, o3, d3, rec, light3, cfg)
+    hit_loc, normal, hit_color, shininess, alpha, optical = _shade_hit_soa(
+        scene, bvh, o3, d3, rec, tex_quads, cfg, vis)
     hit = rec.hit
     bg = cfg.background
     color = tuple(torch.where(hit, hit_color[c], bg[c]) for c in range(4))
@@ -228,7 +273,18 @@ def _launch_soa(scene: Scene, bvh: BVH, o3, d3, cfg: RenderConfig,
     refl_o = tuple(torch.where(hit, hit_loc[i] + normal[i] * cfg.ray_offset,
                                o3[i]) for i in range(3))
     refl_d = tuple(torch.where(hit, refl_dir[i], d3[i]) for i in range(3))
-    return color, (refl_o, refl_d), intensity
+
+    # refraction spawn: into the surface; total internal reflection
+    # spawns nothing
+    refr_dir, tir = _refracted(d3, normal, optical)
+    live_q = hit & ~tir
+    refr_intensity = torch.where(
+        live_q, (1.0 - alpha) * cfg.refraction_decay, 0.0)
+    refr_o = tuple(torch.where(hit, hit_loc[i] - normal[i] * cfg.ray_offset,
+                               o3[i]) for i in range(3))
+    refr_d = tuple(torch.where(live_q, refr_dir[i], d3[i]) for i in range(3))
+    return (color, (refl_o, refl_d), intensity, (refr_o, refr_d),
+            refr_intensity)
 
 
 def _bounce_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
@@ -240,16 +296,10 @@ def _bounce_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
     # dead rays start far outside every box: their walk ends on step one
     o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
     rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg)
-    hit_loc, normal, hit_color, shininess = _shade_hit_soa(
+    hit_loc, normal, hit_color, shininess, _, _ = _shade_hit_soa(
         scene, bvh, o3, d3, rec, tex_quads, cfg)
     hit = rec.hit & live
-    bg = cfg.background
-
-    new_color = tuple(
-        torch.where(live, color[c] + intensity
-                    * (torch.where(hit, hit_color[c], bg[c]) - color[c]),
-                    color[c])
-        for c in range(4))
+    new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
     upd = live & hit
     new_intensity = torch.where(
         upd, div(intensity * shininess, 1000.0) * cfg.reflection_decay, 0.0)
@@ -259,6 +309,50 @@ def _bounce_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
                   for i in range(3))
     new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
     return new_color, new_o, new_d, new_intensity
+
+
+def _bounce_refract_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
+                        cfg: RenderConfig, tex_quads):
+    """One refraction (transmission) pass: as ``_bounce_soa`` but through
+    the surface.  The same colour lerp; the intensity decays by the hit
+    material's transparency (1 - alpha); the respawn is offset into the
+    surface with a refracted direction; total internal reflection kills
+    the ray."""
+    live = intensity > cfg.intensity_min
+    o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
+    rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg)
+    hit_loc, normal, hit_color, _, alpha, optical = _shade_hit_soa(
+        scene, bvh, o3, d3, rec, tex_quads, cfg)
+    hit = rec.hit & live
+    new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
+
+    new_dir, tir = _refracted(d3, normal, optical)
+    upd = live & hit & ~tir
+    new_intensity = torch.where(
+        upd, intensity * (1.0 - alpha) * cfg.refraction_decay, 0.0)
+    new_o = tuple(torch.where(upd, hit_loc[i] - normal[i]
+                              * cfg.bounce_ray_offset, o3[i])
+                  for i in range(3))
+    new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
+    return new_color, new_o, new_d, new_intensity
+
+
+def _refracted(d3, normal, eta):
+    """(unit refracted direction, total internal reflection mask): HLSL
+    refract gives the zero vector where it reflects totally."""
+    raw = shade_ops.refract3(d3, normal, eta)
+    return shade_ops.normalize3(raw), shade_ops.dot3(raw, raw) == 0.0
+
+
+def _lerp_color(color, intensity, live, hit, hit_color, cfg: RenderConfig):
+    """A bounce's colour: live rays lerp toward the surface they hit, or
+    toward the background on a miss; dead rays keep their colour."""
+    bg = cfg.background
+    return tuple(
+        torch.where(live, color[c] + intensity
+                    * (torch.where(hit, hit_color[c], bg[c]) - color[c]),
+                    color[c])
+        for c in range(4))
 
 
 def _rays_of(o3, d3):
@@ -292,22 +386,41 @@ def _frame_tex_quads(scene: Scene, cfg: RenderConfig):
 
 
 def _shade_rays_one(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
-                    tex_quads, rec=None):
-    """Launch + bounce chain for one batch of rays -> [R, 4] colour."""
+                    tex_quads, light3=None, rec=None):
+    """Launch + bounce chain (+ the refraction chain) for one batch of
+    rays -> [R, 4] colour.  Shadow rays apply to primary hits; the
+    bounces keep the unshadowed lerp chain."""
     o3, d3 = _split_rays(rays)
-    color, (ro, rd), intensity = _launch_soa(scene, bvh, o3, d3, cfg,
-                                             tex_quads, rec)
+    color, (ro, rd), intensity, (qo, qd), refr_int = _launch_soa(
+        scene, bvh, o3, d3, cfg, tex_quads, light3, rec)
     for _ in range(cfg.bounces):
         color, ro, rd, intensity = _bounce_soa(
             scene, bvh, color, ro, rd, intensity, cfg, tex_quads)
+    if cfg.enable_refraction:
+        # the chain carries "the colour seen through the surface": it
+        # starts white at intensity 1 (the spawn's transparency is applied
+        # once, in the blend), and deeper transparent hits recurse with
+        # their own (1 - alpha)
+        chain_int = torch.where(refr_int > 0.0, torch.ones_like(refr_int),
+                                0.0)
+        rcolor = tuple(torch.ones_like(color[c]) for c in range(4))
+        for _ in range(cfg.bounces):
+            rcolor, qo, qd, chain_int = _bounce_refract_soa(
+                scene, bvh, rcolor, qo, qd, chain_int, cfg, tex_quads)
+        # present: blend it over the reflection result by the primary
+        # transparency
+        color = tuple(color[c] + refr_int * (rcolor[c] - color[c])
+                      for c in range(4))
     return torch.stack(color, dim=-1)
 
 
-def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig):
+def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
+               light3=None):
     """The whole per-ray pipeline, optionally in sequential chunks of
     ``cfg.ray_chunk`` rays.  With ``cull_empty_chunks`` a chunk whose
-    primary rays all miss skips shading: it is pure background (its
-    spawns carry zero intensity), so the image is the same."""
+    primary rays all miss skips shading and its shadow rays: it is pure
+    background (its spawns carry zero intensity), so the image is the
+    same.  ``light3`` (``light_in_ray_space``) is needed for shadows."""
     if resolve_traversal_backend(cfg) == "cuda":
         # pack K1's tables once per build: every traversal reuses them
         bvh = traverse_cuda.with_tables(bvh)
@@ -315,7 +428,7 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig):
     nrays = rays.origin.shape[0]
     chunk = cfg.ray_chunk
     if not (chunk > 0 and nrays > chunk):
-        return _shade_rays_one(scene, bvh, rays, cfg, tex_quads)
+        return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
     if nrays % chunk:
         raise ValueError(f"ray_chunk {chunk} must divide ray count {nrays}")
     bg = torch.tensor(cfg.background, dtype=cfg.torch_dtype,
@@ -329,20 +442,18 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig):
             if not bool(rec.hit.any()):
                 out.append(bg)
                 continue
-        out.append(_shade_rays_one(scene, bvh, r, cfg, tex_quads, rec))
+        out.append(_shade_rays_one(scene, bvh, r, cfg, tex_quads, light3,
+                                   rec))
     return torch.cat(out)
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     """One full frame -> [height, width, 4] float image: rebuild the
-    LBVH, launch primary rays, run ``cfg.bounces`` reflection passes.
+    LBVH, launch primary rays (with shadow rays when
+    ``cfg.enable_shadows``), run ``cfg.bounces`` reflection passes (and
+    refraction passes when ``cfg.enable_refraction``), present.
     ``scene`` and ``camera`` must be on the same device; the frame is
     rendered there."""
-    if cfg.enable_shadows:
-        raise NotImplementedError(
-            "shadows (any-hit traversal, kernel K4) are not ported yet")
-    if cfg.enable_refraction:
-        raise NotImplementedError("refraction is not ported yet")
     if cfg.ray_tile > 0:
         check_tile_order(cfg.ray_tile_order)
     wvp, wv = camera_matrices(camera, cfg.width, cfg.height)
@@ -355,21 +466,25 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     else:
         raise ValueError(f"unknown camera_mode {cfg.camera_mode!r}")
     rays = make_rays(camera, cfg)
+    light3 = None
+    if cfg.enable_shadows:
+        light3 = light_in_ray_space(cfg, wvp, cfg.torch_dtype)
 
     w, h = cfg.width, cfg.height
     st = structured_tile_shape(w, h, cfg.ray_tile) if cfg.ray_tile > 0 else None
     if st is not None:
         th, tw = st
         rays = tile_rays(rays, w, h, th, tw, cfg.ray_tile_order)
-        color = shade_rays(scene, bvh, rays, cfg)
+        color = shade_rays(scene, bvh, rays, cfg, light3)
         color = torch.stack(
             [untile_flat(color[:, c], w, h, th, tw, cfg.ray_tile_order)
              for c in range(4)], dim=-1)
     elif cfg.ray_tile > 0:
         perm, inv = tile_order(w, h, cfg.ray_tile)
-        color = shade_rays(scene, bvh, permute_rays(rays, perm), cfg)
+        color = shade_rays(scene, bvh, permute_rays(rays, perm), cfg,
+                           light3)
         color = color[torch.as_tensor(inv, device=color.device)]
     else:
-        color = shade_rays(scene, bvh, rays, cfg)
+        color = shade_rays(scene, bvh, rays, cfg, light3)
     return color.reshape(h, w, 4)
 

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on the GPU.
+"""Kernels K1, K2 and K4 against their plain PyTorch versions on the GPU.
 
 Marked ``gpu``: they skip without a CUDA device (a CUDA kernel has no
 CPU mode; the CPU tests hold the plain versions against the JAX
@@ -6,9 +6,10 @@ package).  On a GPU machine, which need not have JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
-Tolerances: K2 exact; K1 hit and leaf exact, distance exact (the kernel
-is built with -fmad=false and IEEE division, so it rounds as the plain
-version's separate PyTorch ops do).
+Tolerances: K2 exact; K1 hit and leaf exact, distance exact; K4's
+occlusion flags exact, max_t one ulp around hit distances included (the
+kernels are built with -fmad=false and IEEE division, so they round as
+the plain versions' separate PyTorch ops do).
 """
 
 import numpy as np
@@ -98,6 +99,81 @@ def test_k1_step_cap_counts_truncated_rays(dev):
     want = traverse.traverse(bvh, rays, 0.01, max_steps=5)
     _assert_same(got, want)
     full = traverse.traverse(bvh, rays, 0.01, return_steps=True)[1]
+    assert traverse_cuda.truncated_rays() == int((full > 5).sum()) > 0
+    traverse_cuda.reset_truncated()
+    assert traverse_cuda.truncated_rays() == 0
+
+
+def _max_t(dev, nrays, seed, lo=5.0, hi=300.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(lo, hi, nrays).astype(np.float32)).to(dev)
+
+
+def test_k4_matches_plain_random_rays(dev):
+    """Random max_t, and max_t one ulp above, at, and one ulp below each
+    ray's nearest hit distance."""
+    from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
+
+    bvh = _bvh(dev)
+    rays = _rays(dev, 20000, 5)
+    max_t = _max_t(dev, 20000, 6)
+    traverse_cuda.reset_truncated()
+    before = traverse_cuda.any_launches
+    got, steps = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t,
+                                            return_steps=True)
+    want, wsteps = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                         return_steps=True)
+    assert traverse_cuda.any_launches == before + 1
+    assert 0 < int(want.sum()) < rays.origin.shape[0]
+    assert torch.equal(got, want)
+    assert torch.equal(steps, wsteps)
+    rec = traverse.traverse(bvh, rays, 0.01)
+    t = torch.where(rec.hit, rec.distance, 100.0)
+    for m in (torch.nextafter(t, torch.full_like(t, float("inf"))), t,
+              torch.nextafter(t, torch.zeros_like(t))):
+        occ = traverse_cuda.traverse_any(bvh, rays, 0.01, m.contiguous())
+        assert torch.equal(occ, traverse.traverse_any(bvh, rays, 0.01, m))
+    assert traverse_cuda.truncated_rays() == 0
+
+
+def test_k4_on_plane_rays_match_plain(dev):
+    """direction (0, 0, 1) and origins exactly on box planes: the slab
+    test meets 0 * inf = NaN and must miss, as torch.minimum does."""
+    from raytracebvh_tpu_torch.core.types import Rays
+    from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
+
+    bvh = _bvh(dev, 500, 2)
+    n = bvh.n_leaves
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    nodes = torch.randint(0, 2 * n - 1, (4096,), generator=gen).to(dev)
+    lo, hi = bvh.bbmin[nodes], bvh.bbmax[nodes]
+    o = 0.5 * (lo + hi)
+    o[:2048, 0] = lo[:2048, 0]
+    o[2048:, 1] = hi[2048:, 1]
+    o[:, 2] = lo[:, 2] - 1.0
+    o = torch.where(torch.isfinite(o), o, 0.0).contiguous()
+    d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(o).contiguous()
+    rays = Rays(o, d)
+    max_t = torch.full((4096,), 1e3, device=dev)
+    got = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t)
+    want = traverse.traverse_any(bvh, rays, 0.01, max_t)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+
+
+def test_k4_step_cap_counts_truncated_rays(dev):
+    from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
+
+    bvh = _bvh(dev)
+    rays = _rays(dev, 4096, 8)
+    max_t = _max_t(dev, 4096, 9)
+    traverse_cuda.reset_truncated()
+    got = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t, max_steps=5)
+    assert torch.equal(got, traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                                  max_steps=5))
+    occ, full = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                      return_steps=True)
+    # cut: rays whose full walk is longer than 5 steps
     assert traverse_cuda.truncated_rays() == int((full > 5).sum()) > 0
     traverse_cuda.reset_truncated()
     assert traverse_cuda.truncated_rays() == 0

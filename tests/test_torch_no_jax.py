@@ -1,5 +1,5 @@
-"""The port imports and renders with JAX and flax blocked: it must run on
-a machine that has neither."""
+"""The port imports and renders (shadows and refraction included) with JAX
+and flax blocked: it must run on a machine that has neither."""
 
 import os
 import re
@@ -16,10 +16,12 @@ import torch
 import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models.procedural import random_triangles
 from raytracebvh_tpu_torch.cli import render
-img = T.render_frame(random_triangles(50, seed=2, with_texture=True),
+img = T.render_frame(random_triangles(50, seed=2, with_texture=True,
+                                      alpha=0.4, optical_density=0.7),
                      T.Camera.default(),
                      T.RenderConfig(width=16, height=16, bounces=1,
-                                    ortho_scale=1.0))
+                                    ortho_scale=1.0, enable_shadows=True,
+                                    enable_refraction=True))
 assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
 assert not any(m in ("jax", "raytracebvh_tpu")
                or m.startswith(("jax.", "flax", "raytracebvh_tpu."))

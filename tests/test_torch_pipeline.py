@@ -86,8 +86,10 @@ def test_tpu_backend_strings_raise(field, value):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(enable_shadows=True), NotImplementedError),
-    (dict(enable_refraction=True), NotImplementedError),
+    # shadows and refraction are ported (tests/test_torch_shadows.py,
+    # tests/test_torch_refraction.py); values no package takes still raise
+    (dict(camera_mode="orthographic"), ValueError),
+    (dict(texture_dtype="bfloat16"), ValueError),
     (dict(sort_backend="radix"), ValueError),
     (dict(sort_backend="bitonic"), ValueError),
     (dict(ray_tile=16, ray_tile_order="diagonal"), ValueError),
@@ -97,6 +99,20 @@ def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):
         T.render_frame(ts, T.Camera.default(),
                        T.RenderConfig(width=16, height=16, bounces=0, **kw))
+
+
+@pytest.mark.parametrize("kw,passes", [
+    # bench.py counts W*H*(1 + bounces) rays a frame (:79) and W*H*2 for
+    # a shadowed frame with no bounce (:126, :305)
+    (dict(bounces=1), 2),
+    (dict(bounces=0, enable_shadows=True), 2),
+    (dict(bounces=1, enable_refraction=True), 3),
+    (dict(bounces=3, enable_shadows=True, enable_refraction=True), 8),
+])
+def test_traversal_passes(kw, passes):
+    from raytracebvh_tpu_torch.config import traversal_passes
+
+    assert traversal_passes(T.RenderConfig(**kw)) == passes
 
 
 def test_cli_renders_bmp(tmp_path):
@@ -114,4 +130,5 @@ def test_cli_renders_bmp(tmp_path):
     assert read_bmp(str(out)).shape == (24, 32, 3)
     if not torch.cuda.is_available():
         assert cli.main(["--obj", str(obj), "--device", "cuda"]) == 1
-    assert cli.main(["--obj", str(tmp_path / "missing.obj")]) == 1
+    assert cli.main(["--obj", str(tmp_path / "missing.obj"),
+                     "--device", "cpu"]) == 1
