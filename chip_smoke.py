@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version at the main path's shapes, renders seven 1920x1080 frames
-through ``render_frame`` (forward, shadowed and refractive), and runs the
+through ``render_frame`` (forward, shadowed and refractive), runs the
+inverse-rendering training step at 1920x1080 on two frames, and runs the
 render CLI.
 
     python3 chip_smoke.py
@@ -10,17 +11,23 @@ render CLI.
 Phases (one line of output each, or more):
   1. device: the card's name and power limit (nvidia-smi)
   2. build: nvcc over raytracebvh_tpu_torch/csrc/*.cu, with its seconds
-  3. kernels: K1 (nearest-hit traversal), K2 (row gather) and K4 (any-hit
-     traversal) against their plain versions on the very inputs the main
-     path hands them; their times beside the plain versions' (CUDA events,
-     median of 5), their bounds, and a library call where one computes the
-     same function
+  3. kernels: K1 (nearest-hit traversal), K2 (row gather), K4 (any-hit
+     traversal) and K3 (K2's backward, the scatter-add) against their plain
+     versions on the very inputs the main path hands them (K3 also against
+     a float64 sum, and against itself: two launches, 0 differing bits);
+     their times beside the plain versions' (CUDA events, median of 5),
+     their bounds, and a library call where one computes the same function
   4. main path: the dense, sparse and large frames, then dense_shadows,
      sparse_shadows, large_shadows and refract; every kernel's launch
      count over each frame (counts set to 0 just before it, read just
      after); frame ms and Mrays/s (median of 5 after one warm-up); each
      image but sparse's and large's against the all-plain-PyTorch render
-  5. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
+  5. training: models.inverse.loss_fn + backward() and train_step on
+     sparse_train (bench.py:319-320's cfg_bwd) and dense_train; launch
+     counts (K3 twice a step), loss bit-equal to the all-plain step,
+     gradients within GRAD_TOL of it, 3 Adam steps; step ms (median of 5),
+     Mrays/s and peak device memory
+  6. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
      the 3 072-triangle scene, plain and with --shadows --refract
 
 The second-to-last line is {"kernels": [...]}; the last line is
@@ -46,6 +53,19 @@ K1_SAMPLE_BOUNCE = 65536  # first-bounce rays held against the plain walk
 K1_SAMPLE_LARGE = 262144  # large-tree primary rays held against it
 K4_SAMPLE_LARGE = 262144  # large-tree shadow rays held against it
 MATCH_MIN = 0.9999  # K1 hit/leaf agreement, and image pixels within 1e-4
+# K3 against the float64 sum of the same float32 inputs, per row: |error|
+# over the row's largest |value| (csrc/scatter.cu bounds its fixed-point
+# error; the float32 output's rounding alone is up to 6e-8)
+K3_F64_TOL = 1e-6
+# K3 against its plain float32 version, per row likewise, as every kernel
+# here is held to its plain version (the plain version's own distance from
+# the float64 sum is logged, not checked, so this is not implied by the
+# check above): a float32 sum of up to ~2 M terms strays up to 4.5e-4
+K3_PLAIN_TOL = 1e-3
+# training gradients, kernels against all-plain: |diff| over each tensor's
+# largest |grad| (above the float32 sums' 4.5e-4)
+GRAD_TOL = 1e-3
+TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations of one node step of a walk: the slab test (6 sub,
@@ -116,6 +136,38 @@ def frames_on(device):
         "refract": (glass_scene(small), aimed, dense.replace(
             enable_refraction=True)),
     }
+
+
+def train_frames(frames):
+    """name -> (scene, camera, cfg) of the training step at 1080p.
+    sparse_train is bench.py:319-320's cfg_bwd (its traversal_backend
+    'hbm' names the TPU's K1; the port's 'auto' is K1 too) on the sparse
+    frame's scene and camera; dense_train is the same config on the dense
+    frame, aimed with ortho_scale=27 (frames_on says why)."""
+    small, cam, sparse = frames["sparse"]
+    _, aimed, dense = frames["dense"]
+    cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8")
+    check(dense == cfg_bwd.replace(ortho_scale=27.0),
+          "dense_train is not cfg_bwd with ortho_scale=27")
+    return {"sparse_train": (small, cam, cfg_bwd),
+            "dense_train": (small, aimed, dense)}
+
+
+def plain(cfg):
+    """``cfg`` with every kernel replaced by its plain PyTorch version."""
+    return cfg.replace(traversal_backend="torch", shade_gather_backend="torch",
+                       texture_gather_backend="torch")
+
+
+def value_and_grad(params, scene, cam, target, cfg):
+    """loss_fn + backward(): the loss and the three gradients."""
+    from raytracebvh_tpu_torch.models.inverse import loss_fn
+
+    for p in params:
+        p.grad = None
+    loss = loss_fn(params, scene, cam, target, cfg)
+    loss.backward()
+    return loss.detach(), [p.grad for p in params]
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -422,6 +474,72 @@ def phase_kernels(frames):
     return result
 
 
+def row_rel_err(got, want):
+    """max over rows of max |got - want| / max |want| (rows of want all 0
+    count their largest |got|)."""
+    err = (got.double() - want.double()).abs().amax(1)
+    scale = want.double().abs().amax(1)
+    return float(torch.where(scale > 0, err / scale.clamp(min=1e-300),
+                             err).max())
+
+
+def phase_k3(train):
+    """K3 on the (g, idx) that the dense training step's backward hands
+    it: 2 073 600 ids into the 3 072-row leaf-attribute table."""
+    from raytracebvh_tpu_torch.models.inverse import init_params
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    scene, cam, cfg = train["dense_train"]
+    target = torch.zeros((H, W, 4), device=scene.device)
+    with Recorder(gather_cuda, "scatter_add_rows") as k3:
+        value_and_grad(init_params(scene), scene, cam, target, cfg)
+    torch.cuda.synchronize()
+    check(len(k3.calls) == 2,
+          f"the dense training step made {len(k3.calls)} K3 calls")
+    errs = []
+    for what, ((g, idx, rows), _) in zip(("call 1", "call 2"), k3.calls):
+        valid = (idx >= 0) & (idx < rows)
+        ref = torch.zeros((rows, g.shape[0]), dtype=torch.float64,
+                          device=g.device).index_add_(
+            0, idx[valid].long(), g.t()[valid].double())
+        got = gather_cuda.scatter_add_rows(g, idx, rows)
+        again = gather_cuda.scatter_add_rows(g, idx, rows)
+        flat = gather_cuda.scatter_add_rows_torch(g, idx, rows)
+        torch.cuda.synchronize()
+        nbits = int((got.view(torch.int32) != again.view(torch.int32)).sum())
+        rel = row_rel_err(got, ref)
+        rel_plain = row_rel_err(flat, ref)
+        rel_vs_plain = row_rel_err(got, flat)
+        err = float((got - flat).abs().max())
+        nrows = int(torch.unique(idx[valid]).numel())
+        zero = int((g.abs().amax(0) == 0).sum())
+        log(f"  K3 dense_train {what}: g {tuple(g.shape)}, {idx.numel()} ids into "
+            f"{rows} rows ({nrows} distinct, {zero} all-zero columns); "
+            f"against the float64 sum, per row: K3 {rel:.3g}, plain float32 "
+            f"{rel_plain:.3g}; K3 against plain {rel_vs_plain:.3g} (max "
+            f"|diff| {err:.3g}); two launches differ in {nbits} cells")
+        check(bool(torch.isfinite(got).all()), f"K3 {what}: non-finite")
+        check(nbits == 0, f"K3 {what}: {nbits} cells differ between launches")
+        check(rel <= K3_F64_TOL, f"K3 {what}: {rel} from the float64 sum")
+        check(rel_vs_plain <= K3_PLAIN_TOL,
+              f"K3 {what}: {rel_vs_plain} from its plain version")
+        errs.append((err, float((got.double() - ref).abs().max())))
+    g, idx, rows = k3.calls[-1][0]
+    ms = cuda_ms(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
+    plain_ms = cuda_ms(lambda: gather_cuda.scatter_add_rows_torch(g, idx, rows))
+    lib_ms = cuda_ms(lambda: torch.zeros((rows, g.shape[0]), device=g.device)
+                     .index_add_(0, idx, g.t()))
+    nbytes = g.numel() * 4 + idx.numel() * 4 + rows * g.shape[0] * 4
+    b_ms, b_by = bound(nbytes, g.numel())
+    log(f"  K3 time, dense_train call 2: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"index_add_ {lib_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} bytes, "
+        f"by {b_by})")
+    return dict(max_abs_err=max(e[0] for e in errs),
+                max_abs_err_f64=max(e[1] for e in errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def hit_mask(img, cfg):
     bg = torch.tensor(cfg.background, device=img.device)
     return ~(img - bg).abs().lt(1e-6).all(-1)
@@ -435,14 +553,27 @@ def render_counted(name, scene, cam, cfg):
     from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
 
     with Recorder(pipeline, "_launch_soa") as launch, torch.inference_mode():
-        traverse_cuda.launches = traverse_cuda.any_launches = 0
-        gather_cuda.launches = 0
+        reset_counts()
         img = render_frame(scene, cam, cfg)
         torch.cuda.synchronize()
-        counts = {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
-                  "K4": traverse_cuda.any_launches}
+        counts = read_counts()
     refr = [out[4] for out in launch.results]
     return img, counts, refr
+
+
+def reset_counts():
+    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+
+    traverse_cuda.launches = traverse_cuda.any_launches = 0
+    gather_cuda.launches = gather_cuda.scatter_launches = 0
+
+
+def read_counts():
+    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+
+    return {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
+            "K3": gather_cuda.scatter_launches,
+            "K4": traverse_cuda.any_launches}
 
 
 def phase_main_path(frames):
@@ -452,7 +583,7 @@ def phase_main_path(frames):
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.ops import traverse_cuda
 
-    images, totals = {}, {"K1": 0, "K2": 0, "K4": 0}
+    images, totals = {}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     traverse_cuda.reset_truncated()
     for name, (scene, cam, cfg) in frames.items():
         img, n, refr = render_counted(name, scene, cam, cfg)
@@ -465,6 +596,7 @@ def phase_main_path(frames):
         check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
         check(rate > 0, f"{name}: no ray hit")
         check(n["K1"] > 0 and n["K2"] > 0, f"{name}: a kernel was not launched")
+        check(n["K3"] == 0, f"{name}: K3 launched in a forward frame")
         if not cfg.enable_shadows:
             check(n["K4"] == 0, f"{name}: K4 launched without shadows")
         elif cfg.ray_chunk:
@@ -500,12 +632,9 @@ def phase_main_path(frames):
     for name in ("dense", "dense_shadows", "sparse_shadows", "large_shadows",
                  "refract"):
         scene, cam, cfg = frames[name]
-        plain_cfg = cfg.replace(traversal_backend="torch",
-                                shade_gather_backend="torch",
-                                texture_gather_backend="torch")
         with torch.inference_mode():
             t0 = time.perf_counter()
-            ref = render_frame(scene, cam, plain_cfg)
+            ref = render_frame(scene, cam, plain(cfg))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         diff = (images[name] - ref).abs().amax(-1)
@@ -514,6 +643,76 @@ def phase_main_path(frames):
             f"{float(diff.max()):.3g}, {frac:.6f} of pixels within 1e-4; "
             f"plain render {ms:.1f} ms/frame")
         check(frac >= MATCH_MIN, f"{name} image: only {frac} of pixels match")
+    return totals
+
+
+def phase_train(train):
+    """loss_fn + backward() and train_step at 1080p on each training
+    frame; returns the launch counts summed over the frames."""
+    from raytracebvh_tpu_torch.config import traversal_passes
+    from raytracebvh_tpu_torch.models.inverse import (InverseParams,
+                                                      init_params,
+                                                      make_optimizer,
+                                                      train_step)
+
+    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for name, (scene, cam, cfg) in train.items():
+        target = torch.zeros((H, W, 4), device=scene.device)
+        params = init_params(scene)
+        reset_counts()
+        loss, grads = value_and_grad(params, scene, cam, target, cfg)
+        torch.cuda.synchronize()
+        n = read_counts()
+        log(f"  {name}: loss {float(loss)!r}, launches {n}")
+        check(n == {"K1": 2, "K2": 4, "K3": 2, "K4": 0},
+              f"{name}: launches {n}, not K1 2, K2 4, K3 2, K4 0")
+        for k in totals:
+            totals[k] += n[k]
+        t0 = time.perf_counter()
+        loss_p, grads_p = value_and_grad(init_params(scene), scene, cam,
+                                         target, plain(cfg))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(loss)) and torch.equal(loss, loss_p),
+              f"{name}: loss {float(loss)!r}, all-plain {float(loss_p)!r}")
+        for field, g, gp in zip(InverseParams._fields, grads, grads_p):
+            scale = float(gp.abs().max())
+            rel = float((g - gp).abs().max()) / max(scale, 1e-30)
+            log(f"  {name} d{field}: max |grad| {scale:.4g}, kernels against "
+                f"all-plain {rel:.3g} of it")
+            check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                  f"{name}: d{field} non-finite or all zero")
+            check(rel <= GRAD_TOL, f"{name}: d{field} {rel} off all-plain")
+        log(f"  {name}: all-plain loss_fn + backward {plain_s * 1e3:.1f} ms")
+
+        params = init_params(scene)
+        start = [p.detach().clone() for p in params]
+        opt = make_optimizer(params, 1e-2)
+        reset_counts()
+        losses = [float(train_step(params, opt, scene, cam, target, cfg))
+                  for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        n = read_counts()
+        moved = [float((p.detach() - p0).abs().max())
+                 for p, p0 in zip(params, start)]
+        log(f"  {name}: {TRAIN_STEPS} train_steps, losses {losses}, largest "
+            f"parameter moves {moved}, launches {n}")
+        check(all(np.isfinite(losses)), f"{name}: train_step losses {losses}")
+        check(all(m > 0 for m in moved), f"{name}: a parameter did not move")
+        check(n["K3"] == 2 * TRAIN_STEPS, f"{name}: {n['K3']} K3 launches")
+        for k in totals:
+            totals[k] += n[k]
+
+        ms = wall_ms(lambda: value_and_grad(params, scene, cam, target, cfg))
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grad(params, scene, cam, target, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rays = W * H * traversal_passes(cfg)
+        log(f"  {name}: loss_fn + backward {ms:.2f} ms/step, "
+            f"{rays / max(ms, 1e-9) / 1e3:.2f} Mrays/s ({rays} rays), peak "
+            f"device memory {peak / 2**30:.3f} GiB")
+    log(f"  training launches: {totals}")
     return totals
 
 
@@ -610,13 +809,18 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    frames = frames_on(dev)
     try:
+        frames = frames_on(dev)
+        train = train_frames(frames)
         log("phase 3 kernels against their plain versions:")
         kern = phase_kernels(frames)
+        kern["K3"] = phase_k3(train)
         log("phase 4 main path:")
         launches = phase_main_path(frames)
-        log("phase 5 cli:")
+        log("phase 5 training:")
+        for k, v in phase_train(train).items():
+            launches[k] += v
+        log("phase 6 cli:")
         phase_cli(frames["refract"][0], dev.type)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
@@ -625,12 +829,14 @@ def main() -> int:
                       "raytracebvh_tpu/ops/traverse_hbm.py:652"),
                "K2": ("raytracebvh_tpu_torch/csrc/gather.cu",
                       "raytracebvh_tpu/ops/gather_hbm.py:180"),
+               "K3": ("raytracebvh_tpu_torch/csrc/scatter.cu",
+                      "raytracebvh_tpu/ops/gather_pallas.py:155"),
                "K4": ("raytracebvh_tpu_torch/csrc/traverse.cu",
                       "raytracebvh_tpu/ops/traverse_hbm.py:652")}
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k][0],
              replaces=sources[k][1], launches=launches[k], **kern[k])
-        for k in ("K1", "K2", "K4")]}))
+        for k in ("K1", "K2", "K3", "K4")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where a frame's time goes, for the PyTorch + CUDA port on one NVIDIA
 GPU: chip_smoke.py's 1920x1080 frames (dense, sparse, large, the three
-shadowed ones and refract), each rendered under ``torch.profiler``.
+shadowed ones and refract), each rendered under ``torch.profiler``, and
+its two training steps (sparse_train, dense_train: ``loss_fn`` +
+``backward()``).
 
     python3 profile_frames.py [--frames 3] [--top 10]
 
@@ -9,8 +11,8 @@ Per frame it prints: the unprofiled frame time (host clock ended by a
 synchronize, median of 5 after a warm-up), the BVH build alone (same
 clock), the profiled wall time per frame, the device busy time (the union
 of kernel intervals in the trace), the idle share 1 - busy / profiled
-wall, kernels per frame, K1's, K2's and K4's device time, and the ``--top``
-kernels by device time.  The profiler adds host time, so the idle share
+wall, kernels per frame, K1's, K2's, K3's and K4's device time, and the
+``--top`` kernels by device time.  The profiler adds host time, so the idle share
 is an upper bound of the unprofiled frame's.  Exits non-zero without a
 CUDA device.
 """
@@ -28,12 +30,16 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import W, H, frames_on, wall_ms
+from chip_smoke import W, H, frames_on, train_frames, value_and_grad, wall_ms
 
-# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4
+# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4;
+# K3 is csrc/scatter.cu's three passes, one launch of its wrapper each
 KERNELS = {"K1": ("traverse_kernel<false>",),
            "K2": ("gather_f32_kernel", "gather_u8_kernel"),
+           "K3": ("scatter_max_kernel", "scatter_sum_kernel",
+                  "scatter_finish_kernel"),
            "K4": ("traverse_kernel<true>",)}
+PASSES = {"K3": 3}
 
 
 def kernel_events(trace_path):
@@ -56,22 +62,33 @@ def busy_us(kernels):
     return total
 
 
-def profile_frame(name, scene, cam, cfg, nframes, top):
+def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
+    """A forward frame under inference mode, or (``train``) a training
+    step: loss_fn + backward() with respect to init_params(scene)."""
     from raytracebvh_tpu_torch import render_frame
     from raytracebvh_tpu_torch.camera import camera_matrices
+    from raytracebvh_tpu_torch.models.inverse import init_params
     from raytracebvh_tpu_torch.pipeline import build_bvh
 
+    if train:
+        params = init_params(scene)
+        target = torch.zeros((H, W, 4), device=scene.device)
+        run = lambda: value_and_grad(params, scene, cam, target, cfg)
+        mode = torch.enable_grad
+    else:
+        run = lambda: render_frame(scene, cam, cfg)
+        mode = torch.inference_mode
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        frame_ms = wall_ms(lambda: render_frame(scene, cam, cfg))
+    with mode():
+        frame_ms = wall_ms(run)
         wvp, wv = camera_matrices(cam, cfg.width, cfg.height)
         build_ms = wall_ms(lambda: build_bvh(scene, wvp, wv, cfg))
         with torch.profiler.profile(activities=acts) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(nframes):
-                render_frame(scene, cam, cfg)
+                run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / nframes
     with tempfile.TemporaryDirectory() as tmp:
@@ -86,8 +103,9 @@ def profile_frame(name, scene, cam, cfg, nframes, top):
     ours = []
     for k, names in KERNELS.items():
         mine = [v for kname, v in per.items() if any(g in kname for g in names)]
+        launches = sum(v[1] for v in mine) // PASSES.get(k, 1) // nframes
         ours.append(f"{k} {sum(v[0] for v in mine):.3f} ms "
-                    f"({sum(v[1] for v in mine) // nframes} launches)")
+                    f"({launches} launches)")
     print(f"== {name}: frame {frame_ms:.2f} ms unprofiled, build alone "
           f"{build_ms:.2f} ms, profiled wall {wall:.2f} ms/frame, device busy "
           f"{busy:.2f} ms -> idle share {1 - busy / wall:.3f}; "
@@ -116,8 +134,12 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     print(f"{W}x{H} frames, {args.frames} profiled each", flush=True)
-    for name, (scene, cam, cfg) in frames_on(dev).items():
+    frames = frames_on(dev)
+    for name, (scene, cam, cfg) in frames.items():
         profile_frame(name, scene, cam, cfg, args.frames, args.top)
+    for name, (scene, cam, cfg) in train_frames(frames).items():
+        profile_frame(name, scene, cam, cfg, args.frames, args.top,
+                      train=True)
     return 0
 
 

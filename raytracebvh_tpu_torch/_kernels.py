@@ -46,6 +46,8 @@ _SIGNATURES = {
     # table, rows, channels, idx, nrays, out, stream
     "rtbvh_gather_f32": [_P, _I, _I, _P, _I, _P, _P],
     "rtbvh_gather_u8": [_P, _I, _I, _P, _I, _P, _P],
+    # g, idx, nrays, rows, channels, scratch, out, stream
+    "rtbvh_scatter_add_f32": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

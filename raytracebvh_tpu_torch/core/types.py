@@ -3,7 +3,8 @@
 Frozen dataclasses of tensors, field for field the JAX package's
 ``core/types.py`` pytrees (without the TPU rank-space layouts
 ``BVH.hbm_table`` and ``BVH.rank``).  ``.to(device)`` moves every tensor
-field; ``*_from_numpy`` build them from numpy arrays (or from any object
+field (``Tensor.to`` is differentiable: a field that carries a gradient
+keeps it); ``*_from_numpy`` build them from numpy arrays (or from any object
 with the same attribute names, such as a JAX pytree), so a test can hand
 the port the very arrays the JAX package made.
 """
@@ -56,6 +57,9 @@ class Materials:
     def count(self) -> int:
         return self.ambient.shape[0]
 
+    def replace(self, **kw) -> "Materials":
+        return dataclasses.replace(self, **kw)
+
     def to(self, device) -> "Materials":
         return _to(self, device)
 
@@ -85,6 +89,9 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.verts.device
+
+    def replace(self, **kw) -> "Scene":
+        return dataclasses.replace(self, **kw)
 
     def to(self, device) -> "Scene":
         return _to(self, device)

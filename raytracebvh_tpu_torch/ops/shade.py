@@ -117,7 +117,9 @@ def sample_texture_quads(tex_quads, tex_hw, tex_id, u, v, hmax, wmax,
     SampleLevel-0 with wrap addressing); tex_id -1 samples white.
 
     ``tex_quads`` is the row-major [T*hmax*wmax, 16] table, float32 or
-    uint8 (unpacked as ``x / 255``).  ``backend`` picks the row gather:
+    uint8 (unpacked as ``x / 255``).  The colour's dtype is the uv dtype
+    for a uint8 table, else the promotion of the two, as in the JAX
+    package.  ``backend`` picks the row gather:
     'torch' (plain indexing) or 'cuda' (kernel K2's wrapper)."""
     tid = torch.clamp(tex_id, min=0)
     h, w = _texel_dims(tex_hw, tid, u.dtype)
@@ -136,7 +138,9 @@ def sample_texture_quads(tex_quads, tex_hw, tex_id, u, v, hmax, wmax,
     yi = torch.where(yi < 0, yi + h.to(torch.int32), yi)
     flat = (tid * hmax + yi) * wmax + xi
     q = gather_cuda.gather_for(backend)(tex_quads, flat)  # [16, R] float32
-    if q.dtype != u.dtype:
+    if tex_quads.dtype == torch.uint8:
+        # UNORM8 samples take the uv dtype; a float table promotes the
+        # colour instead (a float32 table lifts a bfloat16 frame to float32)
         q = q.to(u.dtype)
     w00 = (1 - fx) * (1 - fy)
     w10 = fx * (1 - fy)

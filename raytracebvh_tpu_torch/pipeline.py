@@ -431,7 +431,12 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
         return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
     if nrays % chunk:
         raise ValueError(f"ray_chunk {chunk} must divide ray count {nrays}")
-    bg = torch.tensor(cfg.background, dtype=cfg.torch_dtype,
+    # a culled chunk's background takes the shaded chunks' dtype: a float
+    # quad table promotes the colour (ops/shade.sample_texture_quads)
+    dtype = cfg.torch_dtype
+    if tex_quads.dtype != torch.uint8:
+        dtype = torch.promote_types(dtype, tex_quads.dtype)
+    bg = torch.tensor(cfg.background, dtype=dtype,
                       device=rays.origin.device).expand(chunk, 4)
     out = []
     for s in range(0, nrays, chunk):

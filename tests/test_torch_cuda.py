@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K4 against their plain PyTorch versions on the GPU.
+"""Kernels K1, K2, K3 and K4 against their plain PyTorch versions on the GPU.
 
 Marked ``gpu``: they skip without a CUDA device (a CUDA kernel has no
 CPU mode; the CPU tests hold the plain versions against the JAX
@@ -9,7 +9,9 @@ package).  On a GPU machine, which need not have JAX:
 Tolerances: K2 exact; K1 hit and leaf exact, distance exact; K4's
 occlusion flags exact, max_t one ulp around hit distances included (the
 kernels are built with -fmad=false and IEEE division, so they round as
-the plain versions' separate PyTorch ops do).
+the plain versions' separate PyTorch ops do).  K3 sums in fixed point: it
+is held to the float64 sum within 1e-6 of each row's largest |value|, and
+to its own bits on a second launch.
 """
 
 import numpy as np
@@ -202,12 +204,145 @@ def test_k2_matches_plain_with_out_of_range_rows(dev, dtype, channels):
     assert bad.any() and (got[:, bad] == 0).all()
 
 
-def test_k2_refuses_a_table_that_needs_grad(dev):
+def _coherent_ids(gen, rows, nrays, lo=-50, hi=None):
+    """Clustered runs of row ids, as tiled rays over morton-sorted leaves
+    give, with some ids outside [0, rows)."""
+    hi = rows + 50 if hi is None else hi
+    base = torch.randint(0, rows, (nrays // 64 + 1,), generator=gen)
+    ids = base.repeat_interleave(64)[:nrays] + torch.randint(
+        0, 8, (nrays,), generator=gen)
+    wild = torch.rand(nrays, generator=gen) < 0.02
+    ids = torch.where(wild, torch.randint(lo, hi, (nrays,), generator=gen), ids)
+    return ids.to(torch.int32)
+
+
+def _f64_sum(g, idx, rows):
+    valid = (idx >= 0) & (idx < rows)
+    return torch.zeros((rows, g.shape[0]), dtype=torch.float64,
+                       device=g.device).index_add_(
+        0, idx[valid].long(), g.t()[valid].double())
+
+
+def _row_rel_err(got, want):
+    err = (got.double() - want).abs().amax(1)
+    scale = want.abs().amax(1)
+    return float(torch.where(scale > 0, err / scale.clamp(min=1e-300),
+                             err).max())
+
+
+@pytest.mark.parametrize("rows,nrays", [(3072, 200003), (40000, 65536),
+                                        (7, 1000)])
+def test_k3_matches_float64_sum_and_repeats_bits(dev, rows, nrays):
+    """K3 within 1e-6 of each row's largest |value| of the float64 sum
+    (its fixed-point error bound, csrc/scatter.cu, plus one float32
+    rounding), and the same bits on a second launch; rows above the JAX
+    package's 32 768-row cap included."""
     from raytracebvh_tpu_torch.ops import gather_cuda
 
-    tbl = torch.randn(64, 40, device=dev, requires_grad=True)
-    idx = torch.zeros(8, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="K3"):
-        gather_cuda.gather_rows(tbl, idx)
-    with torch.no_grad():
-        assert gather_cuda.gather_rows(tbl, idx).shape == (40, 8)
+    gen = torch.Generator(device="cpu").manual_seed(rows)
+    g = torch.randn(40, nrays, generator=gen) * torch.logspace(
+        -6, 2, 40)[:, None]
+    idx = _coherent_ids(gen, rows, nrays)
+    g, idx = g.to(dev), idx.to(dev)
+    before = gather_cuda.scatter_launches
+    got = gather_cuda.scatter_add_rows(g, idx, rows)
+    again = gather_cuda.scatter_add_rows(g, idx, rows)
+    assert gather_cuda.scatter_launches == before + 2
+    assert got.shape == (rows, 40) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = _f64_sum(g, idx, rows)
+    assert _row_rel_err(got, want) <= 1e-6
+    # the plain float32 version, within its own float32 summation error
+    plain = gather_cuda.scatter_add_rows_torch(g, idx, rows)
+    assert _row_rel_err(plain, want) <= 1e-4
+
+
+def test_k3_out_of_range_ids_and_empty(dev):
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    g = torch.ones(40, 6, device=dev)
+    idx = torch.tensor([-1, 5, 5, 1 << 30, -(1 << 30), 0], dtype=torch.int32,
+                       device=dev)
+    got = gather_cuda.scatter_add_rows(g, idx, 5)
+    want = torch.zeros(5, 40, device=dev)
+    want[0] = 1.0
+    assert torch.equal(got, want)
+    before = gather_cuda.scatter_launches
+    empty = gather_cuda.scatter_add_rows(
+        torch.zeros(40, 0, device=dev),
+        torch.zeros(0, dtype=torch.int32, device=dev), 9)
+    assert torch.equal(empty, torch.zeros(9, 40, device=dev))
+    assert gather_cuda.scatter_launches == before  # nothing to launch
+
+
+def test_k3_non_finite_cells_as_ieee_sums(dev):
+    """A NaN, or +inf and -inf together, make a cell NaN; one infinity
+    makes it that infinity; other cells stay exact."""
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    inf, nan = float("inf"), float("nan")
+    g = torch.tensor([[1.0, inf, 2.0, -inf, 3.0, nan, 4.0],
+                      [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]], device=dev)
+    g = torch.cat([g, torch.zeros(2, 7, device=dev)])  # C = 4
+    idx = torch.tensor([0, 0, 1, 1, 2, 2, 3], dtype=torch.int32, device=dev)
+    idx[3] = 0  # row 0 gets +inf and -inf
+    got = gather_cuda.scatter_add_rows(g.contiguous(), idx, 4).cpu()
+    want = torch.zeros(4, 4, dtype=torch.float64).index_add_(
+        0, idx.cpu().long(), g.cpu().t().double()).float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+def test_gather_rows_gradient_is_k3(dev):
+    """Autograd through K2 on CUDA: its backward is K3, and the table's
+    gradient matches the plain gather's within K3's float64 limit."""
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    tbl = torch.randn(3072, 40, generator=gen).to(dev).requires_grad_()
+    idx = _coherent_ids(gen, 3072, 100000).to(dev)
+    w = torch.randn(40, 100000, generator=gen).to(dev)
+    k2, k3 = gather_cuda.launches, gather_cuda.scatter_launches
+    (gather_cuda.gather_rows(tbl, idx) * w).sum().backward()
+    assert (gather_cuda.launches, gather_cuda.scatter_launches) == (k2 + 1, k3 + 1)
+    got = tbl.grad.clone()
+    tbl.grad = None
+    (gather_cuda.gather_rows_torch(tbl, idx) * w).sum().backward()
+    want = _f64_sum(w, idx, 3072)
+    assert _row_rel_err(got, want) <= 1e-6
+    assert _row_rel_err(tbl.grad, want) <= 1e-4
+
+
+def test_loss_and_grads_64x64_kernels_match_plain(dev):
+    """loss_fn + backward() at 64x64 through K1, K2 and K3 against every
+    backend 'torch': the loss bit-equal (K1 and K2 are), each gradient
+    within 1e-5 of its tensor's largest |grad| (float32 sums in another
+    order)."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.inverse import init_params, loss_fn
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    scene = random_triangles(300, seed=6, with_texture=True).to(dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=2.0,
+                         ray_tile=16, texture_dtype="uint8")
+    target = torch.zeros((64, 64, 4), device=dev)
+    out = []
+    for c in (cfg, cfg.replace(traversal_backend="torch",
+                               shade_gather_backend="torch",
+                               texture_gather_backend="torch")):
+        params = init_params(scene)
+        k3 = gather_cuda.scatter_launches
+        loss = loss_fn(params, scene, cam, target, c)
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in params],
+                    gather_cuda.scatter_launches - k3))
+    (loss, grads, n), (loss_p, grads_p, n_p) = out
+    assert (n, n_p) == (2, 0)
+    assert torch.equal(loss, loss_p)
+    for g, gp in zip(grads, grads_p):
+        scale = float(gp.abs().max())
+        assert scale > 0 and bool(torch.isfinite(g).all())
+        assert float((g - gp).abs().max()) <= 1e-5 * scale

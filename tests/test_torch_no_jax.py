@@ -1,5 +1,6 @@
-"""The port imports and renders (shadows and refraction included) with JAX
-and flax blocked: it must run on a machine that has neither."""
+"""The port imports, renders (shadows and refraction included) and takes
+a training step with JAX and flax blocked: it must run on a machine that
+has neither."""
 
 import os
 import re
@@ -23,6 +24,14 @@ img = T.render_frame(random_triangles(50, seed=2, with_texture=True,
                                     ortho_scale=1.0, enable_shadows=True,
                                     enable_refraction=True))
 assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
+from raytracebvh_tpu_torch.models import inverse
+scene = random_triangles(20, seed=3, with_texture=True)
+params = inverse.init_params(scene)
+loss = inverse.train_step(params, inverse.make_optimizer(params), scene,
+                          T.Camera.default(), torch.zeros(8, 8, 4),
+                          T.RenderConfig(width=8, height=8, bounces=1,
+                                         ortho_scale=1.0))
+assert bool(torch.isfinite(loss))
 assert not any(m in ("jax", "raytracebvh_tpu")
                or m.startswith(("jax.", "flax", "raytracebvh_tpu."))
                for m in sys.modules if sys.modules[m] is not None)

@@ -74,6 +74,37 @@ def test_backends_agree_on_cpu_without_launching():
     assert (traverse_cuda.launches, gather_cuda.launches) == (k1, k2)
 
 
+@pytest.mark.parametrize("scene_kw,cfg_kw", [
+    # tests/test_ray_chunk.py::test_cull_bfloat16_branch_dtypes, with and
+    # without its ray_chunk
+    (dict(num_tris=40, seed=12), dict(width=16, height=16, ortho_scale=0.1)),
+    (dict(num_tris=40, seed=12), dict(width=16, height=16, ortho_scale=0.1,
+                                      ray_chunk=64)),
+    # culled chunks (tests/test_ray_chunk.py::test_cull_empty_chunks_
+    # identical's frame): their background takes the shaded chunks' dtype
+    (dict(num_tris=60, seed=11), dict(width=32, height=32, ortho_scale=0.05,
+                                      ray_chunk=128)),
+])
+def test_bfloat16_frame_is_float32_as_jax(scene_kw, cfg_kw):
+    """A bfloat16 pipeline with the float32 texture table returns a
+    float32 image, as the JAX package's promotion makes it; values within
+    atol 1e-5 of render_frame_jit, as the float32 frames."""
+    n = scene_kw.pop("num_tris")
+    js = scene_to_device(j_random(n, with_texture=True, **scene_kw))
+    ts = t_random(n, with_texture=True, **scene_kw)
+    kw = dict(bounces=1, dtype="bfloat16", **cfg_kw)
+    want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
+                                         J.RenderConfig(**kw)))
+    got = T.render_frame(ts, T.Camera.default(), T.RenderConfig(**kw))
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    hits = _hit_mask(want)
+    assert hits.any()
+    if cfg_kw.get("ray_chunk") == 128:
+        chunk_hits = hits.reshape(-1, 128).any(-1)
+        assert chunk_hits.any() and not chunk_hits.all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("field", ["traversal_backend", "shade_gather_backend",
                                    "texture_gather_backend"])
 @pytest.mark.parametrize("value", ["jnp", "pallas", "hbm", "sweep",
