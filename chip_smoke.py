@@ -1,34 +1,44 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
-NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version at the main path's shapes, renders seven 1920x1080 frames
-through ``render_frame`` (forward, shadowed and refractive), runs the
-inverse-rendering training step at 1920x1080 on two frames, and runs the
-render CLI.
+NVIDIA GPU: builds the hand-written kernels K1-K8, holds each against its
+plain PyTorch version at the main path's shapes, renders eight 1920x1080
+frames through ``render_frame`` (forward, shadowed, refractive, and the
+small-scene on-chip configuration), runs the inverse-rendering training
+step at 1920x1080 on three frames, and runs the render CLI.
 
     python3 chip_smoke.py
 
 Phases (one line of output each, or more):
   1. device: the card's name and power limit (nvidia-smi)
-  2. build: nvcc over raytracebvh_tpu_torch/csrc/*.cu, with its seconds
+  2. build: nvcc over raytracebvh_tpu_torch/csrc/*.cu (one nvcc a source,
+     all at once), with its seconds
   3. kernels: K1 (nearest-hit traversal), K2 (row gather), K4 (any-hit
-     traversal) and K3 (K2's backward, the scatter-add) against their plain
-     versions on the very inputs the main path hands them (K3 also against
-     a float64 sum, and against itself: two launches, 0 differing bits);
-     their times beside the plain versions' (CUDA events, median of 5),
-     their bounds, and a library call where one computes the same function
+     traversal), K3 (K2's backward, the scatter-add), K5 and K6 (K1 and K4
+     with the tree in shared memory), K7 (column gather from a
+     channel-major table) and K8 (bitonic sort of the build's codes, both
+     routes) against their plain versions on the very inputs the main path
+     hands them (K3 also against a float64 sum, and against itself: two
+     launches, 0 differing bits; K7's backward against K3 through K2; K8
+     also against torch.sort(stable=True)); their times beside the plain
+     versions' (CUDA events, median of 5), their bounds, a library call
+     where one computes the same function, and for K5/K6 K1/K4's time on
+     the same rays
   4. main path: the dense, sparse and large frames, then dense_shadows,
-     sparse_shadows, large_shadows and refract; every kernel's launch
-     count over each frame (counts set to 0 just before it, read just
-     after); frame ms and Mrays/s (median of 5 after one warm-up); each
-     image but sparse's and large's against the all-plain-PyTorch render
+     sparse_shadows, large_shadows, refract and dense_onchip; every
+     kernel's launch count over each frame (counts set to 0 just before
+     it, read just after); frame ms and Mrays/s (median of 5 after one
+     warm-up); each image but sparse's and large's against the
+     all-plain-PyTorch render, and dense_onchip's against the same config
+     through K1/K4/K2/lax, bit for bit
   5. training: models.inverse.loss_fn + backward() and train_step on
-     sparse_train (bench.py:319-320's cfg_bwd) and dense_train; launch
-     counts (K3 twice a step), loss bit-equal to the all-plain step,
-     gradients within GRAD_TOL of it, 3 Adam steps; step ms (median of 5),
-     Mrays/s and peak device memory
+     sparse_train (bench.py:319-320's cfg_bwd), dense_train and
+     onchip_train; launch counts (K3 twice a step), loss bit-equal to the
+     all-plain step (and onchip_train's to dense_train's), gradients within
+     GRAD_TOL of it, 3 Adam steps; step ms (median of 5), Mrays/s and peak
+     device memory
   6. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
-     the 3 072-triangle scene, plain and with --shadows --refract
+     the 3 072-triangle scene, plain and with --shadows --refract; its
+     default backend runs K5 (and K6) there
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -104,7 +114,15 @@ def glass_scene(scene):
 
 def frames_on(device):
     """name -> (scene, camera, cfg): the bench's 1080p configs
-    (bench.py:76-77, :104-107, :122, :302, :522) on its procedural scenes.
+    (bench.py:76-77, :104-107, :122, :302, :522) on its procedural scenes,
+    and dense_onchip, the small-scene on-chip configuration.
+
+    Traversal backends as the bench names them: the dense, dense_shadows
+    and refract frames name K1's ('cuda', the bench's 'hbm',
+    bench.py:105); the sparse frames keep 'auto', which takes K5/K6 on the
+    3 072-leaf tree, as the TPU's 'auto' took 'pallas'; the large frames'
+    102 400 leaves resolve to K1/K4.  dense_onchip is the dense frame with
+    shadows through K5/K6, K7 and K8 ('shared', 'shared', 'bitonic').
 
     The dense frames keep the bench's dense config but frame one sphere:
     its ortho_scale=256 was set for Image_Test.obj, and on the fallback
@@ -121,7 +139,7 @@ def frames_on(device):
     aimed = cam.replace(eye=torch.tensor([12.5, 5.0, -100.0], device=device),
                         at=torch.tensor([12.5, 0.0, 0.0], device=device))
     dense = base.replace(ortho_scale=27.0, ray_chunk=0, ray_tile=16,
-                         texture_dtype="uint8")
+                         texture_dtype="uint8", traversal_backend="cuda")
     sparse = base.replace(ray_chunk=25600)
     large_cfg = base.replace(bounces=0, ray_tile=16, ray_chunk=0)
     return {
@@ -135,28 +153,40 @@ def frames_on(device):
         "large_shadows": (large, cam, large_cfg.replace(enable_shadows=True)),
         "refract": (glass_scene(small), aimed, dense.replace(
             enable_refraction=True)),
+        "dense_onchip": (small, aimed, onchip(dense.replace(
+            enable_shadows=True))),
     }
+
+
+def onchip(cfg):
+    """``cfg`` through the on-chip kernels: K5/K6, K7 and K8."""
+    return cfg.replace(traversal_backend="shared",
+                       shade_gather_backend="shared", sort_backend="bitonic")
 
 
 def train_frames(frames):
     """name -> (scene, camera, cfg) of the training step at 1080p.
     sparse_train is bench.py:319-320's cfg_bwd (its traversal_backend
-    'hbm' names the TPU's K1; the port's 'auto' is K1 too) on the sparse
-    frame's scene and camera; dense_train is the same config on the dense
-    frame, aimed with ortho_scale=27 (frames_on says why)."""
+    'hbm' names the TPU's K1, the port's 'cuda') on the sparse frame's
+    scene and camera; dense_train is the same config on the dense frame,
+    aimed with ortho_scale=27 (frames_on says why); onchip_train is
+    dense_train through the on-chip kernels K5, K7 and K8."""
     small, cam, sparse = frames["sparse"]
     _, aimed, dense = frames["dense"]
-    cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8")
+    cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8",
+                             traversal_backend="cuda")
     check(dense == cfg_bwd.replace(ortho_scale=27.0),
           "dense_train is not cfg_bwd with ortho_scale=27")
     return {"sparse_train": (small, cam, cfg_bwd),
-            "dense_train": (small, aimed, dense)}
+            "dense_train": (small, aimed, dense),
+            "onchip_train": (small, aimed, onchip(dense))}
 
 
 def plain(cfg):
-    """``cfg`` with every kernel replaced by its plain PyTorch version."""
+    """``cfg`` with every kernel replaced by plain PyTorch: the plain
+    walks and gathers, and the reference's radix sort for the build."""
     return cfg.replace(traversal_backend="torch", shade_gather_backend="torch",
-                       texture_gather_backend="torch")
+                       texture_gather_backend="torch", sort_backend="radix")
 
 
 def value_and_grad(params, scene, cam, target, cfg):
@@ -233,17 +263,29 @@ class Recorder:
 
 
 def capture(scene, cam, cfg):
-    """One frame, recording the arguments of K1, K2 and K4."""
-    from raytracebvh_tpu_torch import render_frame
-    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+    """One frame, recording the arguments of every kernel's wrapper and
+    of the build's stable sort: name -> list of (args, kwargs)."""
+    from contextlib import ExitStack
 
-    with Recorder(traverse_cuda, "traverse") as k1, \
-            Recorder(gather_cuda, "gather_rows") as k2, \
-            Recorder(traverse_cuda, "traverse_any") as k4, \
-            torch.inference_mode():
+    from raytracebvh_tpu_torch import render_frame
+    from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
+                                           sort, sort_cuda, traverse_cuda,
+                                           traverse_shared_cuda)
+
+    wrappers = {"K1": (traverse_cuda, "traverse"),
+                "K2": (gather_cuda, "gather_rows"),
+                "K4": (traverse_cuda, "traverse_any"),
+                "K5": (traverse_shared_cuda, "traverse"),
+                "K6": (traverse_shared_cuda, "traverse_any"),
+                "K7": (gather_cols_cuda, "gather_cols"),
+                "K8": (sort_cuda, "bitonic_sort_by_code"),
+                "sort": (sort, "sort_by_code")}
+    with ExitStack() as stack:
+        rec = {k: stack.enter_context(Recorder(*w)) for k, w in wrappers.items()}
+        stack.enter_context(torch.inference_mode())
         render_frame(scene, cam, cfg)
     torch.cuda.synchronize()
-    return k1.calls, k2.calls, k4.calls
+    return {k: r.calls for k, r in rec.items()}
 
 
 def sample_rays(rays, idx):
@@ -359,7 +401,8 @@ def phase_kernels(frames):
     result = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
     scene_d, cam_d, cfg_d = frames["dense"]
-    k1_calls, k2_calls, _ = capture(scene_d, cam_d, cfg_d)
+    calls = capture(scene_d, cam_d, cfg_d)
+    k1_calls, k2_calls = calls["K1"], calls["K2"]
     check(len(k1_calls) == 2 and len(k2_calls) == 4,
           f"dense frame made {len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
     bvh_d, prim_rays, eps = k1_calls[0][0][:3]
@@ -373,7 +416,7 @@ def phase_kernels(frames):
     errs = [k1_parity("dense primary", bvh_d, prim_rays, eps),
             k1_parity("dense bounce", bvh_d, bounce_sample, eps)]
 
-    l_calls, _, _ = capture(*frames["large"])
+    l_calls = capture(*frames["large"])["K1"]
     bvh_l, rays_l = l_calls[0][0][:2]
     pick = torch.randperm(rays_l.origin.shape[0], generator=gen)[
         :K1_SAMPLE_LARGE].to(rays_l.origin.device)
@@ -436,12 +479,12 @@ def phase_kernels(frames):
 
     # K4: every shadow ray of the dense shadow frame, and a sample of the
     # large one's
-    _, _, k4_calls = capture(*frames["dense_shadows"])
+    k4_calls = capture(*frames["dense_shadows"])["K4"]
     check(len(k4_calls) == 1, f"dense_shadows made {len(k4_calls)} K4 calls")
     bvh_s, shadow_rays, eps, max_t = k4_calls[0][0][:4]
     bvh_s = traverse_cuda.with_tables(bvh_s)
     errs = [k4_parity("dense shadows", bvh_s, shadow_rays, eps, max_t)]
-    _, _, k4_large = capture(*frames["large_shadows"])
+    k4_large = capture(*frames["large_shadows"])["K4"]
     check(len(k4_large) == 1, f"large_shadows made {len(k4_large)} K4 calls")
     bvh_ls, rays_ls, _, max_t_ls = k4_large[0][0][:4]
     live = (rays_ls.origin[:, 0] < 1e29).nonzero().squeeze(1).cpu()
@@ -471,6 +514,207 @@ def phase_kernels(frames):
         f"-> {b_ms:.4f} ms, by {b_by}; no PyTorch call computes a traversal")
     result["K4"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return result
+
+
+def exact_walk(name, kernel, plain_walk, bvh, rays, *args):
+    """A walk kernel (K5 or K6) against the plain walk on the same rays:
+    every record and step count equal, no ray cut by the step cap.
+    Returns (max |got - want| over the outputs, the kernel's steps)."""
+    from raytracebvh_tpu_torch.ops import traverse_cuda
+
+    traverse_cuda.reset_truncated()
+    got, steps = kernel(bvh, rays, *args, return_steps=True)
+    want, wsteps = plain_walk(bvh, rays, *args, return_steps=True)
+    torch.cuda.synchronize()
+    trunc = traverse_cuda.truncated_rays()
+    if isinstance(got, torch.Tensor):  # any-hit: the occlusion flags
+        pairs = [(got, want)]
+        what = f"occluded share {float(want.float().mean()):.4f}"
+    else:
+        pairs = [(got.hit, want.hit), (got.leaf, want.leaf),
+                 (got.distance, want.distance)]
+        what = f"{int(want.hit.sum())} hits"
+    nbad = sum(int((a != b).sum()) for a, b in pairs)
+    nsteps = int((steps != wsteps).sum())
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    log(f"  {name}: {rays.origin.shape[0]} rays, {what}, {nbad} differing "
+        f"outputs, {nsteps} differing step counts, truncated {trunc}")
+    check(nbad == 0 and nsteps == 0, f"{name}: {nbad} outputs and {nsteps} "
+          "step counts differ from the plain walk")
+    check(trunc == 0, f"{name}: {trunc} rays cut by the step cap")
+    return err, steps
+
+
+def cat_rays(calls):
+    """The rays (and max_t, for any-hit calls) of several captured walk
+    calls on one tree, as one batch."""
+    from raytracebvh_tpu_torch.core.types import Rays
+
+    rays = [c[0][1] for c in calls]
+    out = Rays(torch.cat([r.origin for r in rays]).contiguous(),
+               torch.cat([r.direction for r in rays]).contiguous())
+    if len(calls[0][0]) > 3 and isinstance(calls[0][0][3], torch.Tensor):
+        return out, torch.cat([c[0][3] for c in calls]).contiguous()
+    return out, None
+
+
+# float32 operations of one compare-exchange of K8's network: two compares
+# of the (code, index) key and two selects of each of the two words
+OPS_PER_EXCHANGE = 6
+
+
+def phase_onchip_kernels(frames):
+    """K5, K6, K7 and K8 against their plain versions on the main path's
+    inputs; their times, bounds and yardsticks."""
+    from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
+                                           sort_cuda, traverse_cuda,
+                                           traverse_shared_cuda)
+    from raytracebvh_tpu_torch.ops import traverse as plain
+
+    result = {}
+    # K5: all of the dense frame's primary rays, and a sparse chunk's
+    bvh_d, prim_rays, eps = capture(*frames["dense"])["K1"][0][0][:3]
+    bvh_d = traverse_cuda.with_tables(bvh_d)
+    sparse = capture(*frames["sparse"])
+    check(len(sparse["K5"]) > 0 and not sparse["K1"],
+          f"sparse frame made {len(sparse['K5'])} K5, {len(sparse['K1'])} "
+          "K1 calls")
+    calls = sparse["K5"][len(sparse["K5"]) // 2:] + sparse["K5"]
+    hit_chunk = next((c for c in calls
+                      if bool(plain.traverse(*c[0][:3]).hit.any())), None)
+    check(hit_chunk is not None, "no sparse chunk hits")
+    bvh_s, chunk_rays = hit_chunk[0][:2]
+    bvh_s = traverse_cuda.with_tables(bvh_s)
+    err5, steps5 = exact_walk("K5 dense primary", traverse_shared_cuda.traverse,
+                              plain.traverse, bvh_d, prim_rays, eps)
+    err5b, _ = exact_walk("K5 sparse chunk", traverse_shared_cuda.traverse,
+                          plain.traverse, bvh_s, chunk_rays, eps)
+    ms = cuda_ms(lambda: traverse_shared_cuda.traverse(bvh_d, prim_rays, eps))
+    k1_ms = cuda_ms(lambda: traverse_cuda.traverse(bvh_d, prim_rays, eps))
+    plain_ms = cuda_ms(lambda: plain.traverse(bvh_d, prim_rays, eps))
+    b_ms, b_by, nbytes, nsteps = walk_bound(
+        prim_rays, steps5, (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
+    log(f"  K5 time, dense primary ({prim_rays.origin.shape[0]} rays, "
+        f"{bvh_d.n_leaves} leaves, "
+        f"{traverse_shared_cuda.shared_bytes(bvh_d.n_leaves)} bytes of shared "
+        f"memory): {ms:.3f} ms vs K1 on the same rays {k1_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nsteps} node steps, "
+        f"{nbytes} bytes, by {b_by}); no PyTorch call computes a traversal")
+    result["K5"] = dict(max_abs_err=max(err5, err5b), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        k1_k4_same_rays_ms=k1_ms)
+
+    # K6: every shadow ray of sparse_shadows' shaded chunks, and the dense
+    # frame's shadow rays
+    ss = capture(*frames["sparse_shadows"])
+    check(len(ss["K6"]) > 0 and not ss["K4"],
+          f"sparse_shadows made {len(ss['K6'])} K6, {len(ss['K4'])} K4 calls")
+    bvh_ss = traverse_cuda.with_tables(ss["K6"][0][0][0])
+    rays_ss, max_t_ss = cat_rays(ss["K6"])
+    bvh_ds, shadow_rays, eps, max_t = capture(
+        *frames["dense_shadows"])["K4"][0][0][:4]
+    bvh_ds = traverse_cuda.with_tables(bvh_ds)
+    err6, _ = exact_walk(f"K6 sparse_shadows ({len(ss['K6'])} chunks)",
+                         traverse_shared_cuda.traverse_any,
+                         plain.traverse_any, bvh_ss, rays_ss, eps, max_t_ss)
+    err6b, steps6 = exact_walk("K6 dense shadows",
+                               traverse_shared_cuda.traverse_any,
+                               plain.traverse_any, bvh_ds, shadow_rays, eps,
+                               max_t)
+    ms = cuda_ms(lambda: traverse_shared_cuda.traverse_any(
+        bvh_ds, shadow_rays, eps, max_t))
+    k4_ms = cuda_ms(lambda: traverse_cuda.traverse_any(
+        bvh_ds, shadow_rays, eps, max_t))
+    plain_ms = cuda_ms(lambda: plain.traverse_any(bvh_ds, shadow_rays, eps,
+                                                  max_t))
+    ms_ss = cuda_ms(lambda: traverse_shared_cuda.traverse_any(
+        bvh_ss, rays_ss, eps, max_t_ss))
+    k4_ms_ss = cuda_ms(lambda: traverse_cuda.traverse_any(
+        bvh_ss, rays_ss, eps, max_t_ss))
+    b_ms, b_by, nbytes, nsteps = walk_bound(
+        shadow_rays, steps6, (bvh_ds.node_table, bvh_ds.leaf_table), 1, 28)
+    log(f"  K6 time, dense shadows ({shadow_rays.origin.shape[0]} rays): "
+        f"{ms:.3f} ms vs K4 on the same rays {k4_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; sparse_shadows' {rays_ss.origin.shape[0]} rays "
+        f"in one launch: {ms_ss:.3f} ms vs K4 {k4_ms_ss:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({nsteps} node steps, {nbytes} bytes, by {b_by})")
+    result["K6"] = dict(max_abs_err=max(err6, err6b), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        k1_k4_same_rays_ms=k4_ms)
+
+    # K7 and K8: dense_onchip's leaf table, leaf ids and codes
+    on = capture(*frames["dense_onchip"])
+    check(len(on["K7"]) == 2 and len(on["K8"]) == 1 and not on["sort"],
+          f"dense_onchip made {len(on['K7'])} K7, {len(on['K8'])} K8 and "
+          f"{len(on['sort'])} stable-sort calls")
+    tbl, idx = on["K7"][0][0]
+    got = gather_cols_cuda.gather_cols(tbl, idx)
+    want = gather_cols_cuda.gather_cols_torch(tbl, idx)
+    err7 = float((got - want).abs().max())
+    check(torch.equal(got, want), f"K7 forward: max |diff| {err7}")
+    # backward: K3 through K7 against K3 through K2 on the row-major table
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    g = torch.randn(tuple(got.shape), generator=gen).to(tbl.device)
+    # normal tensors: the captured ones were made under inference_mode
+    a = tbl.clone().requires_grad_()
+    b = tbl.t().contiguous().requires_grad_()
+    ids = idx.clone()
+    k3 = gather_cuda.scatter_launches
+    gather_cols_cuda.gather_cols(a, ids).backward(g)
+    gather_cuda.gather_rows(b, ids).backward(g)
+    torch.cuda.synchronize()
+    check(gather_cuda.scatter_launches == k3 + 2, "K7's backward is not K3")
+    check(torch.equal(a.grad, b.grad.t()),
+          "K7's backward differs from K2's (K3 on the same g and ids)")
+    ms = cuda_ms(lambda: gather_cols_cuda.gather_cols(tbl, idx))
+    plain_ms = cuda_ms(lambda: gather_cols_cuda.gather_cols_torch(tbl, idx))
+    lib_ms = cuda_ms(lambda: tbl.index_select(1, idx))
+    nbytes = tbl.numel() * 4 + idx.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"  K7 {tuple(tbl.shape)} x {idx.numel()} ids: exact, its backward "
+        f"is K3 and equals K2's bit for bit; {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms, index_select(1, ids) {lib_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({nbytes} bytes, by {b_by})")
+    result["K7"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    (codes_d,), _ = on["K8"][0]
+    large = capture(*frames["large"])
+    check(len(large["sort"]) == 1 and not large["K8"],
+          "the large frame did not sort once with the stable sort")
+    (codes_l,), _ = large["sort"][0]
+    k8 = {}
+    for what, codes in (("dense", codes_d), ("large", codes_l)):
+        got_c, got_o = sort_cuda.bitonic_sort_by_code(codes)
+        want_c, want_o = torch.sort(codes, stable=True)
+        keys, ids = sort_cuda._padded(codes)
+        plain_c, plain_o = sort_cuda.bitonic_network_torch(keys, ids)
+        n = codes.shape[0]
+        nbad = int((got_c != want_c).sum() + (got_o.long() != want_o).sum())
+        check(nbad == 0, f"K8 {what}: {nbad} outputs differ from torch.sort")
+        check(torch.equal(got_c, plain_c[:n]) and torch.equal(got_o,
+                                                                plain_o[:n]),
+              f"K8 {what}: differs from its plain network")
+        npad = keys.shape[0]
+        ms = cuda_ms(lambda: sort_cuda.bitonic_sort_by_code(codes))
+        plain_ms = cuda_ms(lambda: sort_cuda.bitonic_network_torch(keys, ids))
+        lib_ms = cuda_ms(lambda: torch.sort(codes, stable=True))
+        log2n = npad.bit_length() - 1
+        exchanges = npad // 2 * log2n * (log2n + 1) // 2
+        nbytes = n * 4 + n * 8
+        b_ms, b_by = bound(nbytes, OPS_PER_EXCHANGE * exchanges)
+        route = "one block" if npad <= sort_cuda.TILE else "global + tiles"
+        log(f"  K8 {what}: {n} codes padded to {npad} ({route}), "
+            f"{int((codes == codes.max()).sum())} sentinel or top codes: equal "
+            f"to torch.sort(stable=True) and the plain network; {ms:.3f} ms vs "
+            f"plain {plain_ms:.3f} ms, torch.sort {lib_ms:.3f} ms; bound "
+            f"{b_ms:.4f} ms ({exchanges} compare-exchanges, {nbytes} bytes, "
+            f"by {b_by})")
+        k8[what] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    result["K8"] = k8["dense"]
+    result["K8"]["large_ms"] = k8["large"]["ms"]
     return result
 
 
@@ -550,7 +794,6 @@ def render_counted(name, scene, cam, cfg):
     image, the counts read just after, and the refraction weights of the
     primary pass."""
     from raytracebvh_tpu_torch import pipeline, render_frame
-    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
 
     with Recorder(pipeline, "_launch_soa") as launch, torch.inference_mode():
         reset_counts()
@@ -561,19 +804,53 @@ def render_counted(name, scene, cam, cfg):
     return img, counts, refr
 
 
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+# the configs whose walks are K5/K6 (a 3 072-leaf tree through 'auto' or
+# 'shared'), and those that also gather with K7 and sort with K8
+ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip", "onchip_train")
+ONCHIP_ALL = ("dense_onchip", "onchip_train")
+
+
 def reset_counts():
-    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+    from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
+                                           sort_cuda, traverse_cuda,
+                                           traverse_shared_cuda)
 
     traverse_cuda.launches = traverse_cuda.any_launches = 0
     gather_cuda.launches = gather_cuda.scatter_launches = 0
+    traverse_shared_cuda.launches = traverse_shared_cuda.any_launches = 0
+    gather_cols_cuda.launches = sort_cuda.launches = 0
 
 
 def read_counts():
-    from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+    from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
+                                           sort_cuda, traverse_cuda,
+                                           traverse_shared_cuda)
 
     return {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
             "K3": gather_cuda.scatter_launches,
-            "K4": traverse_cuda.any_launches}
+            "K4": traverse_cuda.any_launches,
+            "K5": traverse_shared_cuda.launches,
+            "K6": traverse_shared_cuda.any_launches,
+            "K7": gather_cols_cuda.launches, "K8": sort_cuda.launches}
+
+
+def check_routes(name, n, builds=1):
+    """The walk, gather and sort kernels ``name``'s config must take over
+    ``builds`` frames or steps: K5/K6 and never K1/K4 for the on-chip
+    walks, K1/K4 and never K5/K6 for the rest; K7 and K8 only for the
+    on-chip configs, once per pass and once per build."""
+    walk, other = (("K5", "K6"), ("K1", "K4")) if name in ONCHIP_WALKS else (
+        ("K1", "K4"), ("K5", "K6"))
+    check(n[walk[0]] > 0, f"{name}: {walk[0]} was not launched")
+    check(n[other[0]] == n[other[1]] == 0,
+          f"{name}: {other[0]}/{other[1]} launched: {n}")
+    if name in ONCHIP_ALL:
+        check(n["K7"] == n[walk[0]] and n["K8"] == builds,
+              f"{name}: {n['K7']} K7 for {n[walk[0]]} passes, {n['K8']} K8")
+    else:
+        check(n["K7"] == n["K8"] == 0, f"{name}: K7 or K8 launched: {n}")
+    return walk
 
 
 def phase_main_path(frames):
@@ -583,7 +860,7 @@ def phase_main_path(frames):
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.ops import traverse_cuda
 
-    images, totals = {}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    images, totals = {}, dict.fromkeys(KERNELS, 0)
     traverse_cuda.reset_truncated()
     for name, (scene, cam, cfg) in frames.items():
         img, n, refr = render_counted(name, scene, cam, cfg)
@@ -595,22 +872,25 @@ def phase_main_path(frames):
         check(tuple(img.shape) == (H, W, 4), f"{name}: image shape")
         check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
         check(rate > 0, f"{name}: no ray hit")
-        check(n["K1"] > 0 and n["K2"] > 0, f"{name}: a kernel was not launched")
+        near, anyk = check_routes(name, n)
+        check(n["K2"] > 0, f"{name}: K2 was not launched")
         check(n["K3"] == 0, f"{name}: K3 launched in a forward frame")
         if not cfg.enable_shadows:
-            check(n["K4"] == 0, f"{name}: K4 launched without shadows")
+            check(n[anyk] == 0, f"{name}: {anyk} launched without shadows")
         elif cfg.ray_chunk:
-            # one K4 launch per shaded chunk; a culled chunk launches none
+            # one any-hit launch per shaded chunk; a culled chunk launches
+            # none
             shaded = int(hits.reshape(-1, cfg.ray_chunk).any(-1).sum())
             nchunks = W * H // cfg.ray_chunk
             log(f"  {name}: {shaded} of {nchunks} chunks shaded")
-            check(n["K4"] == shaded < nchunks,
-                  f"{name}: {n['K4']} K4 launches for {shaded} shaded chunks")
+            check(n[anyk] == shaded < nchunks,
+                  f"{name}: {n[anyk]} {anyk} launches for {shaded} shaded "
+                  "chunks")
         else:
-            check(n["K4"] == 1, f"{name}: {n['K4']} K4 launches, not 1")
+            check(n[anyk] == 1, f"{name}: {n[anyk]} {anyk} launches, not 1")
         if cfg.enable_refraction:
-            check(n["K1"] == traversal_passes(cfg),
-                  f"{name}: {n['K1']} K1 launches")
+            check(n[near] == traversal_passes(cfg),
+                  f"{name}: {n[near]} {near} launches")
             w = torch.cat(refr)
             share = float((w != 0).float().mean())
             log(f"  {name}: share of pixels with a non-zero refraction "
@@ -629,8 +909,19 @@ def phase_main_path(frames):
         log(f"  {name}: {ms:.2f} ms/frame, {rays / max(ms, 1e-9) / 1e3:.2f} "
             f"Mrays/s ({rays} rays)")
 
+    # dense_onchip against the same config through K1/K4, K2 and lax
+    scene, cam, cfg = frames["dense_onchip"]
+    with torch.inference_mode():
+        ref = render_frame(scene, cam, cfg.replace(
+            traversal_backend="cuda", shade_gather_backend="cuda",
+            sort_backend="lax"))
+        torch.cuda.synchronize()
+    ndiff = int((images["dense_onchip"] != ref).any(-1).sum())
+    log(f"  dense_onchip vs K1/K4/K2/lax: {ndiff} differing pixels")
+    check(ndiff == 0, f"dense_onchip: {ndiff} pixels differ from K1/K4/K2/lax")
+
     for name in ("dense", "dense_shadows", "sparse_shadows", "large_shadows",
-                 "refract"):
+                 "refract", "dense_onchip"):
         scene, cam, cfg = frames[name]
         with torch.inference_mode():
             t0 = time.perf_counter()
@@ -655,7 +946,8 @@ def phase_train(train):
                                                       make_optimizer,
                                                       train_step)
 
-    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    totals = dict.fromkeys(KERNELS, 0)
+    steps = {}
     for name, (scene, cam, cfg) in train.items():
         target = torch.zeros((H, W, 4), device=scene.device)
         params = init_params(scene)
@@ -664,10 +956,30 @@ def phase_train(train):
         torch.cuda.synchronize()
         n = read_counts()
         log(f"  {name}: loss {float(loss)!r}, launches {n}")
-        check(n == {"K1": 2, "K2": 4, "K3": 2, "K4": 0},
-              f"{name}: launches {n}, not K1 2, K2 4, K3 2, K4 0")
+        # a walk and a leaf gather a pass (2), K2 for the texture quads
+        # (2), K3 twice (the two leaf gathers' backward), K8 once a build
+        want = dict.fromkeys(KERNELS, 0)
+        if name in ONCHIP_ALL:
+            want.update(K5=2, K7=2, K2=2, K3=2, K8=1)
+        else:
+            want.update(K1=2, K2=4, K3=2)
+        check(n == want, f"{name}: launches {n}, not {want}")
         for k in totals:
             totals[k] += n[k]
+        steps[name] = (loss, grads)
+        if name == "onchip_train":
+            # the same step as dense_train's through K1, K2 and lax
+            loss_d, grads_d = steps["dense_train"]
+            check(torch.equal(loss, loss_d),
+                  f"onchip_train: loss {float(loss)!r}, dense_train "
+                  f"{float(loss_d)!r}")
+            for field, g, gd in zip(InverseParams._fields, grads, grads_d):
+                rel = float((g - gd).abs().max()) / max(
+                    float(gd.abs().max()), 1e-30)
+                log(f"  onchip_train d{field} against dense_train: {rel:.3g} "
+                    "of its largest |grad|")
+                check(rel <= 1e-6, f"onchip_train: d{field} {rel} off "
+                      "dense_train's")
         t0 = time.perf_counter()
         loss_p, grads_p = value_and_grad(init_params(scene), scene, cam,
                                          target, plain(cfg))
@@ -700,6 +1012,7 @@ def phase_train(train):
         check(all(np.isfinite(losses)), f"{name}: train_step losses {losses}")
         check(all(m > 0 for m in moved), f"{name}: a parameter did not move")
         check(n["K3"] == 2 * TRAIN_STEPS, f"{name}: {n['K3']} K3 launches")
+        check_routes(name, n, builds=TRAIN_STEPS)
         for k in totals:
             totals[k] += n[k]
 
@@ -765,10 +1078,19 @@ def phase_cli(scene, device):
         for extra in ([], ["--shadows", "--refract"]):
             out = os.path.join(tmp, "out.bmp")
             t0 = time.perf_counter()
+            reset_counts()
             rc = cli.main(["--obj", obj, "--width", str(W), "--height",
                            str(H), "--bounces", "1", "--frames", "3",
                            "--out", out, "--device", device, *extra])
             dt = time.perf_counter() - t0
+            n = read_counts()
+            log(f"  cli {' '.join(extra) or '(plain)'}: launches {n}")
+            # --backend auto on a 3 072-triangle scene: K5 (and K6), as
+            # the JAX CLI's auto takes pallas on a TPU
+            check(n["K5"] > 0 and n["K1"] == n["K4"] == 0,
+                  f"cli {extra}: the default backend did not run K5")
+            check(("--shadows" in extra) == (n["K6"] > 0),
+                  f"cli {extra}: {n['K6']} K6 launches")
             check(rc == 0, f"cli {extra} exited {rc}")
             check(os.path.isfile(out), f"cli {extra} wrote no image")
             img = read_bmp(out)
@@ -780,6 +1102,7 @@ def phase_cli(scene, device):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -815,6 +1138,7 @@ def main() -> int:
         log("phase 3 kernels against their plain versions:")
         kern = phase_kernels(frames)
         kern["K3"] = phase_k3(train)
+        kern.update(phase_onchip_kernels(frames))
         log("phase 4 main path:")
         launches = phase_main_path(frames)
         log("phase 5 training:")
@@ -832,11 +1156,24 @@ def main() -> int:
                "K3": ("raytracebvh_tpu_torch/csrc/scatter.cu",
                       "raytracebvh_tpu/ops/gather_pallas.py:155"),
                "K4": ("raytracebvh_tpu_torch/csrc/traverse.cu",
-                      "raytracebvh_tpu/ops/traverse_hbm.py:652")}
+                      "raytracebvh_tpu/ops/traverse_hbm.py:652"),
+               "K5": ("raytracebvh_tpu_torch/csrc/traverse_shared.cu",
+                      "raytracebvh_tpu/ops/traverse_pallas.py:476"),
+               "K6": ("raytracebvh_tpu_torch/csrc/traverse_shared.cu",
+                      "raytracebvh_tpu/ops/traverse_pallas.py:364"),
+               "K7": ("raytracebvh_tpu_torch/csrc/gather_cols.cu",
+                      "raytracebvh_tpu/ops/gather_pallas.py:130"),
+               "K8": ("raytracebvh_tpu_torch/csrc/sort.cu",
+                      "raytracebvh_tpu/ops/sort_pallas.py:139")}
+    missing = [k for k in KERNELS if launches[k] == 0]
+    if missing:
+        log(f"FAILED: {missing} never launched on the main path")
+        return 1
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k][0],
              replaces=sources[k][1], launches=launches[k], **kern[k])
-        for k in ("K1", "K2", "K3", "K4")]}))
+        for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

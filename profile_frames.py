@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where a frame's time goes, for the PyTorch + CUDA port on one NVIDIA
 GPU: chip_smoke.py's 1920x1080 frames (dense, sparse, large, the three
-shadowed ones and refract), each rendered under ``torch.profiler``, and
-its two training steps (sparse_train, dense_train: ``loss_fn`` +
-``backward()``).
+shadowed ones, refract and dense_onchip), each rendered under
+``torch.profiler``, and its three training steps (sparse_train,
+dense_train, onchip_train: ``loss_fn`` + ``backward()``).
 
     python3 profile_frames.py [--frames 3] [--top 10]
 
@@ -11,7 +11,7 @@ Per frame it prints: the unprofiled frame time (host clock ended by a
 synchronize, median of 5 after a warm-up), the BVH build alone (same
 clock), the profiled wall time per frame, the device busy time (the union
 of kernel intervals in the trace), the idle share 1 - busy / profiled
-wall, kernels per frame, K1's, K2's, K3's and K4's device time, and the
+wall, kernels per frame, the device time of each of K1-K8, and the
 ``--top`` kernels by device time.  The profiler adds host time, so the idle share
 is an upper bound of the unprofiled frame's.  Exits non-zero without a
 CUDA device.
@@ -32,13 +32,19 @@ import torch
 
 from chip_smoke import W, H, frames_on, train_frames, value_and_grad, wall_ms
 
-# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4;
-# K3 is csrc/scatter.cu's three passes, one launch of its wrapper each
+# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4, and
+# so is csrc/traverse_shared.cu's for K5 and K6; K3 is csrc/scatter.cu's
+# three passes, one launch of its wrapper each; K8 is one tile launch a
+# sort up to 16 384 codes (csrc/sort.cu), so its count is of kernels
 KERNELS = {"K1": ("traverse_kernel<false>",),
            "K2": ("gather_f32_kernel", "gather_u8_kernel"),
            "K3": ("scatter_max_kernel", "scatter_sum_kernel",
                   "scatter_finish_kernel"),
-           "K4": ("traverse_kernel<true>",)}
+           "K4": ("traverse_kernel<true>",),
+           "K5": ("traverse_shared_kernel<false>",),
+           "K6": ("traverse_shared_kernel<true>",),
+           "K7": ("gather_cols_f32_kernel",),
+           "K8": ("bitonic_tile_kernel", "bitonic_global_kernel")}
 PASSES = {"K3": 3}
 
 

@@ -2,12 +2,26 @@
 
 A second package beside the JAX one, with the same module names: the
 per-frame LBVH build (30-bit morton codes, stable sort, Karras emit,
-AABB fit, skip links), stackless nearest-hit traversal with
-Moeller-Trumbore intersection, and textured shading with reflection
-bounces.  On an NVIDIA Hopper GPU the traversal (K1) and the shading row
-gathers (K2) run as hand-written CUDA kernels (``csrc/``, built with
-nvcc at first use); on the CPU every step is plain PyTorch.  It imports
-neither JAX nor the JAX package.
+AABB fit, skip links), stackless nearest-hit and any-hit traversal with
+Moeller-Trumbore intersection, textured shading with reflection bounces,
+shadow rays and refraction, and the inverse-rendering training step.  On
+an NVIDIA Hopper GPU every TPU kernel of the JAX package runs as a
+hand-written CUDA kernel (``csrc/``, built with nvcc at first use):
+
+  K1/K4  nearest-hit / any-hit traversal (``ops/traverse_cuda``)
+  K2     row gather of leaf attributes and texture quads (``ops/gather_cuda``)
+  K3     K2's and K7's backward, a deterministic scatter-add
+  K5/K6  K1/K4 with the tree in shared memory (``ops/traverse_shared_cuda``):
+         ``traversal_backend`` ``shared``, and ``auto`` where the tree fits
+  K7     column gather from the channel-major leaf table
+         (``ops/gather_cols_cuda``): ``shade_gather_backend='shared'``
+  K8     bitonic sort of the build's codes (``ops/sort_cuda``):
+         ``sort_backend`` ``bitonic``, and ``auto`` on CUDA tensors
+
+On the CPU every step is plain PyTorch (``pytest tests/ -k torch``); on
+the GPU ``python3 chip_smoke.py`` and ``pytest --noconftest -m gpu
+tests/test_torch_cuda.py`` hold each kernel to its plain version.  It
+imports neither JAX nor the JAX package.
 """
 
 from .config import RenderConfig

@@ -3,7 +3,8 @@
 At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, under
 ``build/raytracebvh_tpu_torch/`` at the root of the checkout, named by a
-hash of the sources and flags (so an edit rebuilds and a rerun reuses).
+hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags (so an edit rebuilds and a rerun reuses).
 ``ctypes`` loads it; every pointer and the stream are passed as
 ``c_void_p``.  Nothing here runs at import time, and nothing links
 against PyTorch (a source that includes PyTorch's headers takes minutes
@@ -29,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raytracebvh_tpu_
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,11 +44,22 @@ _SIGNATURES = {
     # max_steps, occluded, steps (nullable), truncated, stream
     "rtbvh_traverse_any": [_P, _P, _P, _P, _P, _I, _I, _F, _I,
                            _P, _P, _P, _P],
+    # K5 and K6: K1's and K4's arguments
+    "rtbvh_traverse_shared": [_P, _P, _P, _P, _I, _I, _F, _I,
+                              _P, _P, _P, _P, _P, _P],
+    "rtbvh_traverse_any_shared": [_P, _P, _P, _P, _P, _I, _I, _F, _I,
+                                  _P, _P, _P, _P],
+    # device, bytes (int32 out)
+    "rtbvh_shared_mem_per_block": [_I, _P],
     # table, rows, channels, idx, nrays, out, stream
     "rtbvh_gather_f32": [_P, _I, _I, _P, _I, _P, _P],
     "rtbvh_gather_u8": [_P, _I, _I, _P, _I, _P, _P],
     # g, idx, nrays, rows, channels, scratch, out, stream
     "rtbvh_scatter_add_f32": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # table, channels, width, idx, nrays, out, stream
+    "rtbvh_gather_cols_f32": [_P, _I, _I, _P, _I, _P, _P],
+    # codes, idx (both sorted in place), n, stream
+    "rtbvh_bitonic_sort": [_P, _P, _I, _P],
 }
 
 _lib = None
@@ -55,6 +67,10 @@ _lib = None
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -72,29 +88,47 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources():
+    for f in sources() + headers():
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"librtbvh_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists;
-    nvcc's output (with ptxas' register and spill report) is kept beside
-    it as ``<library>.log``.  Raises with nvcc's stderr on failure."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link.  nvcc's
+    output (with ptxas' register and spill report) is kept beside the
+    library as ``<library>.log``.  Raises with nvcc's stderr on failure."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    nvcc = nvcc_path()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed with exit code {proc.returncode}:\n"
+                f"{' '.join(link)}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 

@@ -4,10 +4,14 @@ Usage:
     python -m raytracebvh_tpu_torch.cli.render [--obj Obj/Test.obj]
         [--out out.bmp] [--width 800] [--height 800] [--bounces 3]
         [--frames 1] [--orbit-yaw 0.1] [--device cuda|cpu]
-        [--backend auto|torch|cuda] [--shadows [--light X Y Z]] [--refract]
+        [--backend auto|torch|cuda|shared] [--shadows [--light X Y Z]]
+        [--refract]
 
 It renders on the CUDA device unless ``--device cpu`` asks for the CPU;
-without a CUDA device it exits 1.
+without a CUDA device it exits 1.  ``--backend auto`` takes the on-chip
+traversal K5/K6 for a tree that fits a block's shared memory (the CLI's
+small scenes) and K1/K4 above; ``shared`` names K5/K6 and the
+channel-major leaf gather K7.
 """
 
 from __future__ import annotations
@@ -49,10 +53,13 @@ def main(argv=None):
                         "divisor <= 32768 keeping >= 4 chunks, else 0)")
     p.add_argument("--camera", choices=["reference", "perspective"],
                    default="reference")
-    p.add_argument("--backend", choices=["auto", "torch", "cuda"],
+    p.add_argument("--backend", choices=["auto", "torch", "cuda", "shared"],
                    default="auto",
                    help="traversal and gather backend (auto: the CUDA "
-                        "kernels on a GPU, plain PyTorch on the CPU)")
+                        "kernels on a GPU, with the tree in shared memory "
+                        "where it fits, plain PyTorch on the CPU; shared: "
+                        "the traversal and leaf gather with the tree in "
+                        "shared memory, K5/K6 and K7)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to render (default cuda; exits 1 when no "
                         "CUDA device is visible)")
@@ -106,7 +113,7 @@ def main(argv=None):
         camera_mode=args.camera,
         traversal_backend=backend,
         shade_gather_backend=backend,
-        texture_gather_backend=backend,
+        texture_gather_backend="auto" if backend == "shared" else backend,
         enable_refraction=args.refract,
         enable_shadows=args.shadows,
         **(dict(light_pos=tuple(args.light)) if args.light else {}),

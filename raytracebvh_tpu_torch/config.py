@@ -3,13 +3,25 @@
 The same frozen dataclass as the JAX package's ``raytracebvh_tpu.config``:
 same fields, same defaults.  What differs is the set of backend strings.
 ``traversal_backend``, ``shade_gather_backend`` and
-``texture_gather_backend`` take ``auto | torch | cuda``: ``torch`` is the
-plain PyTorch version on any device; ``cuda`` and ``auto`` are the
-hand-written kernel's wrapper, which launches the kernel on CUDA tensors
-and runs the plain version on CPU tensors (so ``auto`` is the kernel on
-CUDA and plain PyTorch on the CPU).  Every other string raises, the TPU
-ones (``jnp``, ``pallas``, ``hbm``, ``sweep``, ``windowed``, ``xla``)
+``texture_gather_backend`` take ``auto | torch | cuda``, and the first two
+also ``shared``: ``torch`` is the plain PyTorch version on any device;
+``cuda`` is the hand-written kernel's wrapper (K1/K4, K2), which launches
+the kernel on CUDA tensors and runs the plain version on CPU tensors;
+``shared`` is the on-chip kernels' wrapper (the traversal K5/K6 with the
+tree in shared memory, the channel-major gather K7), the port's name for
+the JAX package's ``pallas``.  ``auto`` is the JAX package's ``auto`` on
+a TPU: the traversal takes ``shared`` where the tree fits a block's
+shared memory and ``cuda`` above (``pipeline.resolve_traversal_backend``),
+the gathers take ``cuda``.  Every other string raises, the TPU ones
+(``jnp``, ``pallas``, ``hbm``, ``sweep``, ``windowed``, ``xla``)
 included.
+
+``sort_backend`` takes the JAX package's names: ``lax`` (a stable
+``torch.sort``), ``radix`` (the reference's 1-bit LSD radix sort, plain
+PyTorch), ``bitonic`` (kernel K8 on CUDA tensors, its plain network on CPU
+tensors) and ``auto`` (``bitonic`` on CUDA tensors, ``lax`` on CPU
+tensors, as the JAX ``auto`` is ``bitonic`` on a TPU and ``lax``
+elsewhere).
 """
 
 from __future__ import annotations
@@ -20,7 +32,9 @@ from typing import Tuple
 import torch
 
 BACKENDS = ("auto", "torch", "cuda")
-SORT_BACKENDS = ("lax",)  # alias of torch.sort(stable=True)
+# the fields that also take the on-chip kernels, 'shared'
+_SHARED_FIELDS = ("traversal_backend", "shade_gather_backend")
+SORT_BACKENDS = ("lax", "radix", "bitonic", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,12 +94,31 @@ def traversal_passes(cfg: RenderConfig) -> int:
 
 
 def resolve_backend(cfg: RenderConfig, field: str) -> str:
-    """'torch' (the plain version) or 'cuda' (the kernel's wrapper, which
-    alone looks at the tensors' device) for the backend field ``field`` of
-    ``cfg``; raises on any other string."""
+    """'torch' (the plain version), 'cuda' (the kernel's wrapper) or
+    'shared' (the on-chip kernel's wrapper) for the backend field
+    ``field`` of ``cfg``; only a wrapper looks at the tensors' device.
+    ``auto`` is 'shared' for the traversal, which
+    ``pipeline.resolve_traversal_backend`` narrows to 'cuda' for a tree
+    over the on-chip capacity, and 'cuda' for the gathers.  Raises on any
+    other string."""
     value = getattr(cfg, field)
-    if value not in BACKENDS:
+    allowed = BACKENDS + (("shared",) if field in _SHARED_FIELDS else ())
+    if value not in allowed:
         raise ValueError(
-            f"unknown {field} {value!r}; expected one of {BACKENDS}"
+            f"unknown {field} {value!r}; expected one of {allowed}"
         )
-    return "torch" if value == "torch" else "cuda"
+    if value == "auto":
+        return "shared" if field == "traversal_backend" else "cuda"
+    return value
+
+
+def resolve_sort_backend(cfg: RenderConfig, device: torch.device) -> str:
+    """'lax', 'radix' or 'bitonic' for ``cfg.sort_backend`` on codes that
+    lie on ``device``; raises on any other string."""
+    value = cfg.sort_backend
+    if value not in SORT_BACKENDS:
+        raise ValueError(f"unknown sort_backend {value!r}; expected one of "
+                         f"{SORT_BACKENDS}")
+    if value == "auto":
+        return "bitonic" if device.type == "cuda" else "lax"
+    return value

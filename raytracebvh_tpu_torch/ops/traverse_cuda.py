@@ -96,18 +96,13 @@ def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
     return bvh, (max_steps if max_steps > 0 else 4 * n), _truncated[dev]
 
 
-def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
-             return_steps: bool = False):
-    """K1 for CUDA tensors, ``ops.traverse.traverse`` for CPU tensors.
-
-    ``max_steps`` caps each ray's walk (0 = 4n); a ray that reaches the
-    cap keeps its best hit so far and adds one to ``truncated_rays()``.
-    ``return_steps`` also returns the [R] int32 per-ray step counts."""
+def launch_nearest(c_fn: str, what: str, bvh: BVH, rays: Rays,
+                   epsilon: float, max_steps: int, return_steps: bool):
+    """Launch a nearest-hit walk kernel (``c_fn``: K1's, or K5's with the
+    same arguments) on CUDA rays: (the wrapper's result, whether a kernel
+    was launched)."""
     origin, direction = rays.origin, rays.direction
-    if origin.device.type == "cpu":
-        return traverse_plain.traverse(bvh, rays, epsilon, max_steps,
-                                       return_steps)
-    bvh, max_steps, truncated = _prepare(bvh, rays, "traverse", max_steps)
+    bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     dev = origin.device
     nrays = origin.shape[0]
     hit = torch.empty(nrays, dtype=torch.bool, device=dev)
@@ -115,20 +110,68 @@ def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
     leaf = torch.empty(nrays, dtype=torch.int32, device=dev)
     steps = torch.empty(nrays, dtype=torch.int32, device=dev)
     rec = HitRecord(hit=hit, distance=dist, leaf=leaf)
+    out = (rec, steps) if return_steps else rec
     if nrays == 0:
-        return (rec, steps) if return_steps else rec
-    global launches
+        return out, False
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.load().rtbvh_traverse(
+        err = getattr(_kernels.load(), c_fn)(
             origin.data_ptr(), direction.data_ptr(), bvh.node_table.data_ptr(),
             bvh.leaf_table.data_ptr(), nrays, bvh.n_leaves, epsilon,
             max_steps, hit.data_ptr(), dist.data_ptr(), leaf.data_ptr(),
             steps.data_ptr() if return_steps else None,
             truncated.data_ptr(), stream)
-    _kernels.check(err, "K1 traverse launch")
-    launches += 1
-    return (rec, steps) if return_steps else rec
+    _kernels.check(err, f"{what} launch")
+    return out, True
+
+
+def launch_any(c_fn: str, what: str, bvh: BVH, rays: Rays, epsilon: float,
+               max_t, max_steps: int, return_steps: bool):
+    """Launch an any-hit walk kernel (``c_fn``: K4's, or K6's with the same
+    arguments) on CUDA rays: (the wrapper's result, whether a kernel was
+    launched)."""
+    origin = rays.origin
+    bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
+    dev = origin.device
+    nrays = origin.shape[0]
+    if (not isinstance(max_t, torch.Tensor) or max_t.device != dev
+            or max_t.dtype != torch.float32 or tuple(max_t.shape) != (nrays,)
+            or not max_t.is_contiguous()):
+        raise ValueError(
+            f"{what}: max_t must be a contiguous [{nrays}] float32 tensor "
+            f"on {dev}")
+    occ = torch.empty(nrays, dtype=torch.bool, device=dev)
+    steps = torch.empty(nrays, dtype=torch.int32, device=dev)
+    out = (occ, steps) if return_steps else occ
+    if nrays == 0:
+        return out, False
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_kernels.load(), c_fn)(
+            origin.data_ptr(), rays.direction.data_ptr(), max_t.data_ptr(),
+            bvh.node_table.data_ptr(), bvh.leaf_table.data_ptr(), nrays,
+            bvh.n_leaves, epsilon, max_steps, occ.data_ptr(),
+            steps.data_ptr() if return_steps else None,
+            truncated.data_ptr(), stream)
+    _kernels.check(err, f"{what} launch")
+    return out, True
+
+
+def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
+             return_steps: bool = False):
+    """K1 for CUDA tensors, ``ops.traverse.traverse`` for CPU tensors.
+
+    ``max_steps`` caps each ray's walk (0 = 4n); a ray that reaches the
+    cap keeps its best hit so far and adds one to ``truncated_rays()``.
+    ``return_steps`` also returns the [R] int32 per-ray step counts."""
+    if rays.origin.device.type == "cpu":
+        return traverse_plain.traverse(bvh, rays, epsilon, max_steps,
+                                       return_steps)
+    out, launched = launch_nearest("rtbvh_traverse", "K1 traverse", bvh,
+                                   rays, epsilon, max_steps, return_steps)
+    global launches
+    launches += launched
+    return out
 
 
 def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
@@ -141,36 +184,14 @@ def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
     cap without an occluder reads False and adds one to
     ``truncated_rays()``.  ``return_steps`` also returns the [R] int32
     per-ray step counts."""
-    origin = rays.origin
-    if origin.device.type == "cpu":
+    if rays.origin.device.type == "cpu":
         return traverse_plain.traverse_any(bvh, rays, epsilon, max_t,
                                            max_steps, return_steps)
-    bvh, max_steps, truncated = _prepare(bvh, rays, "traverse_any",
-                                         max_steps)
-    dev = origin.device
-    nrays = origin.shape[0]
-    if (not isinstance(max_t, torch.Tensor) or max_t.device != dev
-            or max_t.dtype != torch.float32 or tuple(max_t.shape) != (nrays,)
-            or not max_t.is_contiguous()):
-        raise ValueError(
-            f"traverse_any: max_t must be a contiguous [{nrays}] float32 "
-            f"tensor on {dev}")
-    occ = torch.empty(nrays, dtype=torch.bool, device=dev)
-    steps = torch.empty(nrays, dtype=torch.int32, device=dev)
-    if nrays == 0:
-        return (occ, steps) if return_steps else occ
+    out, launched = launch_any("rtbvh_traverse_any", "K4 traverse_any", bvh,
+                               rays, epsilon, max_t, max_steps, return_steps)
     global any_launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.load().rtbvh_traverse_any(
-            origin.data_ptr(), rays.direction.data_ptr(), max_t.data_ptr(),
-            bvh.node_table.data_ptr(), bvh.leaf_table.data_ptr(), nrays,
-            bvh.n_leaves, epsilon, max_steps, occ.data_ptr(),
-            steps.data_ptr() if return_steps else None,
-            truncated.data_ptr(), stream)
-    _kernels.check(err, "K4 traverse_any launch")
-    any_launches += 1
-    return (occ, steps) if return_steps else occ
+    any_launches += launched
+    return out
 
 
 def traverse_for(backend: str):

@@ -1,0 +1,106 @@
+"""Nearest-hit traversal, kernel K5, and any-hit traversal, kernel K6
+(both ``csrc/traverse_shared.cu``), with the tree's internal nodes in
+shared memory: they replace the JAX package's whole-tree-in-VMEM
+traversal (``ops/traverse_pallas.py`` ``traverse_pallas`` and
+``traverse_any_pallas``).  Same contracts and signatures as K1/K4
+(``ops.traverse_cuda``) and the plain ``ops.traverse.traverse`` and
+``traverse_any``, which run instead for CPU tensors; they read K1's
+tables (``traverse_cuda.pack_tables``) and share K1's truncation counter.
+
+A tree fits when its n - 1 internal nodes, 32 bytes each, fit one
+block's opt-in shared memory (232 448 bytes on an H100: up to 7 265
+leaves) and n is within the JAX kernel's u16 link cap (2n < 0xFFFF).
+``fits`` is that rule as a pure function; the pipeline's ``auto`` takes
+K1/K4 for a tree that does not fit, and these wrappers raise on one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _kernels
+from ..core.types import BVH, Rays
+from . import traverse as traverse_plain
+from . import traverse_cuda
+
+NODE_BYTES = 32  # one internal node: bbmin, bbmax, entry, skip
+LINK_CAP = 0xFFFF  # the JAX kernel's u16 links: 2 * n_leaves < LINK_CAP
+
+# launches of K5 and K6 (chip_smoke.py checks the main path reaches them)
+launches = 0
+any_launches = 0
+_smem: dict = {}  # device index -> opt-in shared memory a block may use
+
+
+def shared_bytes(n_leaves: int) -> int:
+    """Shared memory K5/K6 stage for a tree of ``n_leaves`` leaves."""
+    return (n_leaves - 1) * NODE_BYTES
+
+
+def fits(n_leaves: int, smem_per_block) -> bool:
+    """Whether K5/K6 take a tree of ``n_leaves`` leaves on a device whose
+    blocks may use ``smem_per_block`` bytes of shared memory (None: no
+    shared-memory limit, as for the plain walk on the CPU)."""
+    if n_leaves < 2 or 2 * n_leaves >= LINK_CAP:
+        return False
+    return smem_per_block is None or shared_bytes(n_leaves) <= smem_per_block
+
+
+def smem_per_block(device: torch.device):
+    """The opt-in shared memory a block may use on ``device`` in bytes, or
+    None for the CPU."""
+    if device.type != "cuda":
+        return None
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _smem:
+        out = ctypes.c_int(0)
+        _kernels.check(_kernels.load().rtbvh_shared_mem_per_block(
+            index, ctypes.addressof(out)), "shared memory query")
+        _smem[index] = out.value
+    return _smem[index]
+
+
+def _check_fits(bvh: BVH, device: torch.device, what: str) -> None:
+    n = bvh.n_leaves
+    smem = smem_per_block(device)
+    if not fits(n, smem):
+        raise ValueError(
+            f"{what}: a tree of {n} leaves does not fit K5/K6 "
+            f"({shared_bytes(n)} bytes of shared memory of {smem} a block, "
+            f"2n < {LINK_CAP}); use K1/K4 (ops.traverse_cuda)")
+
+
+def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
+             return_steps: bool = False):
+    """K5 for CUDA tensors, ``ops.traverse.traverse`` for CPU tensors;
+    the arguments and results of ``traverse_cuda.traverse`` (K1)."""
+    if rays.origin.device.type == "cpu":
+        return traverse_plain.traverse(bvh, rays, epsilon, max_steps,
+                                       return_steps)
+    _check_fits(bvh, rays.origin.device, "K5 traverse_shared")
+    out, launched = traverse_cuda.launch_nearest(
+        "rtbvh_traverse_shared", "K5 traverse_shared", bvh, rays, epsilon,
+        max_steps, return_steps)
+    global launches
+    launches += launched
+    return out
+
+
+def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
+                 max_steps: int = 0, return_steps: bool = False):
+    """K6 for CUDA tensors, ``ops.traverse.traverse_any`` for CPU tensors;
+    the arguments and results of ``traverse_cuda.traverse_any`` (K4)."""
+    if rays.origin.device.type == "cpu":
+        return traverse_plain.traverse_any(bvh, rays, epsilon, max_t,
+                                           max_steps, return_steps)
+    _check_fits(bvh, rays.origin.device, "K6 traverse_any_shared")
+    out, launched = traverse_cuda.launch_any(
+        "rtbvh_traverse_any_shared", "K6 traverse_any_shared", bvh, rays,
+        epsilon, max_t, max_steps, return_steps)
+    global any_launches
+    any_launches += launched
+    return out

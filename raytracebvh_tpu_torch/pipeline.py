@@ -4,12 +4,17 @@
 Traversal returns discrete hit ids behind a ``.detach()`` boundary; hit
 distances, positions, normals, uv and colours are recomputed from those
 ids by plain tensor code, as in the JAX package.  On CUDA tensors the
-traversal is kernel K1 (``ops.traverse_cuda``) and the leaf-attribute
-and texture-quad row gathers are kernel K2 (``ops.gather_cuda``); the
-``*_backend`` fields of the config pick them (see ``config.py``).
-Shadow rays (``enable_shadows``) go through the any-hit traversal, kernel
-K4 on CUDA tensors; occlusion is discrete and computed under
-``.detach()``, like the hit ids.  ``enable_refraction`` adds the
+traversal is kernel K5 with the tree in shared memory
+(``ops.traverse_shared_cuda``) where the tree fits, else K1
+(``ops.traverse_cuda``); the leaf-attribute gather is kernel K2
+(``ops.gather_cuda``) or, for ``shade_gather_backend='shared'``, K7 on the
+channel-major table (``ops.gather_cols_cuda``); the texture-quad gather
+is K2; the build's sort is K8 (``ops.sort_cuda``) for
+``sort_backend`` ``bitonic`` or ``auto``.  The ``*_backend`` fields of
+the config pick them (see ``config.py``).  Shadow rays
+(``enable_shadows``) go through the any-hit traversal, kernel K6 or K4 on
+CUDA tensors; occlusion is discrete and computed under ``.detach()``,
+like the hit ids.  ``enable_refraction`` adds the
 refraction chain and blends it over the reflection result.
 """
 
@@ -30,15 +35,15 @@ from .camera import (
     transform_points,
     untile_flat,
 )
-from .config import SORT_BACKENDS, RenderConfig, resolve_backend
+from .config import RenderConfig, resolve_backend, resolve_sort_backend
 from .core.types import BVH, Camera, HitRecord, Rays, Scene
 from .ops import bvh as bvh_ops
-from .ops import gather_cuda
+from .ops import gather_cols_cuda, gather_cuda
 from .ops.ieee import div, sqrt
 from .ops import morton as morton_ops
 from .ops import shade as shade_ops
 from .ops import sort as sort_ops
-from .ops import traverse_cuda
+from .ops import sort_cuda, traverse_cuda, traverse_shared_cuda
 
 I32 = torch.int32
 
@@ -63,12 +68,9 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
                  cfg: RenderConfig) -> BVH:
     """Sort + Karras + AABB fit + links + leaf-attribute pack from per-face
     leaf data in face-id order."""
-    if cfg.sort_backend not in SORT_BACKENDS:
-        raise ValueError(
-            f"sort_backend {cfg.sort_backend!r} is not ported; expected one "
-            f"of {SORT_BACKENDS}")
     dtype = cfg.torch_dtype
     dev = verts_t.device
+    sort_backend = resolve_sort_backend(cfg, dev)
     nf = scene.num_faces
     n = _pad_count(nf, cfg.leaf_pad_multiple)
 
@@ -83,7 +85,12 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
     prim = torch.cat([torch.arange(nf, dtype=I32, device=dev),
                       torch.full((pad,), -1, dtype=I32, device=dev)])
 
-    sorted_codes, order = sort_ops.sort_by_code(codes)
+    if sort_backend == "bitonic":
+        sorted_codes, order = sort_cuda.bitonic_sort_by_code(codes)
+    elif sort_backend == "radix":
+        sorted_codes, order = sort_ops.radix_sort_by_code(codes)
+    else:
+        sorted_codes, order = sort_ops.sort_by_code(codes)
     order = order.long()
     prim, lmin, lmax = prim[order], lmin[order], lmax[order]
 
@@ -129,9 +136,32 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
     )
 
 
-def resolve_traversal_backend(cfg: RenderConfig) -> str:
-    """'torch' (the plain walk) or 'cuda' (K1's wrapper); see config.py."""
-    return resolve_backend(cfg, "traversal_backend")
+def resolve_traversal_backend(cfg: RenderConfig, n_leaves: int,
+                              device: torch.device) -> str:
+    """'torch' (the plain walk), 'cuda' (K1/K4's wrapper) or 'shared'
+    (K5/K6's) for a tree of ``n_leaves`` leaves on ``device``, the
+    counterpart of the JAX package's: ``auto`` and ``shared`` take K5/K6
+    where the tree fits a block's shared memory
+    (``traverse_shared_cuda.fits``) and K1/K4 above, as the JAX ``auto``
+    and ``pallas`` take the HBM kernel above the VMEM kernel's cap.  On
+    the CPU only the JAX cap applies: both wrappers run the plain walk
+    there."""
+    backend = resolve_backend(cfg, "traversal_backend")
+    if backend == "shared":
+        if not traverse_shared_cuda.fits(
+                n_leaves, traverse_shared_cuda.smem_per_block(device)):
+            backend = "cuda"
+    return backend
+
+
+def _walks(bvh: BVH, cfg: RenderConfig):
+    """The (nearest-hit, any-hit) traversals that cfg's backend resolves
+    to for ``bvh``."""
+    backend = resolve_traversal_backend(cfg, bvh.n_leaves, bvh.prim.device)
+    if backend == "shared":
+        return traverse_shared_cuda.traverse, traverse_shared_cuda.traverse_any
+    return (traverse_cuda.traverse_for(backend),
+            traverse_cuda.traverse_any_for(backend))
 
 
 def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig) -> HitRecord:
@@ -139,7 +169,7 @@ def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig) -> HitRecord:
     bvh = bvh.detach()
     rays = Rays(origin=rays.origin.detach().contiguous(),
                 direction=rays.direction.detach().contiguous())
-    traverse = traverse_cuda.traverse_for(resolve_traversal_backend(cfg))
+    traverse = _walks(bvh, cfg)[0]
     nrays = rays.origin.shape[0]
     chunk = cfg.traversal_chunk
     if chunk > 0 and nrays > chunk:
@@ -185,8 +215,7 @@ def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
     max_t = dist * (1.0 - 1e-4)
     # dead lanes (primary misses) start far outside every box
     so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
-    traverse_any = traverse_cuda.traverse_any_for(
-        resolve_traversal_backend(cfg))
+    traverse_any = _walks(bvh, cfg)[1]
     occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
                        max_t.contiguous(), cfg.max_traversal_steps)
     occ = occ & rec.hit
@@ -198,10 +227,16 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
     """Re-evaluation of a hit from its leaf id: position, normal, surface
     colour (renderPixel * specular, the diffuse term scaled by the shadow
     factor ``vis`` when given), shininess, alpha and optical density.
-    One [40]-channel row gather per ray (K2 on CUDA) fetches everything."""
-    gather = gather_cuda.gather_for(
-        resolve_backend(cfg, "shade_gather_backend"))
-    A = gather(bvh.leaf_attrs, rec.leaf)
+    One [40]-channel gather per ray fetches everything: a row gather from
+    the leaf-attribute table (K2 on CUDA), or for 'shared' a column gather
+    from its channel-major transpose (K7 on CUDA), as the JAX 'pallas'
+    gathers from ``leaf_attrs.T``."""
+    backend = resolve_backend(cfg, "shade_gather_backend")
+    if backend == "shared":
+        A = gather_cols_cuda.gather_cols(bvh.leaf_attrs.t().contiguous(),
+                                         rec.leaf)
+    else:
+        A = gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
     a = lambda k: A[k]
     t0 = (a(0), a(1), a(2))
     t1 = (a(3), a(4), a(5))
@@ -421,8 +456,9 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
     primary rays all miss skips shading and its shadow rays: it is pure
     background (its spawns carry zero intensity), so the image is the
     same.  ``light3`` (``light_in_ray_space``) is needed for shadows."""
-    if resolve_traversal_backend(cfg) == "cuda":
-        # pack K1's tables once per build: every traversal reuses them
+    if resolve_backend(cfg, "traversal_backend") != "torch":
+        # pack K1's tables once per build: every traversal reuses them,
+        # K5/K6's too
         bvh = traverse_cuda.with_tables(bvh)
     tex_quads = _frame_tex_quads(scene, cfg)
     nrays = rays.origin.shape[0]

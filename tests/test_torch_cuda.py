@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 and K4 against their plain PyTorch versions on the GPU.
+"""Kernels K1 to K8 against their plain PyTorch versions on the GPU.
 
 Marked ``gpu``: they skip without a CUDA device (a CUDA kernel has no
 CPU mode; the CPU tests hold the plain versions against the JAX
@@ -6,10 +6,12 @@ package).  On a GPU machine, which need not have JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
-Tolerances: K2 exact; K1 hit and leaf exact, distance exact; K4's
-occlusion flags exact, max_t one ulp around hit distances included (the
-kernels are built with -fmad=false and IEEE division, so they round as
-the plain versions' separate PyTorch ops do).  K3 sums in fixed point: it
+Tolerances: K2 and K7 exact; K1 and K5 hit and leaf exact, distance
+exact; K4's and K6's occlusion flags exact, K4's with max_t one ulp around
+hit distances included (the kernels are built with -fmad=false and IEEE
+division, so they round as the plain versions' separate PyTorch ops do);
+K8's (sorted_codes, order) exact against torch.sort(stable=True) and its
+plain network.  K3 sums in fixed point: it
 is held to the float64 sum within 1e-6 of each row's largest |value|, and
 to its own bits on a second launch.
 """
@@ -346,3 +348,205 @@ def test_loss_and_grads_64x64_kernels_match_plain(dev):
         scale = float(gp.abs().max())
         assert scale > 0 and bool(torch.isfinite(g).all())
         assert float((g - gp).abs().max()) <= 1e-5 * scale
+
+
+def _dead_and_live(dev, nrays, seed):
+    """Random rays, a quarter of them dead (origin 1e30, as the pipeline
+    parks rays that stopped bouncing)."""
+    rays = _rays(dev, nrays, seed)
+    o = rays.origin.clone()
+    o[::4] = 1.0e30
+    return type(rays)(o.contiguous(), rays.direction)
+
+
+def test_k5_k6_match_plain_random_and_dead_rays(dev):
+    """K5 and K6 bit-equal to the plain walks (and so to K1 and K4): hit,
+    leaf, distance, occlusion and steps."""
+    from raytracebvh_tpu_torch.ops import traverse, traverse_shared_cuda
+
+    bvh = _bvh(dev)
+    rays = _dead_and_live(dev, 20000, 21)
+    max_t = _max_t(dev, 20000, 22)
+    before = (traverse_shared_cuda.launches, traverse_shared_cuda.any_launches)
+    got, steps = traverse_shared_cuda.traverse(bvh, rays, 0.01,
+                                               return_steps=True)
+    occ, osteps = traverse_shared_cuda.traverse_any(bvh, rays, 0.01, max_t,
+                                                    return_steps=True)
+    assert (traverse_shared_cuda.launches,
+            traverse_shared_cuda.any_launches) == (before[0] + 1, before[1] + 1)
+    want, wsteps = traverse.traverse(bvh, rays, 0.01, return_steps=True)
+    wocc, wosteps = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                          return_steps=True)
+    assert 0 < int(want.hit.sum()) < rays.origin.shape[0]
+    assert 0 < int(wocc.sum()) < rays.origin.shape[0]
+    _assert_same(got, want)
+    assert torch.equal(steps, wsteps) and torch.equal(occ, wocc)
+    assert torch.equal(osteps, wosteps)
+    assert int(wsteps[::4].max()) == 1  # dead rays miss the root
+
+
+def test_k5_k6_on_plane_rays_match_plain(dev):
+    """Axis-parallel rays with origins on box planes (0 * inf = NaN)."""
+    from raytracebvh_tpu_torch.core.types import Rays
+    from raytracebvh_tpu_torch.ops import traverse, traverse_shared_cuda
+
+    bvh = _bvh(dev, 500, 2)
+    n = bvh.n_leaves
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    nodes = torch.randint(0, 2 * n - 1, (4096,), generator=gen).to(dev)
+    lo, hi = bvh.bbmin[nodes], bvh.bbmax[nodes]
+    o = 0.5 * (lo + hi)
+    o[:2048, 0] = lo[:2048, 0]
+    o[2048:, 1] = hi[2048:, 1]
+    o[:, 2] = lo[:, 2] - 1.0
+    o = torch.where(torch.isfinite(o), o, 0.0).contiguous()
+    d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(o).contiguous()
+    rays = Rays(o, d)
+    _assert_same(traverse_shared_cuda.traverse(bvh, rays, 0.01),
+                 traverse.traverse(bvh, rays, 0.01))
+    max_t = torch.full((4096,), 1e3, device=dev)
+    want = traverse.traverse_any(bvh, rays, 0.01, max_t)
+    assert bool(want.any())
+    assert torch.equal(traverse_shared_cuda.traverse_any(bvh, rays, 0.01,
+                                                         max_t), want)
+
+
+def test_k5_k6_step_cap_counts_truncated_rays(dev):
+    from raytracebvh_tpu_torch.ops import (traverse, traverse_cuda,
+                                           traverse_shared_cuda)
+
+    bvh = _bvh(dev)
+    rays = _rays(dev, 4096, 24)
+    max_t = _max_t(dev, 4096, 25)
+    full = traverse.traverse(bvh, rays, 0.01, return_steps=True)[1]
+    full_any = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                     return_steps=True)[1]
+    traverse_cuda.reset_truncated()
+    got = traverse_shared_cuda.traverse(bvh, rays, 0.01, max_steps=5)
+    _assert_same(got, traverse.traverse(bvh, rays, 0.01, max_steps=5))
+    assert traverse_cuda.truncated_rays() == int((full > 5).sum()) > 0
+    traverse_cuda.reset_truncated()
+    occ = traverse_shared_cuda.traverse_any(bvh, rays, 0.01, max_t,
+                                            max_steps=5)
+    assert torch.equal(occ, traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                                  max_steps=5))
+    assert traverse_cuda.truncated_rays() == int((full_any > 5).sum()) > 0
+    traverse_cuda.reset_truncated()
+
+
+@pytest.mark.parametrize("num_tris,kernel", [(7000, "K5"), (7300, "K1")])
+def test_shared_capacity_on_the_card(dev, num_tris, kernel):
+    """7 000 triangles pad to 7 168 leaves, whose 229 344 bytes of
+    internal nodes fit an H100 block: 'auto' runs K5.  7 300 pad to
+    7 424, over the 232 448 bytes: 'auto' takes K1, and K5 called
+    directly refuses the tree."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.ops import (traverse, traverse_cuda,
+                                           traverse_shared_cuda)
+
+    bvh = _bvh(dev, num_tris, 26)
+    smem = traverse_shared_cuda.smem_per_block(dev)
+    fits = traverse_shared_cuda.fits(bvh.n_leaves, smem)
+    assert fits == (kernel == "K5")
+    backend = pipeline.resolve_traversal_backend(
+        T.RenderConfig(), bvh.n_leaves, dev)
+    assert backend == ("shared" if fits else "cuda")
+    rays = _rays(dev, 8192, 27)
+    if fits:
+        before = traverse_shared_cuda.launches
+        got = traverse_shared_cuda.traverse(bvh, rays, 0.01)
+        assert traverse_shared_cuda.launches == before + 1
+        _assert_same(got, traverse.traverse(bvh, rays, 0.01))
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            traverse_shared_cuda.traverse(bvh, rays, 0.01)
+        _assert_same(traverse_cuda.traverse(bvh, rays, 0.01),
+                     traverse.traverse(bvh, rays, 0.01))
+
+
+@pytest.mark.parametrize("width", [3072, 7])
+def test_k7_matches_plain_with_out_of_range_ids(dev, width):
+    from raytracebvh_tpu_torch.ops import gather_cols_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(width)
+    tbl = torch.randn(40, width, generator=gen).to(dev)
+    idx = torch.randint(-100, width + 100, (30001,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    before = gather_cols_cuda.launches
+    got = gather_cols_cuda.gather_cols(tbl, idx)
+    assert gather_cols_cuda.launches == before + 1
+    assert torch.equal(got, gather_cols_cuda.gather_cols_torch(tbl, idx))
+    bad = (idx < 0) | (idx >= width)
+    assert bad.any() and (got[:, bad] == 0).all()
+
+
+def test_k7_gradient_is_k3(dev):
+    """Autograd through K7: its backward is K3 on the same g and ids, the
+    same bits as K2's backward on the row-major table."""
+    from raytracebvh_tpu_torch.ops import gather_cols_cuda, gather_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(28)
+    rows = torch.randn(3072, 40, generator=gen).to(dev)
+    idx = _coherent_ids(gen, 3072, 100000).to(dev)
+    w = torch.randn(40, 100000, generator=gen).to(dev)
+    a = rows.clone().requires_grad_()
+    k7, k3 = gather_cols_cuda.launches, gather_cuda.scatter_launches
+    (gather_cols_cuda.gather_cols(a.t().contiguous(), idx) * w).sum().backward()
+    assert (gather_cols_cuda.launches, gather_cuda.scatter_launches) == (
+        k7 + 1, k3 + 1)
+    b = rows.clone().requires_grad_()
+    (gather_cuda.gather_rows(b, idx) * w).sum().backward()
+    assert torch.equal(a.grad, b.grad)
+    assert _row_rel_err(a.grad, _f64_sum(w, idx, 3072)) <= 1e-6
+
+
+@pytest.mark.parametrize("n,high", [(3072, 1 << 30), (3072, 7),
+                                    (102400, 1 << 30), (102400, 50),
+                                    (16384, 1 << 30), (16385, 3)])
+def test_k8_both_routes_match_stable_sort(dev, n, high):
+    """Padded sizes 4 096 and 16 384 (one block in shared memory) and
+    131 072 and 32 768 (global-memory phases, then shared-memory tiles),
+    heavy duplicates and the sentinel padding included."""
+    from raytracebvh_tpu_torch.ops import sort_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(n + high)
+    codes = torch.randint(0, high, (n,), generator=gen, dtype=torch.int32)
+    codes[-n // 8:] = 0x3FFFFFFF
+    codes = codes.to(dev)
+    before = sort_cuda.launches
+    got_c, got_o = sort_cuda.bitonic_sort_by_code(codes)
+    assert sort_cuda.launches == before + 1
+    want_c, want_o = torch.sort(codes, stable=True)
+    assert got_c.dtype == torch.int32 and got_o.dtype == torch.int32
+    assert torch.equal(got_c, want_c) and torch.equal(got_o.long(), want_o)
+    keys, idx = sort_cuda._padded(codes)
+    plain_c, plain_o = sort_cuda.bitonic_network_torch(keys, idx)
+    assert torch.equal(got_c, plain_c[:n]) and torch.equal(got_o, plain_o[:n])
+
+
+def test_onchip_backends_frame_equals_kernel_frame(dev):
+    """A 64x64 shadowed frame through shared / shared / bitonic (K5, K6,
+    K7, K8) equals the frame through cuda / cuda / lax (K1, K4, K2) bit for
+    bit, each launch counted."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.ops import (gather_cols_cuda, sort_cuda,
+                                           traverse_shared_cuda)
+
+    scene = random_triangles(300, seed=7, with_texture=True).to(dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.4,
+                         enable_shadows=True, light_pos=(10.0, 80.0, -40.0))
+    counts = lambda: (traverse_shared_cuda.launches,
+                      traverse_shared_cuda.any_launches,
+                      gather_cols_cuda.launches, sort_cuda.launches)
+    before = counts()
+    got = T.render_frame(scene, cam, cfg.replace(
+        traversal_backend="shared", shade_gather_backend="shared",
+        sort_backend="bitonic"))
+    assert all(a > b for a, b in zip(counts(), before))
+    want = T.render_frame(scene, cam, cfg.replace(
+        traversal_backend="cuda", shade_gather_backend="cuda",
+        sort_backend="lax"))
+    assert torch.equal(got, want)

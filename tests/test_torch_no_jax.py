@@ -1,6 +1,7 @@
-"""The port imports, renders (shadows and refraction included) and takes
-a training step with JAX and flax blocked: it must run on a machine that
-has neither."""
+"""The port imports, renders (shadows and refraction included, and
+through the on-chip backends ``shared`` / ``shared`` / ``bitonic``) and
+takes a training step with JAX and flax blocked: it must run on a machine
+that has neither."""
 
 import os
 import re
@@ -24,6 +25,14 @@ img = T.render_frame(random_triangles(50, seed=2, with_texture=True,
                                     ortho_scale=1.0, enable_shadows=True,
                                     enable_refraction=True))
 assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
+onchip = T.render_frame(random_triangles(50, seed=2, with_texture=True),
+                        T.Camera.default(),
+                        T.RenderConfig(width=16, height=16, bounces=1,
+                                       ortho_scale=1.0, enable_shadows=True,
+                                       traversal_backend="shared",
+                                       shade_gather_backend="shared",
+                                       sort_backend="bitonic"))
+assert onchip.shape == (16, 16, 4) and bool(torch.isfinite(onchip).all())
 from raytracebvh_tpu_torch.models import inverse
 scene = random_triangles(20, seed=3, with_texture=True)
 params = inverse.init_params(scene)

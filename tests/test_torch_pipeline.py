@@ -121,15 +121,27 @@ def test_tpu_backend_strings_raise(field, value):
     # tests/test_torch_refraction.py); values no package takes still raise
     (dict(camera_mode="orthographic"), ValueError),
     (dict(texture_dtype="bfloat16"), ValueError),
-    (dict(sort_backend="radix"), ValueError),
-    (dict(sort_backend="bitonic"), ValueError),
+    # the radix and bitonic sorts are ported: they build lax's tree
+    (dict(sort_backend="radix"), None),
+    (dict(sort_backend="bitonic"), None),
     (dict(ray_tile=16, ray_tile_order="diagonal"), ValueError),
+    (dict(sort_backend="merge"), ValueError),
 ])
 def test_unported_options_raise(kw, exc):
     _, ts = _scenes()
-    with pytest.raises(exc):
-        T.render_frame(ts, T.Camera.default(),
-                       T.RenderConfig(width=16, height=16, bounces=0, **kw))
+    cfg = T.RenderConfig(width=16, height=16, bounces=0, **kw)
+    if exc is not None:
+        with pytest.raises(exc):
+            T.render_frame(ts, T.Camera.default(), cfg)
+        return
+    from raytracebvh_tpu_torch.camera import camera_matrices
+
+    wvp, wv = camera_matrices(T.Camera.default(), 16, 16)
+    got = T.build_bvh(ts, wvp, wv, cfg)
+    want = T.build_bvh(ts, wvp, wv, cfg.replace(sort_backend="lax"))
+    for f in ("codes", "prim", "child_l", "child_r", "entry_link",
+              "skip_link", "bbmin", "bbmax", "leaf_attrs"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("kw,passes", [
