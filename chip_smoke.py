@@ -15,14 +15,17 @@ Phases (one line of output each, or more):
   3. kernels: K1 (nearest-hit traversal), K2 (row gather), K4 (any-hit
      traversal), K3 (K2's backward, the scatter-add), K5 and K6 (K1 and K4
      with the tree in shared memory), K7 (column gather from a
-     channel-major table) and K8 (bitonic sort of the build's codes, both
+     channel-major table) and K8 (stable sort of the build's codes, both
      routes) against their plain versions on the very inputs the main path
      hands them (K3 also against a float64 sum, and against itself: two
      launches, 0 differing bits; K7's backward against K3 through K2; K8
-     also against torch.sort(stable=True)); their times beside the plain
-     versions' (CUDA events, median of 5), their bounds, a library call
-     where one computes the same function, and for K5/K6 K1/K4's time on
-     the same rays
+     also against torch.sort(stable=True), at the edges of its routes, with
+     its kernels counted by torch.profiler); their times beside the plain
+     versions' (CUDA events around the wrapper, median of 5), their
+     bounds, a library call where one computes the same function; for
+     K5/K6 K1/K4's time on the same rays at three tree sizes and on a
+     sparse chunk, also as device time (torch.profiler), and the staging
+     alone; for K8 its kernels' device time beside torch.sort's
   4. main path: the dense, sparse and large frames, then dense_shadows,
      sparse_shadows, large_shadows, refract and dense_onchip; every
      kernel's launch count over each frame (counts set to 0 just before
@@ -559,21 +562,118 @@ def cat_rays(calls):
     return out, None
 
 
-# float32 operations of one compare-exchange of K8's network: two compares
-# of the (code, index) key and two selects of each of the two words
-OPS_PER_EXCHANGE = 6
+# the trees K5/K6 are held to K1/K4 on, besides the dense frame's 3 072
+# leaves: sphere grids of 432 and 6 912 triangles (512 and 6 912 leaves)
+# under the dense frame's aimed camera; all three have a sphere where the
+# camera aims
+WALK_TREES = {"512 leaves": (4, 3, 3), "6 912 leaves": (4, 3, 12)}
+# K8 beyond the main path's codes: the edges of its routes (one block up
+# to 16 384 codes, tiles and merges above), on three orderings
+K8_EDGE_SIZES = (1, 2, 1023, 1024, 4097, 16384, 16385, 131073)
+
+
+def kernel_durations(fn, reps: int):
+    """(name, duration in us) of each CUDA kernel in a torch.profiler trace
+    of ``reps`` calls of ``fn``, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["dur"])) for e in events
+            if e.get("cat") == "kernel"]
+
+
+def profiled(fn, reps: int = 1):
+    """(CUDA kernels a call of ``fn`` runs, their device time a call in
+    ms): the kernels alone, without the host time between launches that
+    CUDA events around a call also count."""
+    durations = [d for _, d in kernel_durations(fn, reps)]
+    return len(durations) / reps, sum(durations) / reps / 1e3
+
+
+def walk_ms(fn, reps: int = 10) -> float:
+    """The device time of the one walk kernel (K1, K4, K5 or K6) a call of
+    ``fn`` runs, in ms: the median duration of the kernels named
+    traverse... over ``reps`` calls (a median, so that a record the trace
+    drops does not count as a fast call; the name, so that nothing but
+    the walk counts)."""
+    for _ in range(5):  # a trace now and then comes back without kernels
+        durations = [d for name, d in kernel_durations(fn, reps)
+                     if "traverse" in name]
+        if durations:
+            return float(np.median(durations)) / 1e3
+    raise SmokeFailure("five profiler traces held no walk kernel")
+
+
+def walk_pair(name, bvh, rays, eps, max_t=None):
+    """K5 (or K6 where ``max_t`` is given) against the plain walk on
+    ``rays``, then its time beside K1's (or K4's) on the same rays: CUDA
+    events around the wrapper, and the kernel's device time.  Returns
+    (max |err|, steps, ms, K1/K4 ms, device ms, K1/K4 device ms)."""
+    from raytracebvh_tpu_torch.ops import traverse as plain
+    from raytracebvh_tpu_torch.ops import traverse_cuda, traverse_shared_cuda
+
+    bvh = traverse_cuda.with_tables(bvh)
+    if max_t is None:
+        kernel, ref, plain_walk = (traverse_shared_cuda.traverse,
+                                   traverse_cuda.traverse, plain.traverse)
+        args, k = (eps,), "K5"
+    else:
+        kernel, ref, plain_walk = (traverse_shared_cuda.traverse_any,
+                                   traverse_cuda.traverse_any,
+                                   plain.traverse_any)
+        args, k = (eps, max_t), "K6"
+    err, steps = exact_walk(f"{k} {name}", kernel, plain_walk, bvh, rays, *args)
+    ms = cuda_ms(lambda: kernel(bvh, rays, *args))
+    ref_ms = cuda_ms(lambda: ref(bvh, rays, *args))
+    dev_ms = walk_ms(lambda: kernel(bvh, rays, *args))
+    ref_dev_ms = walk_ms(lambda: ref(bvh, rays, *args))
+    log(f"  {k} time, {name} ({rays.origin.shape[0]} rays, {bvh.n_leaves} "
+        f"leaves, {walk_design(bvh, rays)}): {ms:.4f} ms vs "
+        f"{'K1' if k == 'K5' else 'K4'} on the same rays {ref_ms:.4f} ms "
+        f"({ms / ref_ms:.3f}x); device time {dev_ms:.4f} ms vs "
+        f"{ref_dev_ms:.4f} ms ({dev_ms / ref_dev_ms:.3f}x)")
+    return err, steps, ms, ref_ms, dev_ms, ref_dev_ms
+
+
+def walk_design(bvh, rays):
+    """What K5/K6 stage and how they share ``rays`` out."""
+    from raytracebvh_tpu_torch.ops import traverse_shared_cuda as tsc
+
+    dev = rays.origin.device
+    first = tsc.staged_first(bvh.n_leaves, tsc.smem_per_block(dev))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nrays = rays.origin.shape[0]
+    grid = tsc.launch_geometry(nrays, sms)
+    one_round = -(-nrays // 32) <= grid * tsc.BLOCK // 32
+    return (f"{'every node record' if first == 0 else 'the internal nodes'}"
+            f" staged, grid {grid} x {tsc.BLOCK}, "
+            + ("one round of 32-ray batches" if one_round else "work queue"))
 
 
 def phase_onchip_kernels(frames):
     """K5, K6, K7 and K8 against their plain versions on the main path's
     inputs; their times, bounds and yardsticks."""
+    from raytracebvh_tpu_torch.core.types import Rays
+    from raytracebvh_tpu_torch.models.procedural import sphere_grid
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
-                                           sort_cuda, traverse_cuda,
-                                           traverse_shared_cuda)
+                                           traverse_cuda, traverse_shared_cuda)
     from raytracebvh_tpu_torch.ops import traverse as plain
 
     result = {}
-    # K5: all of the dense frame's primary rays, and a sparse chunk's
+    # K5/K6 beside K1/K4 on the same rays: the dense frame's primary and
+    # shadow rays, a sparse chunk, sparse_shadows' rays, and the dense
+    # frame's rays on two more trees
     bvh_d, prim_rays, eps = capture(*frames["dense"])["K1"][0][0][:3]
     bvh_d = traverse_cuda.with_tables(bvh_d)
     sparse = capture(*frames["sparse"])
@@ -585,28 +685,6 @@ def phase_onchip_kernels(frames):
                       if bool(plain.traverse(*c[0][:3]).hit.any())), None)
     check(hit_chunk is not None, "no sparse chunk hits")
     bvh_s, chunk_rays = hit_chunk[0][:2]
-    bvh_s = traverse_cuda.with_tables(bvh_s)
-    err5, steps5 = exact_walk("K5 dense primary", traverse_shared_cuda.traverse,
-                              plain.traverse, bvh_d, prim_rays, eps)
-    err5b, _ = exact_walk("K5 sparse chunk", traverse_shared_cuda.traverse,
-                          plain.traverse, bvh_s, chunk_rays, eps)
-    ms = cuda_ms(lambda: traverse_shared_cuda.traverse(bvh_d, prim_rays, eps))
-    k1_ms = cuda_ms(lambda: traverse_cuda.traverse(bvh_d, prim_rays, eps))
-    plain_ms = cuda_ms(lambda: plain.traverse(bvh_d, prim_rays, eps))
-    b_ms, b_by, nbytes, nsteps = walk_bound(
-        prim_rays, steps5, (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
-    log(f"  K5 time, dense primary ({prim_rays.origin.shape[0]} rays, "
-        f"{bvh_d.n_leaves} leaves, "
-        f"{traverse_shared_cuda.shared_bytes(bvh_d.n_leaves)} bytes of shared "
-        f"memory): {ms:.3f} ms vs K1 on the same rays {k1_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nsteps} node steps, "
-        f"{nbytes} bytes, by {b_by}); no PyTorch call computes a traversal")
-    result["K5"] = dict(max_abs_err=max(err5, err5b), ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        k1_k4_same_rays_ms=k1_ms)
-
-    # K6: every shadow ray of sparse_shadows' shaded chunks, and the dense
-    # frame's shadow rays
     ss = capture(*frames["sparse_shadows"])
     check(len(ss["K6"]) > 0 and not ss["K4"],
           f"sparse_shadows made {len(ss['K6'])} K6, {len(ss['K4'])} K4 calls")
@@ -614,34 +692,68 @@ def phase_onchip_kernels(frames):
     rays_ss, max_t_ss = cat_rays(ss["K6"])
     bvh_ds, shadow_rays, eps, max_t = capture(
         *frames["dense_shadows"])["K4"][0][0][:4]
+
+    err5, steps5, ms5, k1_ms, dev5, dev1 = walk_pair(
+        "dense primary", bvh_d, prim_rays, eps)
+    err6, steps6, ms6, k4_ms, dev6, dev4 = walk_pair(
+        "dense shadows", bvh_ds, shadow_rays, eps, max_t)
+    errs5, errs6 = [err5], [err6]
+    errs5.append(walk_pair("sparse chunk", bvh_s, chunk_rays, eps)[0])
+    err, steps_ss, ms_ss, k4_ms_ss, dev_ss, dev4_ss = walk_pair(
+        f"sparse_shadows ({len(ss['K6'])} chunks in one launch)", bvh_ss,
+        rays_ss, eps, max_t_ss)
+    errs6.append(err)
+    scene_d, aimed, cfg_d = frames["dense_shadows"]
+    for what, (nx, ny, subdiv) in WALK_TREES.items():
+        scene = sphere_grid(nx=nx, ny=ny, subdiv=subdiv).to(scene_d.device)
+        c = capture(scene, aimed, cfg_d)
+        bvh_t, rays_t, eps_t = c["K1"][0][0][:3]
+        check(f"{bvh_t.n_leaves:,}".replace(",", " ") in what,
+              f"{what}: the tree has {bvh_t.n_leaves} leaves")
+        errs5.append(walk_pair(f"dense primary, {what}", bvh_t, rays_t,
+                               eps_t)[0])
+        bvh_t, rays_t, eps_t, max_t_t = c["K4"][0][0][:4]
+        errs6.append(walk_pair(f"dense shadows, {what}", bvh_t, rays_t,
+                               eps_t, max_t_t)[0])
+    # the staging alone: rays that miss the root (dead rays, one step each)
+    for nrays in (prim_rays.origin.shape[0], chunk_rays.origin.shape[0]):
+        dead = Rays(torch.full((nrays, 3), 1.0e30, device=prim_rays.origin.device),
+                    prim_rays.direction[:nrays].contiguous())
+        t5 = walk_ms(lambda: traverse_shared_cuda.traverse(bvh_d, dead, eps))
+        t1 = walk_ms(lambda: traverse_cuda.traverse(bvh_d, dead, eps))
+        log(f"  K5 staging alone, {nrays} rays that miss the root, "
+            f"{bvh_d.n_leaves} leaves ({walk_design(bvh_d, dead)}): device "
+            f"time {t5:.4f} ms vs K1 {t1:.4f} ms")
+
+    plain_ms = cuda_ms(lambda: plain.traverse(bvh_d, prim_rays, eps))
+    b_ms, b_by, nbytes, nsteps = walk_bound(
+        prim_rays, steps5, (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
+    log(f"  K5 dense primary: plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({nsteps} node steps, {nbytes} bytes, by {b_by}); no PyTorch call "
+        "computes a traversal")
+    result["K5"] = dict(max_abs_err=max(errs5), ms=ms5, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        k1_k4_same_rays_ms=k1_ms, device_ms=dev5,
+                        k1_k4_same_rays_device_ms=dev1)
     bvh_ds = traverse_cuda.with_tables(bvh_ds)
-    err6, _ = exact_walk(f"K6 sparse_shadows ({len(ss['K6'])} chunks)",
-                         traverse_shared_cuda.traverse_any,
-                         plain.traverse_any, bvh_ss, rays_ss, eps, max_t_ss)
-    err6b, steps6 = exact_walk("K6 dense shadows",
-                               traverse_shared_cuda.traverse_any,
-                               plain.traverse_any, bvh_ds, shadow_rays, eps,
-                               max_t)
-    ms = cuda_ms(lambda: traverse_shared_cuda.traverse_any(
-        bvh_ds, shadow_rays, eps, max_t))
-    k4_ms = cuda_ms(lambda: traverse_cuda.traverse_any(
-        bvh_ds, shadow_rays, eps, max_t))
     plain_ms = cuda_ms(lambda: plain.traverse_any(bvh_ds, shadow_rays, eps,
                                                   max_t))
-    ms_ss = cuda_ms(lambda: traverse_shared_cuda.traverse_any(
-        bvh_ss, rays_ss, eps, max_t_ss))
-    k4_ms_ss = cuda_ms(lambda: traverse_cuda.traverse_any(
-        bvh_ss, rays_ss, eps, max_t_ss))
     b_ms, b_by, nbytes, nsteps = walk_bound(
         shadow_rays, steps6, (bvh_ds.node_table, bvh_ds.leaf_table), 1, 28)
-    log(f"  K6 time, dense shadows ({shadow_rays.origin.shape[0]} rays): "
-        f"{ms:.3f} ms vs K4 on the same rays {k4_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; sparse_shadows' {rays_ss.origin.shape[0]} rays "
-        f"in one launch: {ms_ss:.3f} ms vs K4 {k4_ms_ss:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({nsteps} node steps, {nbytes} bytes, by {b_by})")
-    result["K6"] = dict(max_abs_err=max(err6, err6b), ms=ms, plain_ms=plain_ms,
+    b_ss, by_ss, nbytes_ss, nsteps_ss = walk_bound(
+        rays_ss, steps_ss, (bvh_ss.node_table, bvh_ss.leaf_table), 1, 28)
+    log(f"  K6 dense shadows: plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({nsteps} node steps, {nbytes} bytes, by {b_by}); sparse_shadows "
+        f"bound {b_ss:.4f} ms ({nsteps_ss} node steps, {nbytes_ss} bytes, by "
+        f"{by_ss})")
+    result["K6"] = dict(max_abs_err=max(errs6), ms=ms6, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        k1_k4_same_rays_ms=k4_ms)
+                        k1_k4_same_rays_ms=k4_ms, device_ms=dev6,
+                        k1_k4_same_rays_device_ms=dev4,
+                        sparse_shadows_ms=ms_ss, sparse_shadows_k4_ms=k4_ms_ss,
+                        sparse_shadows_device_ms=dev_ss,
+                        sparse_shadows_k4_device_ms=dev4_ss,
+                        sparse_shadows_bound_ms=b_ss)
 
     # K7 and K8: dense_onchip's leaf table, leaf ids and codes
     on = capture(*frames["dense_onchip"])
@@ -684,38 +796,86 @@ def phase_onchip_kernels(frames):
     check(len(large["sort"]) == 1 and not large["K8"],
           "the large frame did not sort once with the stable sort")
     (codes_l,), _ = large["sort"][0]
+    result["K8"] = phase_k8(codes_d, codes_l)
+    return result
+
+
+def k8_exact(what, codes):
+    """K8 against torch.sort(stable=True) and its plain network: every
+    output equal."""
+    from raytracebvh_tpu_torch.ops import sort_cuda
+
+    n = codes.shape[0]
+    got_c, got_o = sort_cuda.bitonic_sort_by_code(codes)
+    want_c, want_o = torch.sort(codes, stable=True)
+    plain_c, plain_o = sort_cuda.bitonic_network_torch(*sort_cuda._padded(codes))
+    nbad = int((got_c != want_c).sum() + (got_o.long() != want_o).sum())
+    check(nbad == 0, f"K8 {what}: {nbad} outputs differ from torch.sort")
+    check(torch.equal(got_c, plain_c[:n]) and torch.equal(got_o, plain_o[:n]),
+          f"K8 {what}: differs from its plain network")
+
+
+def phase_k8(codes_d, codes_l):
+    """K8 on the dense and large frames' codes and at the edges of its
+    routes: exact against torch.sort(stable=True) and its plain network;
+    the kernels a call runs (torch.profiler); its time with the wrapper
+    (CUDA events) and as the kernels alone (device time), beside
+    torch.sort's."""
+    from raytracebvh_tpu_torch.ops import sort_cuda
+
+    dev = codes_d.device
+    for n in K8_EDGE_SIZES:
+        inputs = {"equal": torch.full((n,), 7, dtype=torch.int32, device=dev),
+                  "sorted": torch.arange(n, dtype=torch.int32, device=dev),
+                  "reversed": torch.arange(n, 0, -1, dtype=torch.int32,
+                                           device=dev)}
+        for what, codes in inputs.items():
+            k8_exact(f"{n} {what} codes", codes)
+        log(f"  K8 {n} codes, all equal, sorted and reversed: equal to "
+            f"torch.sort(stable=True) and the plain network")
     k8 = {}
     for what, codes in (("dense", codes_d), ("large", codes_l)):
-        got_c, got_o = sort_cuda.bitonic_sort_by_code(codes)
-        want_c, want_o = torch.sort(codes, stable=True)
-        keys, ids = sort_cuda._padded(codes)
-        plain_c, plain_o = sort_cuda.bitonic_network_torch(keys, ids)
+        k8_exact(what, codes)
         n = codes.shape[0]
-        nbad = int((got_c != want_c).sum() + (got_o.long() != want_o).sum())
-        check(nbad == 0, f"K8 {what}: {nbad} outputs differ from torch.sort")
-        check(torch.equal(got_c, plain_c[:n]) and torch.equal(got_o,
-                                                                plain_o[:n]),
-              f"K8 {what}: differs from its plain network")
-        npad = keys.shape[0]
+        kernels, kernel_ms = profiled(
+            lambda: sort_cuda.bitonic_sort_by_code(codes), 10)
+        check(kernels == sort_cuda.launches_per_call(n),
+              f"K8 {what}: {kernels} CUDA kernels a call, not "
+              f"{sort_cuda.launches_per_call(n)}")
+        if n <= sort_cuda.SMALL_MAX:
+            check(kernels == 1, f"K8 {what}: {kernels} kernels a call")
         ms = cuda_ms(lambda: sort_cuda.bitonic_sort_by_code(codes))
+        lib_kernels, lib_kernel_ms = profiled(
+            lambda: torch.sort(codes, stable=True), 10)
+        keys, ids = sort_cuda._padded(codes)
         plain_ms = cuda_ms(lambda: sort_cuda.bitonic_network_torch(keys, ids))
         lib_ms = cuda_ms(lambda: torch.sort(codes, stable=True))
-        log2n = npad.bit_length() - 1
-        exchanges = npad // 2 * log2n * (log2n + 1) // 2
-        nbytes = n * 4 + n * 8
-        b_ms, b_by = bound(nbytes, OPS_PER_EXCHANGE * exchanges)
-        route = "one block" if npad <= sort_cuda.TILE else "global + tiles"
-        log(f"  K8 {what}: {n} codes padded to {npad} ({route}), "
-            f"{int((codes == codes.max()).sum())} sentinel or top codes: equal "
-            f"to torch.sort(stable=True) and the plain network; {ms:.3f} ms vs "
-            f"plain {plain_ms:.3f} ms, torch.sort {lib_ms:.3f} ms; bound "
-            f"{b_ms:.4f} ms ({exchanges} compare-exchanges, {nbytes} bytes, "
-            f"by {b_by})")
+        # the bound whatever the algorithm: n codes read, n codes and n
+        # indices written, or n * ceil(log2 n) compares
+        nbytes = 12 * n
+        compares = n * max(1, (n - 1).bit_length())
+        b_ms, b_by = bound(nbytes, compares)
+        route = ("one block" if n <= sort_cuda.SMALL_MAX
+                 else f"{-(-n // sort_cuda.TILE)} tiles + merges")
+        log(f"  K8 {what}: {n} codes ({route}), {kernels:g} CUDA kernel(s) a "
+            f"call (torch.profiler), {int((codes == codes.max()).sum())} "
+            f"sentinel or top codes: equal to torch.sort(stable=True) and the "
+            f"plain network; {ms:.4f} ms with the wrapper, {kernel_ms:.4f} ms "
+            f"the kernels alone (device time), torch.sort {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.3f}x; its {lib_kernels:g} kernels alone "
+            f"{lib_kernel_ms:.4f} ms), plain {plain_ms:.3f} ms; bound "
+            f"{b_ms:.6f} ms ({nbytes} bytes, {compares} compares, by {b_by})")
         k8[what] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    result["K8"] = k8["dense"]
-    result["K8"]["large_ms"] = k8["large"]["ms"]
-    return result
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        kernel_ms=kernel_ms, kernels_a_call=kernels,
+                        library_kernel_ms=lib_kernel_ms)
+    out = k8["dense"]
+    out.update(large_ms=k8["large"]["ms"],
+               large_kernel_ms=k8["large"]["kernel_ms"],
+               large_library_ms=k8["large"]["library_ms"],
+               large_bound_ms=k8["large"]["bound_ms"],
+               large_kernels_a_call=k8["large"]["kernels_a_call"])
+    return out
 
 
 def row_rel_err(got, want):

@@ -44,11 +44,12 @@ _SIGNATURES = {
     # max_steps, occluded, steps (nullable), truncated, stream
     "rtbvh_traverse_any": [_P, _P, _P, _P, _P, _I, _I, _F, _I,
                            _P, _P, _P, _P],
-    # K5 and K6: K1's and K4's arguments
+    # K5 and K6: K1's and K4's arguments, then first staged node, grid,
+    # work counter, before the stream
     "rtbvh_traverse_shared": [_P, _P, _P, _P, _I, _I, _F, _I,
-                              _P, _P, _P, _P, _P, _P],
+                              _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "rtbvh_traverse_any_shared": [_P, _P, _P, _P, _P, _I, _I, _F, _I,
-                                  _P, _P, _P, _P],
+                                  _P, _P, _P, _I, _I, _P, _P],
     # device, bytes (int32 out)
     "rtbvh_shared_mem_per_block": [_I, _P],
     # table, rows, channels, idx, nrays, out, stream
@@ -58,8 +59,8 @@ _SIGNATURES = {
     "rtbvh_scatter_add_f32": [_P, _P, _I, _I, _I, _P, _P, _P],
     # table, channels, width, idx, nrays, out, stream
     "rtbvh_gather_cols_f32": [_P, _I, _I, _P, _I, _P, _P],
-    # codes, idx (both sorted in place), n, stream
-    "rtbvh_bitonic_sort": [_P, _P, _I, _P],
+    # codes, n, sorted, order, scratch (nullable), stream
+    "rtbvh_sort_by_code": [_P, _I, _P, _P, _P, _P],
 }
 
 _lib = None

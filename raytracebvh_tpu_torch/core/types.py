@@ -6,7 +6,10 @@ Frozen dataclasses of tensors, field for field the JAX package's
 field (``Tensor.to`` is differentiable: a field that carries a gradient
 keeps it); ``*_from_numpy`` build them from numpy arrays (or from any object
 with the same attribute names, such as a JAX pytree), so a test can hand
-the port the very arrays the JAX package made.
+the port the very arrays the JAX package made.  They and
+``Camera.default`` put their tensors on the CUDA device unless the caller
+names another (``device="cpu"``), as the port's entry points run on the
+card; without one they raise rather than fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ def _get(d, name):
     return d[name] if isinstance(d, dict) else getattr(d, name)
 
 
-def _tensor(x, device=None):
+def _tensor(x, device="cuda"):
     return torch.as_tensor(np.array(x), device=device)  # own, writable copy
 
 
@@ -109,7 +112,7 @@ class Camera:
     far: torch.Tensor  # scalar
 
     @classmethod
-    def default(cls, device=None, dtype=torch.float32) -> "Camera":
+    def default(cls, device="cuda", dtype=torch.float32) -> "Camera":
         # eye (0, 5, -100), at the origin, +Y up, fov pi/4, near .1,
         # far 1000 -- the JAX package's Camera.default
         t = lambda v: torch.tensor(v, dtype=dtype, device=device)
@@ -220,12 +223,12 @@ def stack_textures(textures: list) -> tuple:
     return out, hw
 
 
-def materials_from_numpy(d, device=None) -> Materials:
+def materials_from_numpy(d, device="cuda") -> Materials:
     return Materials(**{f.name: _tensor(_get(d, f.name), device)
                         for f in dataclasses.fields(Materials)})
 
 
-def scene_from_numpy(d, device=None) -> Scene:
+def scene_from_numpy(d, device="cuda") -> Scene:
     """A Scene from a dict (or object) of numpy arrays named as the JAX
     Scene's fields; ``materials`` may be a dict or an object too."""
     kw = {f.name: _tensor(_get(d, f.name), device)
@@ -234,12 +237,12 @@ def scene_from_numpy(d, device=None) -> Scene:
                  **kw)
 
 
-def camera_from_numpy(d, device=None) -> Camera:
+def camera_from_numpy(d, device="cuda") -> Camera:
     return Camera(**{f.name: _tensor(_get(d, f.name), device)
                      for f in dataclasses.fields(Camera)})
 
 
-def bvh_from_numpy(d, device=None) -> BVH:
+def bvh_from_numpy(d, device="cuda") -> BVH:
     """A BVH from the arrays of a JAX ``BVH`` (its TPU-only fields are
     ignored); morton codes come in as uint32 and are held as int32."""
     kw = {}

@@ -217,4 +217,4 @@ def _load_obj_python(path: str, load_textures: bool = True) -> Scene:
         materials=mats,
         textures=tex_stack,
         tex_hw=tex_hw,
-    ))
+    ), device="cpu")

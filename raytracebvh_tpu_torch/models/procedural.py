@@ -71,7 +71,7 @@ def random_triangles(num_tris: int, seed: int = 0, extent: float = 50.0,
         materials=mats,
         textures=tex,
         tex_hw=hw,
-    ))
+    ), device="cpu")
 
 
 def sphere_grid(nx: int = 4, ny: int = 4, subdiv: int = 8,
@@ -127,5 +127,5 @@ def sphere_grid(nx: int = 4, ny: int = 4, subdiv: int = 8,
         materials=mats,
         textures=tex,
         tex_hw=hw,
-    ))
+    ), device="cpu")
 

@@ -97,10 +97,11 @@ def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
 
 
 def launch_nearest(c_fn: str, what: str, bvh: BVH, rays: Rays,
-                   epsilon: float, max_steps: int, return_steps: bool):
+                   epsilon: float, max_steps: int, return_steps: bool,
+                   extra=()):
     """Launch a nearest-hit walk kernel (``c_fn``: K1's, or K5's with the
-    same arguments) on CUDA rays: (the wrapper's result, whether a kernel
-    was launched)."""
+    same arguments and ``extra`` before the stream) on CUDA rays:
+    (the wrapper's result, whether a kernel was launched)."""
     origin, direction = rays.origin, rays.direction
     bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     dev = origin.device
@@ -120,16 +121,16 @@ def launch_nearest(c_fn: str, what: str, bvh: BVH, rays: Rays,
             bvh.leaf_table.data_ptr(), nrays, bvh.n_leaves, epsilon,
             max_steps, hit.data_ptr(), dist.data_ptr(), leaf.data_ptr(),
             steps.data_ptr() if return_steps else None,
-            truncated.data_ptr(), stream)
+            truncated.data_ptr(), *extra, stream)
     _kernels.check(err, f"{what} launch")
     return out, True
 
 
 def launch_any(c_fn: str, what: str, bvh: BVH, rays: Rays, epsilon: float,
-               max_t, max_steps: int, return_steps: bool):
+               max_t, max_steps: int, return_steps: bool, extra=()):
     """Launch an any-hit walk kernel (``c_fn``: K4's, or K6's with the same
-    arguments) on CUDA rays: (the wrapper's result, whether a kernel was
-    launched)."""
+    arguments and ``extra`` before the stream) on CUDA rays: (the
+    wrapper's result, whether a kernel was launched)."""
     origin = rays.origin
     bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     dev = origin.device
@@ -152,7 +153,7 @@ def launch_any(c_fn: str, what: str, bvh: BVH, rays: Rays, epsilon: float,
             bvh.node_table.data_ptr(), bvh.leaf_table.data_ptr(), nrays,
             bvh.n_leaves, epsilon, max_steps, occ.data_ptr(),
             steps.data_ptr() if return_steps else None,
-            truncated.data_ptr(), stream)
+            truncated.data_ptr(), *extra, stream)
     _kernels.check(err, f"{what} launch")
     return out, True
 

@@ -1,5 +1,5 @@
 """Nearest-hit traversal, kernel K5, and any-hit traversal, kernel K6
-(both ``csrc/traverse_shared.cu``), with the tree's internal nodes in
+(both ``csrc/traverse_shared.cu``), with the tree's node records in
 shared memory: they replace the JAX package's whole-tree-in-VMEM
 traversal (``ops/traverse_pallas.py`` ``traverse_pallas`` and
 ``traverse_any_pallas``).  Same contracts and signatures as K1/K4
@@ -12,6 +12,12 @@ block's opt-in shared memory (232 448 bytes on an H100: up to 7 265
 leaves) and n is within the JAX kernel's u16 link cap (2n < 0xFFFF).
 ``fits`` is that rule as a pure function; the pipeline's ``auto`` takes
 K1/K4 for a tree that does not fit, and these wrappers raise on one.
+What a launch stages (``staged_first``: every node record where all
+2n - 1 fit a block, else the internal nodes) and its grid
+(``launch_geometry``: one 1 024-thread block an SM, fewer for a few rays)
+are chosen here from n, the device's limit and the ray count; the kernel
+shares the rays out 32 at a time, a first round dealt warp by warp over
+the blocks, then from a work queue.
 """
 
 from __future__ import annotations
@@ -25,17 +31,21 @@ from ..core.types import BVH, Rays
 from . import traverse as traverse_plain
 from . import traverse_cuda
 
-NODE_BYTES = 32  # one internal node: bbmin, bbmax, entry, skip
+NODE_BYTES = 32  # one node record: bbmin, bbmax, entry, skip
 LINK_CAP = 0xFFFF  # the JAX kernel's u16 links: 2 * n_leaves < LINK_CAP
+BLOCK = 1024  # threads of a K5/K6 block, one an SM (csrc/traverse_shared.cu)
 
 # launches of K5 and K6 (chip_smoke.py checks the main path reaches them)
 launches = 0
 any_launches = 0
 _smem: dict = {}  # device index -> opt-in shared memory a block may use
+# (device, stream) -> int32[1] work-queue counter, zeroed by each launch
+# that uses it; launches on one stream run in turn, so they may share it
+_work: dict = {}
 
 
 def shared_bytes(n_leaves: int) -> int:
-    """Shared memory K5/K6 stage for a tree of ``n_leaves`` leaves."""
+    """Shared memory of a tree's internal nodes: what K5/K6 must stage."""
     return (n_leaves - 1) * NODE_BYTES
 
 
@@ -74,6 +84,55 @@ def _check_fits(bvh: BVH, device: torch.device, what: str) -> None:
             f"2n < {LINK_CAP}); use K1/K4 (ops.traverse_cuda)")
 
 
+def staged_first(n_leaves: int, smem_per_block: int) -> int:
+    """The first node whose record K5/K6 stage: 0 (every record, leaves'
+    boxes included) where the 2n - 1 records fit ``smem_per_block`` bytes,
+    else n (the internal nodes only)."""
+    return 0 if (2 * n_leaves - 1) * NODE_BYTES <= smem_per_block else n_leaves
+
+
+def launch_geometry(nrays: int, sms: int) -> int:
+    """The grid of a K5/K6 launch on ``nrays`` rays: a BLOCK-thread block
+    an SM, fewer where there are fewer than 32 rays a block, so that a
+    small launch spreads over every SM and no block is without rays."""
+    return max(1, min(sms, -(-nrays // 32)))
+
+
+def _work_counter(device: torch.device) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _work:
+        # a normal tensor even under inference_mode
+        with torch.inference_mode(False):
+            _work[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _work[key]
+
+
+def launch_walk(any_hit: bool, bvh: BVH, rays: Rays, epsilon: float,
+                max_t=None, max_steps: int = 0, return_steps: bool = False):
+    """K5 (or K6 for ``any_hit``) on CUDA rays, counted, staging
+    ``staged_first``'s records on ``launch_geometry``'s grid: the result
+    of ``traverse`` or ``traverse_any``."""
+    global launches, any_launches
+    dev = rays.origin.device
+    what = "K6 traverse_any_shared" if any_hit else "K5 traverse_shared"
+    _check_fits(bvh, dev, what)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    extra = (staged_first(bvh.n_leaves, smem_per_block(dev)),
+             launch_geometry(rays.origin.shape[0], sms),
+             _work_counter(dev).data_ptr())
+    if any_hit:
+        out, launched = traverse_cuda.launch_any(
+            "rtbvh_traverse_any_shared", what, bvh, rays, epsilon, max_t,
+            max_steps, return_steps, extra)
+        any_launches += launched
+    else:
+        out, launched = traverse_cuda.launch_nearest(
+            "rtbvh_traverse_shared", what, bvh, rays, epsilon, max_steps,
+            return_steps, extra)
+        launches += launched
+    return out
+
+
 def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
              return_steps: bool = False):
     """K5 for CUDA tensors, ``ops.traverse.traverse`` for CPU tensors;
@@ -81,13 +140,8 @@ def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
     if rays.origin.device.type == "cpu":
         return traverse_plain.traverse(bvh, rays, epsilon, max_steps,
                                        return_steps)
-    _check_fits(bvh, rays.origin.device, "K5 traverse_shared")
-    out, launched = traverse_cuda.launch_nearest(
-        "rtbvh_traverse_shared", "K5 traverse_shared", bvh, rays, epsilon,
-        max_steps, return_steps)
-    global launches
-    launches += launched
-    return out
+    return launch_walk(False, bvh, rays, epsilon, max_steps=max_steps,
+                       return_steps=return_steps)
 
 
 def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
@@ -97,10 +151,5 @@ def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
     if rays.origin.device.type == "cpu":
         return traverse_plain.traverse_any(bvh, rays, epsilon, max_t,
                                            max_steps, return_steps)
-    _check_fits(bvh, rays.origin.device, "K6 traverse_any_shared")
-    out, launched = traverse_cuda.launch_any(
-        "rtbvh_traverse_any_shared", "K6 traverse_any_shared", bvh, rays,
-        epsilon, max_t, max_steps, return_steps)
-    global any_launches
-    any_launches += launched
-    return out
+    return launch_walk(True, bvh, rays, epsilon, max_t, max_steps,
+                       return_steps)

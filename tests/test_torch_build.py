@@ -73,7 +73,44 @@ def test_procedural_scenes_equal(name):
 
 def test_scene_from_numpy_takes_jax_scene():
     js = j_proc.random_triangles(20, seed=1)
-    _assert_scene_equal(js, scene_from_numpy(js))
+    _assert_scene_equal(js, scene_from_numpy(js, "cpu"))
+
+
+def test_carry_across_functions_default_to_the_card():
+    """scene_from_numpy, materials_from_numpy, camera_from_numpy,
+    bvh_from_numpy and Camera.default put their tensors on the CUDA device
+    unless asked for another: without one they raise rather than return
+    CPU tensors.  With device="cpu" they equal the JAX arrays exactly."""
+    from raytracebvh_tpu_torch.core import types as tt
+
+    js = j_proc.random_triangles(20, seed=1)
+    jc = J.Camera.default()
+    jb = j_build_bvh(scene_to_device(js), *j_camera_matrices(jc, 16, 16),
+                     J.RenderConfig(width=16, height=16))
+    calls = {"scene": lambda **kw: tt.scene_from_numpy(js, **kw),
+             "materials": lambda **kw: tt.materials_from_numpy(js.materials,
+                                                               **kw),
+             "camera": lambda **kw: tt.camera_from_numpy(jc, **kw),
+             "bvh": lambda **kw: tt.bvh_from_numpy(jb, **kw),
+             "default camera": lambda **kw: T.Camera.default(**kw)}
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            out = call()
+            assert all(v.device.type == "cuda" for v in vars(out).values()
+                       if isinstance(v, torch.Tensor)), name
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+    _assert_scene_equal(js, tt.scene_from_numpy(js, device="cpu"))
+    for jcam, tcam in ((jc, T.Camera.default(device="cpu")),
+                       (jc, tt.camera_from_numpy(jc, device="cpu"))):
+        for f in ("eye", "at", "up", "fov", "near", "far"):
+            np.testing.assert_array_equal(np.asarray(getattr(jcam, f)),
+                                          getattr(tcam, f).numpy(), f)
+    tb = tt.bvh_from_numpy(jb, device="cpu")
+    for f in BVH_FIELDS:
+        np.testing.assert_array_equal(_np(getattr(jb, f)),
+                                      getattr(tb, f).numpy(), f)
 
 
 def test_clz32_every_bit_position():
@@ -214,7 +251,7 @@ def test_bvh_from_numpy_round_trip():
     jb = jax.jit(lambda s: j_build_bvh(
         s, *j_camera_matrices(J.Camera.default(), 16, 16),
         J.RenderConfig(width=16, height=16)))(scene_to_device(js))
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     assert tb.codes.dtype == torch.int32 and tb.n_leaves == jb.n_leaves
     for f in BVH_FIELDS:
         np.testing.assert_array_equal(getattr(tb, f).numpy(),

@@ -19,7 +19,7 @@ from raytracebvh_tpu_torch.core.types import camera_from_numpy
 
 
 def _cams(yaw):
-    jc, tc = J.Camera.default(), T.Camera.default()
+    jc, tc = J.Camera.default(), T.Camera.default("cpu")
     if yaw:
         jc, tc = j_cam.orbit(jc, yaw, 0.05), t_cam.orbit(tc, yaw, 0.05)
     return jc, tc
@@ -44,7 +44,7 @@ def test_camera_matrices_equal(yaw, size):
 
 def test_camera_from_numpy_and_transforms():
     jc, _ = _cams(0.2)
-    tc = camera_from_numpy(jc)
+    tc = camera_from_numpy(jc, "cpu")
     np.testing.assert_array_equal(tc.eye.numpy(), np.asarray(jc.eye))
     # the same matrices into both transforms
     jw, jv = j_cam.camera_matrices(jc, 64, 48)

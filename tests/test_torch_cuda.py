@@ -11,7 +11,7 @@ exact; K4's and K6's occlusion flags exact, K4's with max_t one ulp around
 hit distances included (the kernels are built with -fmad=false and IEEE
 division, so they round as the plain versions' separate PyTorch ops do);
 K8's (sorted_codes, order) exact against torch.sort(stable=True) and its
-plain network.  K3 sums in fixed point: it
+plain network, at every size and on every input.  K3 sums in fixed point: it
 is held to the float64 sum within 1e-6 of each row's largest |value|, and
 to its own bits on a second launch.
 """
@@ -30,14 +30,15 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _bvh(dev, num_tris=2000, seed=0):
+def _bvh(dev, num_tris=2000, seed=0, leaf_pad_multiple=256):
     import raytracebvh_tpu_torch as T
     from raytracebvh_tpu_torch.camera import camera_matrices
     from raytracebvh_tpu_torch.models.procedural import random_triangles
 
     scene = random_triangles(num_tris, seed=seed).to(dev)
     wvp, wv = camera_matrices(T.Camera.default(dev), 64, 64)
-    return T.build_bvh(scene, wvp, wv, T.RenderConfig(width=64, height=64))
+    return T.build_bvh(scene, wvp, wv, T.RenderConfig(
+        width=64, height=64, leaf_pad_multiple=leaf_pad_multiple))
 
 
 def _rays(dev, nrays, seed):
@@ -411,11 +412,14 @@ def test_k5_k6_on_plane_rays_match_plain(dev):
                                                          max_t), want)
 
 
-def test_k5_k6_step_cap_counts_truncated_rays(dev):
+@pytest.mark.parametrize("num_tris", [2000, 7000])
+def test_k5_k6_step_cap_counts_truncated_rays(dev, num_tris):
+    """max_steps=5 with every node record staged (2 048 leaves) and with
+    the internal nodes only (7 168 leaves)."""
     from raytracebvh_tpu_torch.ops import (traverse, traverse_cuda,
                                            traverse_shared_cuda)
 
-    bvh = _bvh(dev)
+    bvh = _bvh(dev, num_tris)
     rays = _rays(dev, 4096, 24)
     max_t = _max_t(dev, 4096, 25)
     full = traverse.traverse(bvh, rays, 0.01, return_steps=True)[1]
@@ -432,6 +436,72 @@ def test_k5_k6_step_cap_counts_truncated_rays(dev):
                                                   max_steps=5))
     assert traverse_cuda.truncated_rays() == int((full_any > 5).sum()) > 0
     traverse_cuda.reset_truncated()
+
+
+_TREES = {}
+
+
+def _tree(dev, num_tris):
+    """A random tree of exactly ``num_tris`` leaves (no padding), built once
+    per test run."""
+    if num_tris not in _TREES:
+        _TREES[num_tris] = _bvh(dev, num_tris, 30 + num_tris,
+                                leaf_pad_multiple=1)
+    return _TREES[num_tris]
+
+
+def _aimed_rays(dev, bvh, nrays, seed):
+    """Rays from random origins, half of them aimed at the centroid of a
+    random triangle of ``bvh`` (so even a 2-leaf tree is hit), a quarter
+    random and a quarter dead (origin 1e30)."""
+    from raytracebvh_tpu_torch.core.types import Rays
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    o = (torch.rand(nrays, 3, generator=gen) * 300 - 150).to(dev)
+    d = torch.randn(nrays, 3, generator=gen).to(dev)
+    tri = torch.randint(0, bvh.n_leaves, (nrays,), generator=gen).to(dev)
+    aim = bvh.tri_verts[tri.long()].mean(1) - o
+    half = torch.arange(nrays, device=dev) % 4 < 2
+    d = torch.where(half[:, None], aim, d)
+    d = d / d.norm(dim=1, keepdim=True)
+    o[torch.arange(nrays, device=dev) % 4 == 3] = 1.0e30
+    return Rays(o.contiguous(), d.contiguous())
+
+
+@pytest.mark.parametrize("nrays", [1, 100, 25600, 2073600])
+@pytest.mark.parametrize("num_tris", [2, 3, 500, 3072, 7000])
+def test_k5_k6_tree_and_launch_sizes_match_plain(dev, num_tris, nrays):
+    """K5 and K6 bit-equal to the plain walks (hit, leaf, distance,
+    occlusion, steps) and no ray truncated, on trees whose node records
+    all fit shared memory (2 to 3 072 leaves) and one whose internal nodes
+    only fit (7 000), on launches of one ray, fewer rays than SMs and a
+    sparse chunk (one round of 32-ray batches) and a 1080p frame (the
+    work queue)."""
+    from raytracebvh_tpu_torch.ops import (traverse, traverse_cuda,
+                                           traverse_shared_cuda)
+
+    bvh = _tree(dev, num_tris)
+    assert bvh.n_leaves == num_tris
+    rays = _aimed_rays(dev, bvh, nrays, num_tris + nrays)
+    max_t = _max_t(dev, nrays, nrays)
+    before = (traverse_shared_cuda.launches, traverse_shared_cuda.any_launches)
+    traverse_cuda.reset_truncated()
+    got, steps = traverse_shared_cuda.traverse(bvh, rays, 0.01,
+                                               return_steps=True)
+    occ, osteps = traverse_shared_cuda.traverse_any(bvh, rays, 0.01, max_t,
+                                                    return_steps=True)
+    assert traverse_cuda.truncated_rays() == 0
+    assert (traverse_shared_cuda.launches,
+            traverse_shared_cuda.any_launches) == (before[0] + 1, before[1] + 1)
+    want, wsteps = traverse.traverse(bvh, rays, 0.01, return_steps=True)
+    wocc, wosteps = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                          return_steps=True)
+    if nrays >= 100:
+        assert 0 < int(want.hit.sum()) < nrays
+    _assert_same(got, want)
+    assert torch.equal(steps, wsteps) and torch.equal(occ, wocc)
+    assert torch.equal(osteps, wosteps)
+    assert int(wsteps.max()) < 4 * num_tris  # the default cap cut no walk
 
 
 @pytest.mark.parametrize("num_tris,kernel", [(7000, "K5"), (7300, "K1")])
@@ -505,9 +575,9 @@ def test_k7_gradient_is_k3(dev):
                                     (102400, 1 << 30), (102400, 50),
                                     (16384, 1 << 30), (16385, 3)])
 def test_k8_both_routes_match_stable_sort(dev, n, high):
-    """Padded sizes 4 096 and 16 384 (one block in shared memory) and
-    131 072 and 32 768 (global-memory phases, then shared-memory tiles),
-    heavy duplicates and the sentinel padding included."""
+    """3 072 and 16 384 codes (one block, one launch) and 102 400 and
+    16 385 (4 096-code tiles, then merge passes), heavy duplicates and the
+    sentinel padding included."""
     from raytracebvh_tpu_torch.ops import sort_cuda
 
     gen = torch.Generator(device="cpu").manual_seed(n + high)
@@ -522,6 +592,37 @@ def test_k8_both_routes_match_stable_sort(dev, n, high):
     assert torch.equal(got_c, want_c) and torch.equal(got_o.long(), want_o)
     keys, idx = sort_cuda._padded(codes)
     plain_c, plain_o = sort_cuda.bitonic_network_torch(keys, idx)
+    assert torch.equal(got_c, plain_c[:n]) and torch.equal(got_o, plain_o[:n])
+
+
+def _edge_codes(case, n):
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    if case == "equal":
+        return torch.full((n,), 12345, dtype=torch.int32)
+    if case == "sorted":
+        return torch.arange(n, dtype=torch.int32) * 3
+    if case == "reversed":
+        return torch.arange(n, 0, -1, dtype=torch.int32) * 3
+    return torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 4097, 16384, 16385, 131073])
+@pytest.mark.parametrize("case", ["equal", "sorted", "reversed", "signed"])
+def test_k8_edge_sizes_match_stable_sort(dev, n, case):
+    """K8 against torch.sort(stable=True) and its plain network at the edges
+    of its routes (one launch up to 16 384 codes, tiles and merges above)
+    on all-equal, sorted and reversed codes, and on codes of either sign."""
+    from raytracebvh_tpu_torch.ops import sort_cuda
+
+    codes = _edge_codes(case, n).to(dev)
+    before = sort_cuda.launches
+    got_c, got_o = sort_cuda.bitonic_sort_by_code(codes)
+    assert sort_cuda.launches == before + 1
+    want_c, want_o = torch.sort(codes, stable=True)
+    assert torch.equal(got_c, want_c) and torch.equal(got_o.long(), want_o)
+    plain_c, plain_o = sort_cuda.bitonic_network_torch(
+        *sort_cuda._padded(codes))
     assert torch.equal(got_c, plain_c[:n]) and torch.equal(got_o, plain_o[:n])
 
 

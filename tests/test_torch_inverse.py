@@ -71,7 +71,7 @@ def _jax_value_and_grad(js, cfg, target, dtype=jnp.float32, jit=False):
 
 
 def _port_value_and_grad(params, ts, cfg, target):
-    cam = T.Camera.default(dtype=params.diffuse.dtype)
+    cam = T.Camera.default("cpu", dtype=params.diffuse.dtype)
     loss = ti.loss_fn(params, ts, cam, torch.as_tensor(target), cfg)
     loss.backward()
     return float(loss), [getattr(params, f).grad.numpy() for f in FIELDS]
@@ -121,7 +121,7 @@ def _fd_setup():
     _, ts = _scenes("float64", **GRAD_SCENE)
     cfg = T.RenderConfig(width=24, height=24, bounces=1, dtype="float64")
     target = torch.zeros((24, 24, 4), dtype=torch.float64)
-    cam = T.Camera.default(dtype=torch.float64)
+    cam = T.Camera.default("cpu", dtype=torch.float64)
     params = ti.init_params(ts)
 
     def loss_of(p):
@@ -169,7 +169,7 @@ def test_grad_verts_matches_finite_differences():
 
 def _port_grads(ts, cfg, target):
     params = ti.init_params(ts)
-    ti.loss_fn(params, ts, T.Camera.default(), target, cfg).backward()
+    ti.loss_fn(params, ts, T.Camera.default("cpu"), target, cfg).backward()
     return [getattr(params, f).grad.numpy() for f in FIELDS]
 
 
@@ -246,7 +246,7 @@ def test_train_steps_match_jax_train_step():
         jparams, opt_state, jloss = ji.train_step(
             jparams, opt_state, js, J.Camera.default(), jnp.asarray(target),
             jcfg, 1e-2)
-        loss = ti.train_step(params, opt, ts, T.Camera.default(),
+        loss = ti.train_step(params, opt, ts, T.Camera.default("cpu"),
                              torch.from_numpy(target), tcfg)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
         for f in FIELDS:
@@ -268,7 +268,7 @@ def test_train_step_lr_takes_effect():
     for lr in (1e-2, 1e-4):
         params = ti.init_params(ts)
         ti.train_step(params, ti.make_optimizer(params, lr), ts,
-                      T.Camera.default(), target, T.RenderConfig(**STEP_CFG))
+                      T.Camera.default("cpu"), target, T.RenderConfig(**STEP_CFG))
         moves.append(float((params.diffuse.detach() - start).abs().max()))
     da, db = moves
     assert da > 0 and db > 0

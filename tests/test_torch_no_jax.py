@@ -20,13 +20,13 @@ from raytracebvh_tpu_torch.models.procedural import random_triangles
 from raytracebvh_tpu_torch.cli import render
 img = T.render_frame(random_triangles(50, seed=2, with_texture=True,
                                       alpha=0.4, optical_density=0.7),
-                     T.Camera.default(),
+                     T.Camera.default("cpu"),
                      T.RenderConfig(width=16, height=16, bounces=1,
                                     ortho_scale=1.0, enable_shadows=True,
                                     enable_refraction=True))
 assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
 onchip = T.render_frame(random_triangles(50, seed=2, with_texture=True),
-                        T.Camera.default(),
+                        T.Camera.default("cpu"),
                         T.RenderConfig(width=16, height=16, bounces=1,
                                        ortho_scale=1.0, enable_shadows=True,
                                        traversal_backend="shared",
@@ -37,7 +37,7 @@ from raytracebvh_tpu_torch.models import inverse
 scene = random_triangles(20, seed=3, with_texture=True)
 params = inverse.init_params(scene)
 loss = inverse.train_step(params, inverse.make_optimizer(params), scene,
-                          T.Camera.default(), torch.zeros(8, 8, 4),
+                          T.Camera.default("cpu"), torch.zeros(8, 8, 4),
                           T.RenderConfig(width=8, height=8, bounces=1,
                                          ortho_scale=1.0))
 assert bool(torch.isfinite(loss))

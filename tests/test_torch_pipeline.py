@@ -30,7 +30,7 @@ def _render_both(**kw):
     js, ts = _scenes()
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
                                          J.RenderConfig(**BASE, **kw)))
-    got = T.render_frame(ts, T.Camera.default(), T.RenderConfig(**BASE, **kw))
+    got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**BASE, **kw))
     return got, want
 
 
@@ -64,10 +64,10 @@ def test_backends_agree_on_cpu_without_launching():
     _, ts = _scenes()
     cfg = T.RenderConfig(**BASE, ray_tile=16, texture_dtype="uint8")
     k1, k2 = traverse_cuda.launches, gather_cuda.launches
-    a = T.render_frame(ts, T.Camera.default(), cfg.replace(
+    a = T.render_frame(ts, T.Camera.default("cpu"), cfg.replace(
         traversal_backend="cuda", shade_gather_backend="cuda",
         texture_gather_backend="cuda"))
-    b = T.render_frame(ts, T.Camera.default(), cfg.replace(
+    b = T.render_frame(ts, T.Camera.default("cpu"), cfg.replace(
         traversal_backend="torch", shade_gather_backend="torch",
         texture_gather_backend="torch"))
     assert torch.equal(a, b)
@@ -95,7 +95,7 @@ def test_bfloat16_frame_is_float32_as_jax(scene_kw, cfg_kw):
     kw = dict(bounces=1, dtype="bfloat16", **cfg_kw)
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
                                          J.RenderConfig(**kw)))
-    got = T.render_frame(ts, T.Camera.default(), T.RenderConfig(**kw))
+    got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**kw))
     assert want.dtype == np.float32 and got.dtype == torch.float32
     hits = _hit_mask(want)
     assert hits.any()
@@ -113,7 +113,7 @@ def test_tpu_backend_strings_raise(field, value):
     _, ts = _scenes()
     cfg = T.RenderConfig(width=8, height=8, bounces=0).replace(**{field: value})
     with pytest.raises(ValueError, match=field):
-        T.render_frame(ts, T.Camera.default(), cfg)
+        T.render_frame(ts, T.Camera.default("cpu"), cfg)
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -132,11 +132,11 @@ def test_unported_options_raise(kw, exc):
     cfg = T.RenderConfig(width=16, height=16, bounces=0, **kw)
     if exc is not None:
         with pytest.raises(exc):
-            T.render_frame(ts, T.Camera.default(), cfg)
+            T.render_frame(ts, T.Camera.default("cpu"), cfg)
         return
     from raytracebvh_tpu_torch.camera import camera_matrices
 
-    wvp, wv = camera_matrices(T.Camera.default(), 16, 16)
+    wvp, wv = camera_matrices(T.Camera.default("cpu"), 16, 16)
     got = T.build_bvh(ts, wvp, wv, cfg)
     want = T.build_bvh(ts, wvp, wv, cfg.replace(sort_backend="lax"))
     for f in ("codes", "prim", "child_l", "child_r", "entry_link",

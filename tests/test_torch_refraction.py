@@ -39,7 +39,7 @@ def _render_both(scene_kw, **kw):
     ts = t_random(200, seed=11, **scene_kw)
     want = np.asarray(j_render_frame(js, J.Camera.default(),
                                      J.RenderConfig(**kw)))
-    got = T.render_frame(ts, T.Camera.default(), T.RenderConfig(**kw))
+    got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**kw))
     return got.numpy(), want
 
 
@@ -85,7 +85,7 @@ def test_primary_spawns_match_jax(density):
     jo3, jd3 = jp._split_rays(jrays)
     want = jp._launch_soa(js, jb, jo3, jd3, cfg, None, None, jrec)
 
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     o, d = _torch(jrays.origin), _torch(jrays.direction)
     trec = HitRecord(hit=_torch(jrec.hit), distance=_torch(jrec.distance),
                      leaf=_torch(jrec.leaf))
@@ -113,8 +113,8 @@ def _torch(x):
 def test_refraction_is_a_no_op_on_opaque_scenes():
     ts = t_random(200, seed=11, alpha=1.0, optical_density=0.7)
     cfg = T.RenderConfig(width=48, height=48, bounces=1, ortho_scale=0.2)
-    off = T.render_frame(ts, T.Camera.default(), cfg)
-    on = T.render_frame(ts, T.Camera.default(),
+    off = T.render_frame(ts, T.Camera.default("cpu"), cfg)
+    on = T.render_frame(ts, T.Camera.default("cpu"),
                         cfg.replace(enable_refraction=True))
     assert torch.equal(on, off)
 

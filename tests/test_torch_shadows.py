@@ -77,7 +77,7 @@ def _k4(jb, jr, max_t):
 @pytest.mark.parametrize("num_tris,seed,nrays", [(60, 0, 384), (400, 1, 512)])
 def test_plain_any_matches_jax_traverse_any(num_tris, seed, nrays):
     jb = _jax_bvh(num_tris, seed)
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     jr, tr = _both(*_random_rays(nrays, seed + 50))
     max_t = _max_t(nrays, seed)
     got = t_traverse.traverse_any(tb, tr, EPS, torch.from_numpy(max_t))
@@ -98,7 +98,7 @@ def test_plain_any_matches_interpret_mode_k4():
     rays (0 * inf = NaN in the slab test), against the TPU kernel as the
     JAX package's own test runs it (tests/test_traverse_hbm.py)."""
     jb = _jax_bvh(300, 2)
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     jr, tr = _both(*_random_rays(512, 7))
     cases = [(jr, tr, _max_t(512, 3, hi=500.0))]
     (hi, lo), hit = _straddle(tb, tr, 2e-6)
@@ -119,7 +119,7 @@ def test_max_t_one_ulp_around_a_hit():
     distance is occluded (t < max_t), and max_t equal to it or one ulp
     below is not: no triangle is nearer, and t < max_t is strict."""
     jb = _jax_bvh(400, 1)
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     _, tr = _both(*_random_rays(512, 51))
     rec = t_traverse.traverse(tb, tr, EPS)
     hit, t = rec.hit.numpy(), rec.distance.numpy()
@@ -136,7 +136,7 @@ def test_any_steps_and_cap():
     walk says so."""
     jb = _jax_bvh(200, 4)
     _, tr = _both(*_random_rays(256, 11))
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     max_t = torch.from_numpy(_max_t(256, 4, hi=400.0))
     occ, steps = t_traverse.traverse_any(tb, tr, EPS, max_t,
                                          return_steps=True)
@@ -150,7 +150,7 @@ def test_any_steps_and_cap():
 def test_cpu_any_wrapper_runs_plain_version_without_launching():
     jb = _jax_bvh(120, 5)
     _, tr = _both(*_random_rays(256, 13))
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     max_t = torch.from_numpy(_max_t(256, 5, hi=400.0))
     before = traverse_cuda.any_launches, traverse_cuda.launches
     got = traverse_cuda.traverse_any(tb, tr, EPS, max_t)
@@ -180,7 +180,7 @@ def _shadow_inputs(camera_mode):
     trec = HitRecord(hit=_torch(jrec.hit), distance=_torch(jrec.distance),
                      leaf=_torch(jrec.leaf))
     o, d = _torch(jrays.origin), _torch(jrays.direction)
-    return (cfg, jb, jrays, jrec, wvp), (tcfg, bvh_from_numpy(jb), o, d, trec,
+    return (cfg, jb, jrays, jrec, wvp), (tcfg, bvh_from_numpy(jb, "cpu"), o, d, trec,
                                          _torch(wvp))
 
 
@@ -214,7 +214,7 @@ def _render_both(**kw):
     ts = t_random(300, seed=7, with_texture=True)
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
                                          J.RenderConfig(**kw)))
-    got = T.render_frame(ts, T.Camera.default(), T.RenderConfig(**kw))
+    got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**kw))
     return got.numpy(), want
 
 
@@ -235,7 +235,7 @@ def test_shadowed_frame_matches_jax(kw):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     # the shadows are really there: the frame differs from the unshadowed
     unshadowed = T.render_frame(
-        t_random(300, seed=7, with_texture=True), T.Camera.default(),
+        t_random(300, seed=7, with_texture=True), T.Camera.default("cpu"),
         T.RenderConfig(**dict(dict(width=48, height=48, bounces=1,
                                    light_pos=LIGHT), **kw)))
     assert np.abs(got - unshadowed.numpy()).max() > 0.1
@@ -255,7 +255,7 @@ def test_shadow_rays_skip_culled_chunks(monkeypatch):
         return real(bvh, rays, *a, **k)
 
     monkeypatch.setattr(t_traverse, "traverse_any", counting)
-    img = T.render_frame(ts, T.Camera.default(), cfg)
+    img = T.render_frame(ts, T.Camera.default("cpu"), cfg)
     bg = torch.tensor(cfg.background)
     shaded = (~(img - bg).abs().lt(1e-6).all(-1)).reshape(-1, 96).any(-1)
     assert len(calls) == int(shaded.sum()) > 0 and set(calls) == {96}

@@ -3,7 +3,8 @@
 the bitonic sort (kernel K8's entry point ``ops/sort_cuda``, which runs
 its plain network on CPU tensors) against JAX ``bitonic_sort_by_code``
 (the same network as plain XLA ops off the TPU); each also against the
-stable sort.  Exact: a sort moves values.
+stable sort.  Exact: a sort moves values.  Also K8's key: any sort of
+the packed 64-bit (code, index) keys is the stable sort of the codes.
 
 The JAX package's codes are uint32 and the port's int32; 30-bit codes
 order alike in both.
@@ -24,6 +25,8 @@ SENTINEL = 0x3FFFFFFF
 
 def _codes(case, n, seed):
     rng = np.random.default_rng(seed)
+    if case == "equal":
+        return np.full(n, 5, np.uint32)
     if case == "random":
         return rng.integers(0, 1 << 30, n).astype(np.uint32)
     if case == "duplicates":
@@ -83,3 +86,50 @@ def test_plain_network_sorts_padded_pairs():
     sk, si = sort_cuda.bitonic_network_torch(keys, idx)
     order = np.lexsort((idx.numpy(), keys.numpy()))
     assert torch.equal(si, idx[order]) and torch.equal(sk, keys[order])
+
+
+@pytest.mark.parametrize("n", [1, 2, 1025, 4097])
+@pytest.mark.parametrize("case", ["random", "duplicates", "equal"])
+def test_bitonic_entry_edge_sizes_match_jax_bitonic(case, n):
+    """K8's entry point on CPU tensors at sizes just past a power of two
+    (and 1, 2): the plain network, equal to the JAX one."""
+    codes = _codes(case, n, 7 * n)
+    got = sort_cuda.bitonic_sort_by_code(
+        torch.from_numpy(codes.astype(np.int32)))
+    _check(got, j_bitonic(jnp.asarray(codes)), codes)
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "negative"])
+def test_packed_key_sort_is_the_stable_sort(case):
+    """K8 sorts one 64-bit key a code: the code in the high word and its
+    index in the low word.  torch.sort of (code << 32) | index (int64) gives
+    sort_by_code's permutation and codes, ties in index order; so does an
+    unsigned sort of the kernel's own key, whose code has its sign bit
+    flipped, on codes of either sign."""
+    rng = np.random.default_rng(11)
+    n = 5000
+    if case == "negative":
+        codes = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+        codes[:50] = codes[50:100]  # ties across the sign too
+    else:
+        codes = _codes(case, n, 12).astype(np.int32)
+    t = torch.from_numpy(codes)
+    want_c, want_o = t_sort.sort_by_code(t)
+    idx = torch.arange(n, dtype=torch.int64)
+    keys, perm = torch.sort((t.to(torch.int64) << 32) | idx)
+    assert torch.equal(perm.to(torch.int32), want_o)
+    assert torch.equal((keys >> 32).to(torch.int32), want_c)
+    assert torch.equal((keys & 0xFFFFFFFF).to(torch.int32), want_o)
+    flipped = (codes.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    kernel_keys = (flipped << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    np.testing.assert_array_equal(np.sort(kernel_keys) & np.uint64(0xFFFFFFFF),
+                                  want_o.numpy())
+
+
+@pytest.mark.parametrize("n,kernels", [(0, 0), (1, 1), (3072, 1), (16384, 1),
+                                       (16385, 4), (102400, 6),
+                                       (131073, 7)])
+def test_k8_launches_per_call(n, kernels):
+    """One kernel up to 16 384 codes; above, the tile launch and one merge
+    pass a doubling of the 4 096-code runs (102 400: 25 runs, 5 passes)."""
+    assert sort_cuda.launches_per_call(n) == kernels

@@ -86,7 +86,7 @@ def test_plain_matches_jax_traverse(num_tris, seed, nrays):
     jb = _jax_bvh(num_tris, seed)
     jr, tr = _both(*_random_rays(nrays, seed + 50))
     want = jax.jit(lambda b, r: j_traverse(b, r, EPS))(jb, jr)
-    got = t_traverse.traverse(bvh_from_numpy(jb), tr, EPS)
+    got = t_traverse.traverse(bvh_from_numpy(jb, "cpu"), tr, EPS)
     assert np.asarray(want.hit).any() and not np.asarray(want.hit).all()
     _assert_records_equal(got, want, rtol=1e-6)
 
@@ -96,7 +96,7 @@ def test_plain_matches_interpret_mode_k1():
     jr, tr = _both(*_random_rays(256, 7))
     want = traverse_hbm_pallas(jb, jr, EPS, win=256, block_rays=256,
                                interpret=True)
-    got = t_traverse.traverse(bvh_from_numpy(jb), tr, EPS)
+    got = t_traverse.traverse(bvh_from_numpy(jb, "cpu"), tr, EPS)
     _assert_records_equal(got, want, rtol=2e-5, atol=2e-5)
 
 
@@ -105,7 +105,7 @@ def test_on_plane_rays_miss_like_jax():
     origin, direction = _on_plane_rays(jb, 512, 9)
     jr, tr = _both(origin, direction)
     want = jax.jit(lambda b, r: j_traverse(b, r, EPS))(jb, jr)
-    got = t_traverse.traverse(bvh_from_numpy(jb), tr, EPS)
+    got = t_traverse.traverse(bvh_from_numpy(jb, "cpu"), tr, EPS)
     _assert_records_equal(got, want, rtol=1e-6)
     # the slab test really met NaN on these rays
     t = (torch.from_numpy(np.asarray(jb.bbmin))[None, :, 0]
@@ -122,7 +122,7 @@ def test_steps_and_cap():
     every ray after three nodes with its best hit so far."""
     jb = _jax_bvh(200, 4)
     _, tr = _both(*_random_rays(256, 11))
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     rec, steps = t_traverse.traverse(tb, tr, EPS, return_steps=True)
     assert int(steps.min()) >= 1 and int(steps.max()) <= 4 * tb.n_leaves
     capped, csteps = t_traverse.traverse(tb, tr, EPS, max_steps=3,
@@ -134,7 +134,7 @@ def test_steps_and_cap():
 def test_cpu_wrapper_runs_plain_version_without_launching():
     jb = _jax_bvh(120, 5)
     _, tr = _both(*_random_rays(256, 13))
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     before = traverse_cuda.launches
     got = traverse_cuda.traverse(tb, tr, EPS)
     want = t_traverse.traverse(tb, tr, EPS)
@@ -146,7 +146,7 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
 def test_pack_tables_layout():
     """K1's node table carries the boxes and the links as int bits; the
     leaf table v0 and the edges computed as the plain version does."""
-    tb = bvh_from_numpy(_jax_bvh(100, 6))
+    tb = bvh_from_numpy(_jax_bvh(100, 6), "cpu")
     nodes, leaves = traverse_cuda.pack_tables(tb)
     n = tb.n_leaves
     assert nodes.shape == (2 * n, 8) and leaves.shape == (n, 12)

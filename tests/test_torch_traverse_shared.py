@@ -49,7 +49,7 @@ def test_k5_entry_matches_interpret_mode_traverse_pallas(num_tris, seed, nrays):
     jr, tr = _both(*_random_rays(nrays, seed + 50))
     want = traverse_pallas(jb, jr, epsilon=EPS, interpret=True)
     before = _launches()
-    got, steps = traverse_shared_cuda.traverse(bvh_from_numpy(jb), tr, EPS,
+    got, steps = traverse_shared_cuda.traverse(bvh_from_numpy(jb, "cpu"), tr, EPS,
                                                return_steps=True)
     assert _launches() == before  # CPU tensors: the plain walk
     hit = np.asarray(want.hit)
@@ -68,7 +68,7 @@ def test_k6_entry_matches_interpret_mode_traverse_any_pallas(num_tris, seed,
                                                              nrays):
     """Random max_t, and max_t 2e-6 above and below each nearest hit."""
     jb = _jax_bvh(num_tris, seed)
-    tb = bvh_from_numpy(jb)
+    tb = bvh_from_numpy(jb, "cpu")
     jr, tr = _both(*_random_rays(nrays, seed + 50))
     (hi, lo), hit = _straddle(tb, tr, 2e-6)
     assert hit.any()
@@ -100,6 +100,41 @@ def test_k6_entry_matches_interpret_mode_traverse_any_pallas(num_tris, seed,
 def test_shared_capacity_rule(n_leaves, smem, fits):
     assert traverse_shared_cuda.fits(n_leaves, smem) is fits
     assert traverse_shared_cuda.shared_bytes(n_leaves) == (n_leaves - 1) * 32
+
+
+@pytest.mark.parametrize("n_leaves,first", [
+    (2, 0),
+    (512, 0),
+    (3072, 0),  # the dense scene: all 6 143 records, 196 576 bytes
+    (3632, 0),  # 7 263 records, 232 416 bytes: the most that fit
+    (3633, 3633),  # 232 480 bytes: the internal nodes only
+    (7265, 7265),
+])
+def test_staged_set(n_leaves, first):
+    """K5/K6 stage every node record where all 2n - 1 fit an H100 block,
+    else the internal nodes (which ``fits`` guarantees)."""
+    assert traverse_shared_cuda.staged_first(n_leaves, H100_SMEM) == first
+    staged = (2 * n_leaves - 1 - first) * traverse_shared_cuda.NODE_BYTES
+    assert staged <= H100_SMEM
+
+
+@pytest.mark.parametrize("nrays,grid,one_round", [
+    (1, 1, True),
+    (100, 4, True),  # at least 32 rays a block
+    (25600, 132, True),  # a sparse chunk: every SM, not the first 25
+    (135168, 132, True),  # one round of 132 x 1 024 threads exactly
+    (135169, 132, False),  # above: the work queue's atomics
+    (2073600, 132, False),  # the dense frame
+])
+def test_launch_geometry(nrays, grid, one_round):
+    """A block for each of an H100's 132 SMs (at least 32 rays a block),
+    so no block is without rays; the kernel's first round, a 32-ray batch
+    a warp, covers a launch of up to 132 x 1 024 rays, and only a larger
+    one takes batches from the work queue."""
+    assert traverse_shared_cuda.launch_geometry(nrays, 132) == grid
+    assert (grid - 1) * 32 < nrays
+    warps = grid * traverse_shared_cuda.BLOCK // 32
+    assert (-(-nrays // 32) <= warps) is one_round
 
 
 @pytest.mark.parametrize("backend,n_leaves,want", [
@@ -136,7 +171,7 @@ def onchip_frames():
         sort_backend="bitonic")))
     cfg = T.RenderConfig(**_FRAME, traversal_backend="shared",
                          shade_gather_backend="shared", sort_backend="bitonic")
-    got = T.render_frame(ts, T.Camera.default(), cfg)
+    got = T.render_frame(ts, T.Camera.default("cpu"), cfg)
     return got, want, ts, cfg
 
 
@@ -155,7 +190,7 @@ def test_onchip_frame_equals_default_backends(onchip_frames):
     launch is counted."""
     got, _, ts, cfg = onchip_frames
     before = _launches()
-    default = T.render_frame(ts, T.Camera.default(), cfg.replace(
+    default = T.render_frame(ts, T.Camera.default("cpu"), cfg.replace(
         traversal_backend="auto", shade_gather_backend="auto",
         sort_backend="lax"))
     assert _launches() == before
