@@ -17,15 +17,18 @@ Phases (one line of output each, or more):
      with the tree in shared memory), K7 (column gather from a
      channel-major table) and K8 (stable sort of the build's codes, both
      routes) against their plain versions on the very inputs the main path
-     hands them (K3 also against a float64 sum, and against itself: two
-     launches, 0 differing bits; K7's backward against K3 through K2; K8
-     also against torch.sort(stable=True), at the edges of its routes, with
-     its kernels counted by torch.profiler); their times beside the plain
-     versions' (CUDA events around the wrapper, median of 5), their
-     bounds, a library call where one computes the same function; for
-     K5/K6 K1/K4's time on the same rays at three tree sizes and on a
-     sparse chunk, also as device time (torch.profiler), and the staging
-     alone; for K8 its kernels' device time beside torch.sort's
+     hands them (K3 on dense_train's two calls and onchip_train's, also
+     against a float64 sum, and against itself: two launches, 0 differing
+     bits; K7's backward against K3 through K2; K8 also against
+     torch.sort(stable=True), at the edges of its routes, with its kernels
+     counted by torch.profiler); their times beside the plain versions'
+     (CUDA events around the wrapper, median of 5), their bounds, a
+     library call where one computes the same function; for K2, K3, K7
+     and K8 also their kernels' device time (torch.profiler) beside the
+     library call's, for K3 by kernel, for K7 beside K2 on the row-major
+     copy of its table; for K5/K6 K1/K4's time on the same rays at three
+     tree sizes and on a sparse chunk, also as device time, and the
+     staging alone
   4. main path: the dense, sparse and large frames, then dense_shadows,
      sparse_shadows, large_shadows, refract and dense_onchip; every
      kernel's launch count over each frame (counts set to 0 just before
@@ -53,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -136,8 +140,8 @@ def frames_on(device):
     from raytracebvh_tpu_torch.models.procedural import sphere_grid
 
     base = RenderConfig(width=W, height=H, bounces=1)
-    small = sphere_grid(nx=4, ny=3, subdiv=8).to(device)  # 3 072 tris
-    large = sphere_grid(nx=4, ny=4, subdiv=40).to(device)  # 102 400 tris
+    small = sphere_grid(nx=4, ny=3, subdiv=8, device=device)  # 3 072 tris
+    large = sphere_grid(nx=4, ny=4, subdiv=40, device=device)  # 102 400 tris
     cam = Camera.default(device)
     aimed = cam.replace(eye=torch.tensor([12.5, 5.0, -100.0], device=device),
                         at=torch.tensor([12.5, 0.0, 0.0], device=device))
@@ -464,21 +468,28 @@ def phase_kernels(frames):
         tp = cuda_ms(lambda: gather_cuda.gather_rows_torch(tbl, idx))
         # the library yardstick: torch.index_select of the same rows, [R, C]
         # row-major (K2 writes channel-major [C, R]); f32 tables only
-        tl = (cuda_ms(lambda: torch.index_select(tbl, 0, idx))
-              if tbl.dtype == torch.float32 else None)
+        tl = tl_dev = None
+        if tbl.dtype == torch.float32:
+            tl = cuda_ms(lambda: torch.index_select(tbl, 0, idx))
+            tl_dev = profiled(lambda: torch.index_select(tbl, 0, idx))[1]
+        kernels, t_dev = profiled(lambda: gather_cuda.gather_rows(tbl, idx))
+        check(kernels == 1, f"K2 {what}: {kernels} CUDA kernels a call")
         nbytes = (tbl.numel() * tbl.element_size() + idx.numel() * 4
                   + idx.numel() * tbl.shape[1] * 4)
         ops = idx.numel() * tbl.shape[1] if tbl.dtype == torch.uint8 else 0
         b_ms, b_by = bound(nbytes, ops)
         log(f"  K2 {what} {tuple(tbl.shape)} x {idx.numel()} ids: exact; "
             f"{t:.3f} ms vs plain {tp:.3f} ms, index_select "
-            f"{'-' if tl is None else f'{tl:.3f} ms'}; bound {b_ms:.4f} ms "
-            f"({nbytes} bytes, by {b_by})")
-        k2[what] = (err, t, tp, b_ms, b_by, tl)
-    _, t, tp, b_ms, b_by, tl = k2["leaf_attrs f32"]
+            f"{'-' if tl is None else f'{tl:.3f} ms'}; device time "
+            f"{t_dev:.4f} ms, index_select "
+            f"{'-' if tl_dev is None else f'{tl_dev:.4f} ms'}; bound "
+            f"{b_ms:.4f} ms ({nbytes} bytes, by {b_by})")
+        k2[what] = (err, t, tp, b_ms, b_by, tl, t_dev, tl_dev)
+    _, t, tp, b_ms, b_by, tl, t_dev, tl_dev = k2["leaf_attrs f32"]
     result["K2"] = dict(max_abs_err=max(v[0] for v in k2.values()),
                         ms=t, plain_ms=tp, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=tl)
+                        library_ms=tl, device_ms=t_dev,
+                        library_device_ms=tl_dev)
 
     # K4: every shadow ray of the dense shadow frame, and a sample of the
     # large one's
@@ -593,12 +604,37 @@ def kernel_durations(fn, reps: int):
             if e.get("cat") == "kernel"]
 
 
-def profiled(fn, reps: int = 1):
+def profiled(fn, reps: int = 10):
     """(CUDA kernels a call of ``fn`` runs, their device time a call in
     ms): the kernels alone, without the host time between launches that
-    CUDA events around a call also count."""
-    durations = [d for _, d in kernel_durations(fn, reps)]
-    return len(durations) / reps, sum(durations) / reps / 1e3
+    CUDA events around a call also count (a memset is not a kernel).  A
+    trace now and then drops a kernel record, so each kernel name counts
+    round(records / reps) launches a call, each at the name's mean
+    duration: a dropped record changes neither the count nor, beyond the
+    spread of the name's durations, the time.  Callers that know how many
+    kernels a call runs check the count."""
+    for _ in range(5):  # a trace now and then comes back without kernels
+        per = {}
+        for name, d in kernel_durations(fn, reps):
+            per.setdefault(name, []).append(d)
+        if per:
+            break
+    else:
+        raise SmokeFailure("five profiler traces held no kernel")
+    counts = {k: round(len(v) / reps) for k, v in per.items()}
+    return (sum(counts.values()),
+            sum(n * float(np.mean(per[k])) for k, n in counts.items()) / 1e3)
+
+
+def kernel_split(fn, reps: int = 10) -> dict:
+    """name -> median device ms of each of the hand-written kernels
+    (``..._kernel``) that a call of ``fn`` runs."""
+    per = {}
+    for name, d in kernel_durations(fn, reps):
+        m = re.search(r"(\w+_kernel)\b", name)
+        if m:
+            per.setdefault(m.group(1), []).append(d)
+    return {k: float(np.median(v)) / 1e3 for k, v in per.items()}
 
 
 def walk_ms(fn, reps: int = 10) -> float:
@@ -705,7 +741,7 @@ def phase_onchip_kernels(frames):
     errs6.append(err)
     scene_d, aimed, cfg_d = frames["dense_shadows"]
     for what, (nx, ny, subdiv) in WALK_TREES.items():
-        scene = sphere_grid(nx=nx, ny=ny, subdiv=subdiv).to(scene_d.device)
+        scene = sphere_grid(nx=nx, ny=ny, subdiv=subdiv, device=scene_d.device)
         c = capture(scene, aimed, cfg_d)
         bvh_t, rays_t, eps_t = c["K1"][0][0][:3]
         check(f"{bvh_t.n_leaves:,}".replace(",", " ") in what,
@@ -782,14 +818,31 @@ def phase_onchip_kernels(frames):
     ms = cuda_ms(lambda: gather_cols_cuda.gather_cols(tbl, idx))
     plain_ms = cuda_ms(lambda: gather_cols_cuda.gather_cols_torch(tbl, idx))
     lib_ms = cuda_ms(lambda: tbl.index_select(1, idx))
+    kernels, dev_ms = profiled(
+        lambda: gather_cols_cuda.gather_cols(tbl, idx))
+    check(kernels == 1, f"K7: {kernels} CUDA kernels a call")
+    lib_dev_ms = profiled(lambda: tbl.index_select(1, idx))[1]
+    # diagnostic: K2 on the row-major copy of the same table, the same ids
+    rows_tbl = tbl.t().contiguous()
+    k2_ms = cuda_ms(lambda: gather_cuda.gather_rows(rows_tbl, idx))
+    kernels, k2_dev_ms = profiled(
+        lambda: gather_cuda.gather_rows(rows_tbl, idx))
+    check(kernels == 1, f"K2 on K7's table: {kernels} CUDA kernels a call")
     nbytes = tbl.numel() * 4 + idx.numel() * 4 + got.numel() * 4
     b_ms, b_by = bound(nbytes, 0)
     log(f"  K7 {tuple(tbl.shape)} x {idx.numel()} ids: exact, its backward "
         f"is K3 and equals K2's bit for bit; {ms:.3f} ms vs plain "
-        f"{plain_ms:.3f} ms, index_select(1, ids) {lib_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({nbytes} bytes, by {b_by})")
+        f"{plain_ms:.3f} ms, index_select(1, ids) {lib_ms:.3f} ms "
+        f"({ms / lib_ms:.3f}x); device time {dev_ms:.4f} ms, "
+        f"index_select(1, ids) {lib_dev_ms:.4f} ms ({dev_ms / lib_dev_ms:.3f}x)"
+        f"; K2 on the row-major copy {k2_ms:.3f} ms, device {k2_dev_ms:.4f} "
+        f"ms (K7 {dev_ms / k2_dev_ms:.3f}x); bound {b_ms:.4f} ms "
+        f"({nbytes} bytes, by {b_by})")
     result["K7"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                        k2_row_major_ms=k2_ms,
+                        k2_row_major_device_ms=k2_dev_ms)
 
     (codes_d,), _ = on["K8"][0]
     large = capture(*frames["large"])
@@ -887,61 +940,117 @@ def row_rel_err(got, want):
                              err).max())
 
 
+def k3_blocks(idx, rows):
+    """Distinct rows of each of K3's blocks, whose rays a block and row
+    budget (a block of more rows reads its g again) the kernel library
+    gives: (mean, max, blocks over the budget, blocks, budget)."""
+    import ctypes
+
+    from raytracebvh_tpu_torch import _kernels
+
+    block, budget = ctypes.c_int(), ctypes.c_int()
+    _kernels.check(_kernels.load().rtbvh_scatter_blocking(
+        ctypes.addressof(block), ctypes.addressof(budget)), "K3 blocking")
+    ids = torch.cat([idx, idx.new_full((-idx.numel() % block.value,), -1)])
+    ids = ids.view(-1, block.value).long()
+    srt = torch.where((ids >= 0) & (ids < rows), ids, -1).sort(1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    distinct = (new & (srt >= 0)).sum(1)
+    return (float(distinct.float().mean()), int(distinct.max()),
+            int((distinct > budget.value).sum()), distinct.numel(),
+            budget.value)
+
+
+def k3_case(what, g, idx, rows):
+    """K3 on one call's (g, idx): against the float64 sum, its plain
+    version and its own second launch; its time with the wrapper (CUDA
+    events) and its kernels' device time, beside index_add_'s."""
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    valid = (idx >= 0) & (idx < rows)
+    ref = torch.zeros((rows, g.shape[0]), dtype=torch.float64,
+                      device=g.device).index_add_(
+        0, idx[valid].long(), g.t()[valid].double())
+    got = gather_cuda.scatter_add_rows(g, idx, rows)
+    again = gather_cuda.scatter_add_rows(g, idx, rows)
+    flat = gather_cuda.scatter_add_rows_torch(g, idx, rows)
+    torch.cuda.synchronize()
+    nbits = int((got.view(torch.int32) != again.view(torch.int32)).sum())
+    rel = row_rel_err(got, ref)
+    rel_plain = row_rel_err(flat, ref)
+    rel_vs_plain = row_rel_err(got, flat)
+    err = float((got - flat).abs().max())
+    nrows = int(torch.unique(idx[valid]).numel())
+    zero = int((g.abs().amax(0) == 0).sum())
+    mean, most, over, blocks, budget = k3_blocks(idx, rows)
+    log(f"  K3 {what}: g {tuple(g.shape)}, {idx.numel()} ids into {rows} "
+        f"rows ({nrows} distinct, {zero} all-zero columns; a block's rows: "
+        f"mean {mean:.2f}, max {most}, {over} of {blocks} blocks over "
+        f"{budget}); against the float64 sum, per row: K3 {rel:.3g}, "
+        f"plain float32 {rel_plain:.3g}; K3 against plain {rel_vs_plain:.3g} "
+        f"(max |diff| {err:.3g}); two launches differ in {nbits} cells")
+    check(bool(torch.isfinite(got).all()), f"K3 {what}: non-finite")
+    check(nbits == 0, f"K3 {what}: {nbits} cells differ between launches")
+    check(rel <= K3_F64_TOL, f"K3 {what}: {rel} from the float64 sum")
+    check(rel_vs_plain <= K3_PLAIN_TOL,
+          f"K3 {what}: {rel_vs_plain} from its plain version")
+
+    def library():
+        return torch.zeros((rows, g.shape[0]), device=g.device).index_add_(
+            0, idx, g.t())
+
+    ms = cuda_ms(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
+    kernels, dev_ms = profiled(lambda: gather_cuda.scatter_add_rows(g, idx,
+                                                                    rows))
+    check(kernels == 3, f"K3 {what}: {kernels} CUDA kernels a call, not 3")
+    split = kernel_split(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
+    plain_ms = cuda_ms(lambda: gather_cuda.scatter_add_rows_torch(g, idx,
+                                                                  rows))
+    lib_ms = cuda_ms(library)
+    lib_dev_ms = profiled(library)[1]
+    nbytes = g.numel() * 4 + idx.numel() * 4 + rows * g.shape[0] * 4
+    b_ms, b_by = bound(nbytes, g.numel())
+    log(f"  K3 time, {what}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"index_add_ {lib_ms:.3f} ms ({ms / lib_ms:.3f}x); device time "
+        f"{dev_ms:.4f} ms in {kernels:g} CUDA kernels a call (and a memset: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + "), "
+        f"index_add_ {lib_dev_ms:.4f} ms ({dev_ms / lib_dev_ms:.3f}x); bound "
+        f"{b_ms:.4f} ms ({nbytes} bytes, by {b_by}; {dev_ms / b_ms:.2f}x)")
+    return dict(max_abs_err=err,
+                max_abs_err_f64=float((got.double() - ref).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, kernels_a_call=kernels)
+
+
 def phase_k3(train):
-    """K3 on the (g, idx) that the dense training step's backward hands
-    it: 2 073 600 ids into the 3 072-row leaf-attribute table."""
+    """K3 on the (g, idx) that the training steps' backward hands it:
+    dense_train's two calls (K2's backward) and onchip_train's (K7's), each
+    2 073 600 ids into the 3 072-row leaf-attribute table."""
     from raytracebvh_tpu_torch.models.inverse import init_params
     from raytracebvh_tpu_torch.ops import gather_cuda
 
-    scene, cam, cfg = train["dense_train"]
-    target = torch.zeros((H, W, 4), device=scene.device)
-    with Recorder(gather_cuda, "scatter_add_rows") as k3:
-        value_and_grad(init_params(scene), scene, cam, target, cfg)
-    torch.cuda.synchronize()
-    check(len(k3.calls) == 2,
-          f"the dense training step made {len(k3.calls)} K3 calls")
-    errs = []
-    for what, ((g, idx, rows), _) in zip(("call 1", "call 2"), k3.calls):
-        valid = (idx >= 0) & (idx < rows)
-        ref = torch.zeros((rows, g.shape[0]), dtype=torch.float64,
-                          device=g.device).index_add_(
-            0, idx[valid].long(), g.t()[valid].double())
-        got = gather_cuda.scatter_add_rows(g, idx, rows)
-        again = gather_cuda.scatter_add_rows(g, idx, rows)
-        flat = gather_cuda.scatter_add_rows_torch(g, idx, rows)
+    cases = {}
+    for name in ("dense_train", "onchip_train"):
+        scene, cam, cfg = train[name]
+        target = torch.zeros((H, W, 4), device=scene.device)
+        with Recorder(gather_cuda, "scatter_add_rows") as k3:
+            value_and_grad(init_params(scene), scene, cam, target, cfg)
         torch.cuda.synchronize()
-        nbits = int((got.view(torch.int32) != again.view(torch.int32)).sum())
-        rel = row_rel_err(got, ref)
-        rel_plain = row_rel_err(flat, ref)
-        rel_vs_plain = row_rel_err(got, flat)
-        err = float((got - flat).abs().max())
-        nrows = int(torch.unique(idx[valid]).numel())
-        zero = int((g.abs().amax(0) == 0).sum())
-        log(f"  K3 dense_train {what}: g {tuple(g.shape)}, {idx.numel()} ids into "
-            f"{rows} rows ({nrows} distinct, {zero} all-zero columns); "
-            f"against the float64 sum, per row: K3 {rel:.3g}, plain float32 "
-            f"{rel_plain:.3g}; K3 against plain {rel_vs_plain:.3g} (max "
-            f"|diff| {err:.3g}); two launches differ in {nbits} cells")
-        check(bool(torch.isfinite(got).all()), f"K3 {what}: non-finite")
-        check(nbits == 0, f"K3 {what}: {nbits} cells differ between launches")
-        check(rel <= K3_F64_TOL, f"K3 {what}: {rel} from the float64 sum")
-        check(rel_vs_plain <= K3_PLAIN_TOL,
-              f"K3 {what}: {rel_vs_plain} from its plain version")
-        errs.append((err, float((got.double() - ref).abs().max())))
-    g, idx, rows = k3.calls[-1][0]
-    ms = cuda_ms(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
-    plain_ms = cuda_ms(lambda: gather_cuda.scatter_add_rows_torch(g, idx, rows))
-    lib_ms = cuda_ms(lambda: torch.zeros((rows, g.shape[0]), device=g.device)
-                     .index_add_(0, idx, g.t()))
-    nbytes = g.numel() * 4 + idx.numel() * 4 + rows * g.shape[0] * 4
-    b_ms, b_by = bound(nbytes, g.numel())
-    log(f"  K3 time, dense_train call 2: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-        f"index_add_ {lib_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} bytes, "
-        f"by {b_by})")
-    return dict(max_abs_err=max(e[0] for e in errs),
-                max_abs_err_f64=max(e[1] for e in errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+        check(len(k3.calls) == 2,
+              f"the {name} step made {len(k3.calls)} K3 calls")
+        for n, ((g, idx, rows), _) in enumerate(k3.calls, 1):
+            cases[f"{name} call {n}"] = k3_case(f"{name} call {n}", g, idx,
+                                                rows)
+    out = dict(cases["dense_train call 2"])
+    out.update(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+               max_abs_err_f64=max(c["max_abs_err_f64"]
+                                   for c in cases.values()),
+               calls={k: {f: c[f] for f in ("ms", "device_ms", "library_ms",
+                                            "library_device_ms")}
+                      for k, c in cases.items()})
+    return out
 
 
 def hit_mask(img, cfg):

@@ -34,11 +34,12 @@ from chip_smoke import W, H, frames_on, train_frames, value_and_grad, wall_ms
 
 # csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4, and
 # so is csrc/traverse_shared.cu's for K5 and K6; K3 is csrc/scatter.cu's
-# three passes, one launch of its wrapper each; K8 is one kernel a sort up
-# to 16 384 codes (csrc/sort.cu), so its count is of kernels
+# three kernels (partials, fixed point, finish), one launch of its wrapper
+# each; K7 is one kernel, a template on its vector width; K8 is one kernel
+# a sort up to 16 384 codes (csrc/sort.cu), so its count is of kernels
 KERNELS = {"K1": ("traverse_kernel<false>",),
            "K2": ("gather_f32_kernel", "gather_u8_kernel"),
-           "K3": ("scatter_max_kernel", "scatter_sum_kernel",
+           "K3": ("scatter_partials_kernel", "scatter_fixed_kernel",
                   "scatter_finish_kernel"),
            "K4": ("traverse_kernel<true>",),
            "K5": ("traverse_shared_kernel<false",),

@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: argument types (every one returns a cudaError_t as int)
 _SIGNATURES = {
     # origin, direction, nodes, leaves, nrays, n_leaves, eps, max_steps,
@@ -55,8 +56,10 @@ _SIGNATURES = {
     # table, rows, channels, idx, nrays, out, stream
     "rtbvh_gather_f32": [_P, _I, _I, _P, _I, _P, _P],
     "rtbvh_gather_u8": [_P, _I, _I, _P, _I, _P, _P],
-    # g, idx, nrays, rows, channels, scratch, out, stream
-    "rtbvh_scatter_add_f32": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # g, idx, nrays, rows, channels, scratch, scratch bytes, out, stream
+    "rtbvh_scatter_add_f32": [_P, _P, _I, _I, _I, _P, _L, _P, _P],
+    # rays a block, rows a block keeps partials of (int32 outs)
+    "rtbvh_scatter_blocking": [_P, _P],
     # table, channels, width, idx, nrays, out, stream
     "rtbvh_gather_cols_f32": [_P, _I, _I, _P, _I, _P, _P],
     # codes, n, sorted, order, scratch (nullable), stream
@@ -143,6 +146,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # nrays, rows, channels -> K3's scratch bytes
+        lib.rtbvh_scatter_scratch_bytes.argtypes = [_I, _I, _I]
+        lib.rtbvh_scatter_scratch_bytes.restype = _L
         lib.rtbvh_error_string.argtypes = [ctypes.c_int]
         lib.rtbvh_error_string.restype = ctypes.c_char_p
         _lib = lib

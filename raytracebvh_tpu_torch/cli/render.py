@@ -99,7 +99,7 @@ def main(argv=None):
     if path is None:
         print(f"error: cannot find {args.obj}", file=sys.stderr)
         return 1
-    scene = load_obj(path).to(device)
+    scene = load_obj(path, device=device)
     ray_chunk = args.ray_chunk
     if ray_chunk < 0:
         ray_chunk = _auto_ray_chunk(args.width, args.height)

@@ -13,7 +13,8 @@ Differences (deliberate):
     replicate the bug (SURVEY.md Q8).
   * The v texture coordinate is flipped (1 - v) on import so sampling uses
     DirectX top-left texture space (see ops/shade.py).
-  * Pure numpy; ``Scene.to(device)`` uploads the result.
+  * Parsed in pure numpy; the Scene's tensors are made on the device
+    asked for, the CUDA device by default.
 """
 
 from __future__ import annotations
@@ -96,14 +97,17 @@ def _resolve_index(i: int, count: int, what: str, path: str) -> int:
     return j
 
 
-def load_obj(path: str, load_textures: bool = True) -> Scene:
-    """Parse an OBJ file into the port's host Scene (CPU tensors); the
-    pure-Python parser of the JAX package (``io/obj.py:_load_obj_python``),
-    which its native loader matches bit for bit."""
-    return _load_obj_python(path, load_textures)
+def load_obj(path: str, load_textures: bool = True, device="cuda") -> Scene:
+    """Parse an OBJ file into the port's Scene on ``device`` (the CUDA
+    device unless the caller asks for another; without a card the default
+    raises); the pure-Python parser of the JAX package
+    (``io/obj.py:_load_obj_python``), which its native loader matches bit
+    for bit."""
+    return _load_obj_python(path, load_textures, device)
 
 
-def _load_obj_python(path: str, load_textures: bool = True) -> Scene:
+def _load_obj_python(path: str, load_textures: bool = True,
+                     device="cuda") -> Scene:
     positions: List[List[float]] = []
     normals: List[List[float]] = []
     uvs: List[List[float]] = []
@@ -217,4 +221,4 @@ def _load_obj_python(path: str, load_textures: bool = True) -> Scene:
         materials=mats,
         textures=tex_stack,
         tex_hw=tex_hw,
-    ), device="cpu")
+    ), device=device)

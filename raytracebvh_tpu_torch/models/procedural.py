@@ -1,8 +1,9 @@
 """Procedural test scenes (no asset files required).
 
 Numpy copies of the JAX package's ``models/procedural.py``: the arrays
-are equal to the JAX ones; the result is the port's Scene on the CPU
-(``.to(device)`` moves it).
+are equal to the JAX ones.  The Scene goes to ``device``, the CUDA device
+unless the caller asks for another (``device="cpu"``); without a card the
+default raises, as ``scene_from_numpy``'s does.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def _default_materials(num: int = 1, shininess: float = 500.0,
 def random_triangles(num_tris: int, seed: int = 0, extent: float = 50.0,
                      tri_size: float = 4.0, num_materials: int = 3,
                      with_texture: bool = False, alpha: float = 1.0,
-                     optical_density: float = 0.0) -> Scene:
+                     optical_density: float = 0.0, device="cuda") -> Scene:
     """A cloud of random triangles in [-extent, extent]^3."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-extent, extent, (num_tris, 1, 3))
@@ -71,12 +72,12 @@ def random_triangles(num_tris: int, seed: int = 0, extent: float = 50.0,
         materials=mats,
         textures=tex,
         tex_hw=hw,
-    ), device="cpu")
+    ), device=device)
 
 
 def sphere_grid(nx: int = 4, ny: int = 4, subdiv: int = 8,
                 spacing: float = 25.0, radius: float = 8.0,
-                with_texture: bool = True) -> Scene:
+                with_texture: bool = True, device="cuda") -> Scene:
     """Grid of UV spheres (nx * ny * subdiv * 2 * subdiv * 2 triangles)."""
     # quad corner angles per (sphere-row i, sphere-col j, corner)
     i_ = np.arange(subdiv)[:, None, None]
@@ -127,5 +128,5 @@ def sphere_grid(nx: int = 4, ny: int = 4, subdiv: int = 8,
         materials=mats,
         textures=tex,
         tex_hw=hw,
-    ), device="cpu")
+    ), device=device)
 

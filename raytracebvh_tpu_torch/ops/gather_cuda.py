@@ -15,8 +15,10 @@ JAX package's one-hot-matmul scatter (``ops/gather_pallas.py``
 ``_scatter_add_kernel``, which ``gather_hbm.py``'s backward takes for
 tables of at most 32 768 rows).  That cap was a VMEM limit: K3 serves any
 row count, and above it stands in for the XLA scatter-add the JAX package
-used there.  K3 sums in 64-bit fixed point, so it gives the same bits on
-every launch; its error against the float64 sum is stated in its source.
+used there.  K3 reads g once: a block of 256 rays sums each of its rows
+in float64 in a fixed order, and the blocks' partials are added in 64-bit
+fixed point, so it gives the same bits on every launch; its error against
+the float64 sum is stated in its source.
 An index outside ``[0, rows)`` adds nothing, matching K2's zero row.  A
 uint8 table has no backward (the pipeline detaches it before packing).
 """
@@ -143,14 +145,16 @@ def scatter_add_rows(g, idx, rows: int):
     out = torch.empty((rows, c), dtype=torch.float32, device=g.device)
     if nrays == 0 or rows * c == 0:
         return out.zero_()
-    # per cell: an int64 sum, the max |g| and the non-finite flags
-    scratch = torch.empty(rows * c * 16, dtype=torch.uint8, device=g.device)
+    lib = _kernels.load()
+    # per cell its sum, max |partial| and flags; per block its partials
+    nbytes = lib.rtbvh_scatter_scratch_bytes(nrays, rows, c)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
     global scatter_launches
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.load().rtbvh_scatter_add_f32(
+        err = lib.rtbvh_scatter_add_f32(
             g.data_ptr(), idx.data_ptr(), nrays, rows, c, scratch.data_ptr(),
-            out.data_ptr(), stream)
+            nbytes, out.data_ptr(), stream)
     _kernels.check(err, "K3 scatter_add_rows launch")
     scatter_launches += 1
     return out

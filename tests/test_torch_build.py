@@ -33,8 +33,9 @@ from raytracebvh_tpu_torch.pipeline import assemble_bvh as t_assemble_bvh
 from raytracebvh_tpu_torch.pipeline import build_bvh as t_build_bvh
 
 SCENES = {
-    "random300": lambda m: m.random_triangles(300, seed=4, with_texture=True),
-    "spheres": lambda m: m.sphere_grid(nx=2, ny=2, subdiv=5),
+    "random300": lambda m, **kw: m.random_triangles(300, seed=4,
+                                                    with_texture=True, **kw),
+    "spheres": lambda m, **kw: m.sphere_grid(nx=2, ny=2, subdiv=5, **kw),
 }
 BVH_FIELDS = ("codes", "prim", "bbmin", "bbmax", "child_l", "child_r",
               "parent", "entry_link", "skip_link", "tri_verts",
@@ -51,7 +52,7 @@ def _t(a):
 
 
 def _scenes(name):
-    return SCENES[name](j_proc), SCENES[name](t_proc)
+    return SCENES[name](j_proc), SCENES[name](t_proc, device="cpu")
 
 
 def _assert_scene_equal(js, ts):
@@ -76,13 +77,18 @@ def test_scene_from_numpy_takes_jax_scene():
     _assert_scene_equal(js, scene_from_numpy(js, "cpu"))
 
 
-def test_carry_across_functions_default_to_the_card():
+def test_carry_across_functions_default_to_the_card(tmp_path):
     """scene_from_numpy, materials_from_numpy, camera_from_numpy,
-    bvh_from_numpy and Camera.default put their tensors on the CUDA device
-    unless asked for another: without one they raise rather than return
-    CPU tensors.  With device="cpu" they equal the JAX arrays exactly."""
+    bvh_from_numpy, Camera.default and the scene constructors
+    (random_triangles, sphere_grid, load_obj) put their tensors on the CUDA
+    device unless asked for another: without one they raise rather than
+    return CPU tensors.  With device="cpu" they equal the JAX arrays
+    exactly."""
     from raytracebvh_tpu_torch.core import types as tt
+    from raytracebvh_tpu_torch.io.obj import load_obj
 
+    obj = tmp_path / "tri.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
     js = j_proc.random_triangles(20, seed=1)
     jc = J.Camera.default()
     jb = j_build_bvh(scene_to_device(js), *j_camera_matrices(jc, 16, 16),
@@ -92,7 +98,11 @@ def test_carry_across_functions_default_to_the_card():
                                                                **kw),
              "camera": lambda **kw: tt.camera_from_numpy(jc, **kw),
              "bvh": lambda **kw: tt.bvh_from_numpy(jb, **kw),
-             "default camera": lambda **kw: T.Camera.default(**kw)}
+             "default camera": lambda **kw: T.Camera.default(**kw),
+             "random_triangles": lambda **kw: t_proc.random_triangles(
+                 20, seed=1, **kw),
+             "sphere_grid": lambda **kw: t_proc.sphere_grid(1, 1, 2, **kw),
+             "load_obj": lambda **kw: load_obj(str(obj), **kw)}
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()
@@ -102,6 +112,8 @@ def test_carry_across_functions_default_to_the_card():
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
     _assert_scene_equal(js, tt.scene_from_numpy(js, device="cpu"))
+    _assert_scene_equal(js, t_proc.random_triangles(20, seed=1, device="cpu"))
+    assert load_obj(str(obj), device="cpu").verts.device.type == "cpu"
     for jcam, tcam in ((jc, T.Camera.default(device="cpu")),
                        (jc, tt.camera_from_numpy(jc, device="cpu"))):
         for f in ("eye", "at", "up", "fov", "near", "far"):

@@ -123,7 +123,8 @@ def test_dense_frame_window_on_sphere_grid(framing):
         eye, at = [12.5, 5.0, -100.0], [12.5, 0.0, 0.0]
         jc = jc.replace(eye=jnp.asarray(eye), at=jnp.asarray(at))
         tc = tc.replace(eye=torch.tensor(eye), at=torch.tensor(at))
-    js, ts = j_grid(nx=4, ny=3, subdiv=8), t_grid(nx=4, ny=3, subdiv=8)
+    js = j_grid(nx=4, ny=3, subdiv=8)
+    ts = t_grid(nx=4, ny=3, subdiv=8, device="cpu")
     x0, x1 = -(w // 2) / scale, (w - 1 - w // 2) / scale
     y0, y1 = -(h // 2) / scale, (h - 1 - h // 2) / scale
 

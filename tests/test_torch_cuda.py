@@ -11,9 +11,10 @@ exact; K4's and K6's occlusion flags exact, K4's with max_t one ulp around
 hit distances included (the kernels are built with -fmad=false and IEEE
 division, so they round as the plain versions' separate PyTorch ops do);
 K8's (sorted_codes, order) exact against torch.sort(stable=True) and its
-plain network, at every size and on every input.  K3 sums in fixed point: it
-is held to the float64 sum within 1e-6 of each row's largest |value|, and
-to its own bits on a second launch.
+plain network, at every size and on every input.  K3 sums blocks in float64
+and adds them in fixed point: it is held to the float64 sum within 1e-6 of
+each row's largest |value|, and to its own bits on a second launch, on
+coherent and random ids and on every ray into one row.
 """
 
 import numpy as np
@@ -35,10 +36,27 @@ def _bvh(dev, num_tris=2000, seed=0, leaf_pad_multiple=256):
     from raytracebvh_tpu_torch.camera import camera_matrices
     from raytracebvh_tpu_torch.models.procedural import random_triangles
 
-    scene = random_triangles(num_tris, seed=seed).to(dev)
+    scene = random_triangles(num_tris, seed=seed, device=dev)
     wvp, wv = camera_matrices(T.Camera.default(dev), 64, 64)
     return T.build_bvh(scene, wvp, wv, T.RenderConfig(
         width=64, height=64, leaf_pad_multiple=leaf_pad_multiple))
+
+
+def test_scene_constructors_default_to_the_card(dev, tmp_path):
+    """random_triangles, sphere_grid and load_obj build their Scene on the
+    CUDA device when no device is given."""
+    from raytracebvh_tpu_torch.io.obj import load_obj
+    from raytracebvh_tpu_torch.models.procedural import (random_triangles,
+                                                         sphere_grid)
+
+    obj = tmp_path / "tri.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+    for scene in (random_triangles(20, seed=1), sphere_grid(1, 1, 2),
+                  load_obj(str(obj))):
+        tensors = [v for v in (*vars(scene).values(),
+                               *vars(scene.materials).values())
+                   if isinstance(v, torch.Tensor)]
+        assert tensors and all(t.device.type == "cuda" for t in tensors)
 
 
 def _rays(dev, nrays, seed):
@@ -233,19 +251,34 @@ def _row_rel_err(got, want):
                              err).max())
 
 
-@pytest.mark.parametrize("rows,nrays", [(3072, 200003), (40000, 65536),
-                                        (7, 1000)])
-def test_k3_matches_float64_sum_and_repeats_bits(dev, rows, nrays):
+def _k3_ids(gen, kind, rows, nrays):
+    if kind == "coherent":
+        return _coherent_ids(gen, rows, nrays)
+    if kind == "random":  # a block's 256 rays on ~256 rows: g read twice
+        return torch.randint(-50, rows + 50, (nrays,), generator=gen,
+                             dtype=torch.int32)
+    return torch.full((nrays,), rows // 2, dtype=torch.int32)  # one row
+
+
+@pytest.mark.parametrize("rows,nrays,kind", [
+    (3072, 200003, "coherent"), (40000, 65536, "coherent"),
+    (7, 1000, "coherent"), (3072, 2073600, "coherent"),
+    (3072, 200003, "random"), (2073600, 2073600, "random"),
+    (3072, 200003, "one row"), (3072, 2073600, "one row")])
+def test_k3_matches_float64_sum_and_repeats_bits(dev, rows, nrays, kind):
     """K3 within 1e-6 of each row's largest |value| of the float64 sum
     (its fixed-point error bound, csrc/scatter.cu, plus one float32
     rounding), and the same bits on a second launch; rows above the JAX
-    package's 32 768-row cap included."""
+    package's 32 768-row cap included; coherent ids (blocks that keep
+    their partials), random ones (blocks of more rows than K3 keeps
+    partials of, which read g again) and every ray into one row; the 1080p
+    shape [40, 2 073 600] into 3 072 rows."""
     from raytracebvh_tpu_torch.ops import gather_cuda
 
-    gen = torch.Generator(device="cpu").manual_seed(rows)
+    gen = torch.Generator(device="cpu").manual_seed(rows + nrays)
     g = torch.randn(40, nrays, generator=gen) * torch.logspace(
         -6, 2, 40)[:, None]
-    idx = _coherent_ids(gen, rows, nrays)
+    idx = _k3_ids(gen, kind, rows, nrays)
     g, idx = g.to(dev), idx.to(dev)
     before = gather_cuda.scatter_launches
     got = gather_cuda.scatter_add_rows(g, idx, rows)
@@ -255,9 +288,11 @@ def test_k3_matches_float64_sum_and_repeats_bits(dev, rows, nrays):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     want = _f64_sum(g, idx, rows)
     assert _row_rel_err(got, want) <= 1e-6
-    # the plain float32 version, within its own float32 summation error
+    # the plain float32 version, within its own float32 summation error:
+    # a row of at most a few thousand terms within 1e-4, one row of up to
+    # 2 M terms within 1e-3 (chip_smoke.py's K3_PLAIN_TOL says why)
     plain = gather_cuda.scatter_add_rows_torch(g, idx, rows)
-    assert _row_rel_err(plain, want) <= 1e-4
+    assert _row_rel_err(plain, want) <= (1e-3 if kind == "one row" else 1e-4)
 
 
 def test_k3_out_of_range_ids_and_empty(dev):
@@ -278,20 +313,27 @@ def test_k3_out_of_range_ids_and_empty(dev):
     assert gather_cuda.scatter_launches == before  # nothing to launch
 
 
-def test_k3_non_finite_cells_as_ieee_sums(dev):
+@pytest.mark.parametrize("spread", [0, 300])
+def test_k3_non_finite_cells_as_ieee_sums(dev, spread):
     """A NaN, or +inf and -inf together, make a cell NaN; one infinity
-    makes it that infinity; other cells stay exact."""
+    makes it that infinity; other cells stay exact.  With ``spread`` more
+    rays, each on a row of its own, the block has more rows than K3 keeps
+    partials of, and its sums are taken again from g."""
     from raytracebvh_tpu_torch.ops import gather_cuda
 
     inf, nan = float("inf"), float("nan")
     g = torch.tensor([[1.0, inf, 2.0, -inf, 3.0, nan, 4.0],
-                      [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]], device=dev)
-    g = torch.cat([g, torch.zeros(2, 7, device=dev)])  # C = 4
-    idx = torch.tensor([0, 0, 1, 1, 2, 2, 3], dtype=torch.int32, device=dev)
+                      [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]])
+    g = torch.cat([g, torch.zeros(2, 7)])  # C = 4
+    idx = torch.tensor([0, 0, 1, 1, 2, 2, 3], dtype=torch.int32)
     idx[3] = 0  # row 0 gets +inf and -inf
-    got = gather_cuda.scatter_add_rows(g.contiguous(), idx, 4).cpu()
-    want = torch.zeros(4, 4, dtype=torch.float64).index_add_(
-        0, idx.cpu().long(), g.cpu().t().double()).float()
+    g = torch.cat([g, torch.ones(4, spread)], 1)
+    idx = torch.cat([idx, torch.arange(4, 4 + spread, dtype=torch.int32)])
+    rows = 4 + spread
+    got = gather_cuda.scatter_add_rows(g.to(dev).contiguous(), idx.to(dev),
+                                       rows).cpu()
+    want = torch.zeros(rows, 4, dtype=torch.float64).index_add_(
+        0, idx.long(), g.t().double()).float()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     ok = ~torch.isnan(want)
     assert torch.equal(got[ok], want[ok])
@@ -327,7 +369,7 @@ def test_loss_and_grads_64x64_kernels_match_plain(dev):
     from raytracebvh_tpu_torch.models.procedural import random_triangles
     from raytracebvh_tpu_torch.ops import gather_cuda
 
-    scene = random_triangles(300, seed=6, with_texture=True).to(dev)
+    scene = random_triangles(300, seed=6, with_texture=True, device=dev)
     cam = T.Camera.default(dev)
     cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=2.0,
                          ray_tile=16, texture_dtype="uint8")
@@ -535,14 +577,20 @@ def test_shared_capacity_on_the_card(dev, num_tris, kernel):
                      traverse.traverse(bvh, rays, 0.01))
 
 
-@pytest.mark.parametrize("width", [3072, 7])
-def test_k7_matches_plain_with_out_of_range_ids(dev, width):
+@pytest.mark.parametrize("width,nrays,offset", [
+    (3072, 30001, 0), (7, 30001, 0), (3072, 1, 0), (3072, 3, 0),
+    (3072, 5, 0), (3072, 2073601, 0), (3072, 2073600, 0), (3072, 30000, 1)])
+def test_k7_matches_plain_with_out_of_range_ids(dev, width, nrays, offset):
+    """K7 exact against its plain version, with ids outside [0, width);
+    ray counts that are not a multiple of its four rays a thread, and ids
+    that are not 16-byte aligned (``offset``), take its scalar path."""
     from raytracebvh_tpu_torch.ops import gather_cols_cuda
 
-    gen = torch.Generator(device="cpu").manual_seed(width)
+    gen = torch.Generator(device="cpu").manual_seed(width + nrays)
     tbl = torch.randn(40, width, generator=gen).to(dev)
-    idx = torch.randint(-100, width + 100, (30001,), generator=gen,
-                        dtype=torch.int32).to(dev)
+    idx = torch.randint(-100, width + 100, (nrays + offset,), generator=gen,
+                        dtype=torch.int32).to(dev)[offset:]
+    idx[0] = -1  # out of range in every case
     before = gather_cols_cuda.launches
     got = gather_cols_cuda.gather_cols(tbl, idx)
     assert gather_cols_cuda.launches == before + 1
@@ -635,7 +683,7 @@ def test_onchip_backends_frame_equals_kernel_frame(dev):
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, sort_cuda,
                                            traverse_shared_cuda)
 
-    scene = random_triangles(300, seed=7, with_texture=True).to(dev)
+    scene = random_triangles(300, seed=7, with_texture=True, device=dev)
     cam = T.Camera.default(dev)
     cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.4,
                          enable_shadows=True, light_pos=(10.0, 80.0, -40.0))

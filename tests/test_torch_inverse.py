@@ -49,7 +49,7 @@ GRAD_SCENE = dict(num_tris=40, seed=11, extent=8.0, tri_size=2.0,
 def _scenes(dtype="float32", num_tris=40, **kw):
     jdt = jnp.float64 if dtype == "float64" else jnp.float32
     js = scene_to_device(j_random(num_tris, **kw), dtype=jdt)
-    ts = t_random(num_tris, **kw)
+    ts = t_random(num_tris, device="cpu", **kw)
     if dtype == "float64":
         m = ts.materials
         ts = ts.replace(
@@ -175,7 +175,7 @@ def _port_grads(ts, cfg, target):
 
 def test_ray_chunk_grads_match():
     """tests/test_ray_chunk.py::test_ray_chunk_grads_match on the port."""
-    ts = t_random(100, seed=10)
+    ts = t_random(100, device="cpu", seed=10)
     target = torch.zeros((16, 16, 4))
     base = T.RenderConfig(width=16, height=16, bounces=1, ortho_scale=0.2)
     g0 = _port_grads(ts, base, target)
@@ -188,7 +188,7 @@ def test_ray_chunk_grads_match():
 def test_cull_empty_chunks_grads_identical():
     """tests/test_ray_chunk.py::test_cull_empty_chunks_identical's
     gradients on the port: shadows on, most chunks all-miss."""
-    ts = t_random(60, seed=11, with_texture=True)
+    ts = t_random(60, device="cpu", seed=11, with_texture=True)
     target = torch.zeros((32, 32, 4))
     base = T.RenderConfig(width=32, height=32, bounces=2, ortho_scale=0.05,
                           enable_shadows=True, ray_chunk=128)

@@ -19,13 +19,15 @@ import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models.procedural import random_triangles
 from raytracebvh_tpu_torch.cli import render
 img = T.render_frame(random_triangles(50, seed=2, with_texture=True,
-                                      alpha=0.4, optical_density=0.7),
+                                      alpha=0.4, optical_density=0.7,
+                                      device="cpu"),
                      T.Camera.default("cpu"),
                      T.RenderConfig(width=16, height=16, bounces=1,
                                     ortho_scale=1.0, enable_shadows=True,
                                     enable_refraction=True))
 assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
-onchip = T.render_frame(random_triangles(50, seed=2, with_texture=True),
+onchip = T.render_frame(random_triangles(50, seed=2, with_texture=True,
+                                         device="cpu"),
                         T.Camera.default("cpu"),
                         T.RenderConfig(width=16, height=16, bounces=1,
                                        ortho_scale=1.0, enable_shadows=True,
@@ -34,7 +36,7 @@ onchip = T.render_frame(random_triangles(50, seed=2, with_texture=True),
                                        sort_backend="bitonic"))
 assert onchip.shape == (16, 16, 4) and bool(torch.isfinite(onchip).all())
 from raytracebvh_tpu_torch.models import inverse
-scene = random_triangles(20, seed=3, with_texture=True)
+scene = random_triangles(20, seed=3, with_texture=True, device="cpu")
 params = inverse.init_params(scene)
 loss = inverse.train_step(params, inverse.make_optimizer(params), scene,
                           T.Camera.default("cpu"), torch.zeros(8, 8, 4),

@@ -41,7 +41,7 @@ def _write_scene(d, rng):
 def test_load_obj_matches_jax(tmp_path):
     path, _ = _write_scene(tmp_path, np.random.default_rng(0))
     js = j_load_obj(str(path), backend="python")
-    ts = t_load_obj(str(path))
+    ts = t_load_obj(str(path), device="cpu")
     for f in ("verts", "normals", "uv", "indices", "mat_index", "textures",
               "tex_hw"):
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
@@ -68,10 +68,10 @@ def test_bad_faces_raise(tmp_path):
     p = tmp_path / "quad.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3 4\n")
     with pytest.raises(ValueError, match="non-triangle"):
-        t_load_obj(str(p))
+        t_load_obj(str(p), device="cpu")
     p.write_text("v 0 0 0\nf 1 2 3\n")
     with pytest.raises(ValueError, match="out of range"):
-        t_load_obj(str(p))
+        t_load_obj(str(p), device="cpu")
 
 
 def test_find_asset_falls_back_to_none():

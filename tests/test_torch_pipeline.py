@@ -23,7 +23,8 @@ BASE = dict(width=W, height=H, bounces=1, ortho_scale=2.0)
 
 def _scenes(seed=6):
     kw = dict(seed=seed, with_texture=True)
-    return scene_to_device(j_random(300, **kw)), t_random(300, **kw)
+    return (scene_to_device(j_random(300, **kw)),
+            t_random(300, device="cpu", **kw))
 
 
 def _render_both(**kw):
@@ -91,7 +92,7 @@ def test_bfloat16_frame_is_float32_as_jax(scene_kw, cfg_kw):
     atol 1e-5 of render_frame_jit, as the float32 frames."""
     n = scene_kw.pop("num_tris")
     js = scene_to_device(j_random(n, with_texture=True, **scene_kw))
-    ts = t_random(n, with_texture=True, **scene_kw)
+    ts = t_random(n, device="cpu", with_texture=True, **scene_kw)
     kw = dict(bounces=1, dtype="bfloat16", **cfg_kw)
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
                                          J.RenderConfig(**kw)))

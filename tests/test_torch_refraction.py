@@ -36,7 +36,7 @@ GLASS = dict(alpha=0.4, optical_density=0.7)  # tests/test_refraction.py:21
 
 def _render_both(scene_kw, **kw):
     js = scene_to_device(j_random(200, seed=11, **scene_kw))
-    ts = t_random(200, seed=11, **scene_kw)
+    ts = t_random(200, device="cpu", seed=11, **scene_kw)
     want = np.asarray(j_render_frame(js, J.Camera.default(),
                                      J.RenderConfig(**kw)))
     got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**kw))
@@ -76,7 +76,8 @@ def test_primary_spawns_match_jax(density):
     tcfg = T.RenderConfig(width=48, height=48, bounces=1, ortho_scale=0.2,
                           enable_refraction=True)
     kw = dict(seed=11, alpha=0.4, optical_density=density)
-    js, ts = scene_to_device(j_random(200, **kw)), t_random(200, **kw)
+    js = scene_to_device(j_random(200, **kw))
+    ts = t_random(200, device="cpu", **kw)
     cam = J.Camera.default()
     wvp, wv = j_camera_matrices(cam, 48, 48)
     jb = jax.jit(lambda s: jp.build_bvh(s, wvp, wv, cfg))(js)
@@ -111,7 +112,7 @@ def _torch(x):
 
 
 def test_refraction_is_a_no_op_on_opaque_scenes():
-    ts = t_random(200, seed=11, alpha=1.0, optical_density=0.7)
+    ts = t_random(200, device="cpu", seed=11, alpha=1.0, optical_density=0.7)
     cfg = T.RenderConfig(width=48, height=48, bounces=1, ortho_scale=0.2)
     off = T.render_frame(ts, T.Camera.default("cpu"), cfg)
     on = T.render_frame(ts, T.Camera.default("cpu"),

@@ -211,7 +211,7 @@ def _render_both(**kw):
     kw = dict(dict(width=48, height=48, bounces=1, enable_shadows=True,
                    light_pos=LIGHT), **kw)
     js = scene_to_device(j_random(300, seed=7, with_texture=True))
-    ts = t_random(300, seed=7, with_texture=True)
+    ts = t_random(300, device="cpu", seed=7, with_texture=True)
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(),
                                          J.RenderConfig(**kw)))
     got = T.render_frame(ts, T.Camera.default("cpu"), T.RenderConfig(**kw))
@@ -235,7 +235,8 @@ def test_shadowed_frame_matches_jax(kw):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     # the shadows are really there: the frame differs from the unshadowed
     unshadowed = T.render_frame(
-        t_random(300, seed=7, with_texture=True), T.Camera.default("cpu"),
+        t_random(300, device="cpu", seed=7, with_texture=True),
+        T.Camera.default("cpu"),
         T.RenderConfig(**dict(dict(width=48, height=48, bounces=1,
                                    light_pos=LIGHT), **kw)))
     assert np.abs(got - unshadowed.numpy()).max() > 0.1
@@ -244,7 +245,7 @@ def test_shadowed_frame_matches_jax(kw):
 def test_shadow_rays_skip_culled_chunks(monkeypatch):
     """One any-hit walk per shaded chunk, none for a culled one: the
     chunk loop fires shadow rays only where a primary ray hit."""
-    ts = t_random(300, seed=7, with_texture=True)
+    ts = t_random(300, device="cpu", seed=7, with_texture=True)
     cfg = T.RenderConfig(width=48, height=48, bounces=0, enable_shadows=True,
                          light_pos=LIGHT, ortho_scale=2.0, ray_chunk=96)
     calls = []

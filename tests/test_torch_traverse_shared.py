@@ -165,7 +165,8 @@ def onchip_frames():
     tests/test_traverse_pallas.py the jitted frame's FMAs move some
     bounce pixels by up to 2.4e-3 whatever the backends: ROADMAP queue 3.)"""
     kw = dict(seed=7, with_texture=True)
-    js, ts = scene_to_device(j_random(300, **kw)), t_random(300, **kw)
+    js = scene_to_device(j_random(300, **kw))
+    ts = t_random(300, device="cpu", **kw)
     want = np.asarray(J.render_frame_jit(js, J.Camera.default(), J.RenderConfig(
         **_FRAME, traversal_backend="pallas", shade_gather_backend="pallas",
         sort_backend="bitonic")))
