@@ -17,18 +17,21 @@ Phases (one line of output each, or more):
      with the tree in shared memory), K7 (column gather from a
      channel-major table) and K8 (stable sort of the build's codes, both
      routes) against their plain versions on the very inputs the main path
-     hands them (K3 on dense_train's two calls and onchip_train's, also
-     against a float64 sum, and against itself: two launches, 0 differing
-     bits; K7's backward against K3 through K2; K8 also against
-     torch.sort(stable=True), at the edges of its routes, with its kernels
-     counted by torch.profiler); their times beside the plain versions'
-     (CUDA events around the wrapper, median of 5), their bounds, a
-     library call where one computes the same function; for K2, K3, K7
-     and K8 also their kernels' device time (torch.profiler) beside the
-     library call's, for K3 by kernel, for K7 beside K2 on the row-major
-     copy of its table; for K5/K6 K1/K4's time on the same rays at three
-     tree sizes and on a sparse chunk, also as device time, and the
-     staging alone
+     hands them (the walks K1, K4, K5 and K6 exactly, every output and
+     step count, with each launch's lane efficiency: K1 on the dense
+     frame's primary and bounce launches and the large frame's, K4 on the
+     dense and large shadow launches; K3 on dense_train's two calls and
+     onchip_train's, also against a float64 sum, and against itself: two
+     launches, 0 differing bits; K7's backward against K3 through K2; K8
+     also against torch.sort(stable=True), at the edges of its routes,
+     with its kernels counted by torch.profiler); their times beside the
+     plain versions' (CUDA events around the wrapper, median of 5), their
+     bounds, a library call where one computes the same function; the
+     kernels' device time (torch.profiler), beside the library call's for
+     K2, K3, K7 and K8, for K3 by kernel, for K7 beside K2 on the
+     row-major copy of its table; for K5/K6 K1/K4's time on the same rays
+     at three tree sizes and on a sparse chunk, also as device time, and
+     the staging alone (K1 beside it: launch and ray I/O)
   4. main path: the dense, sparse and large frames, then dense_shadows,
      sparse_shadows, large_shadows, refract and dense_onchip; every
      kernel's launch count over each frame (counts set to 0 just before
@@ -66,10 +69,7 @@ import numpy as np
 import torch
 
 W, H = 1920, 1080
-K1_SAMPLE_BOUNCE = 65536  # first-bounce rays held against the plain walk
-K1_SAMPLE_LARGE = 262144  # large-tree primary rays held against it
-K4_SAMPLE_LARGE = 262144  # large-tree shadow rays held against it
-MATCH_MIN = 0.9999  # K1 hit/leaf agreement, and image pixels within 1e-4
+MATCH_MIN = 0.9999  # image pixels within 1e-4 of the all-plain render
 # K3 against the float64 sum of the same float32 inputs, per row: |error|
 # over the row's largest |value| (csrc/scatter.cu bounds its fixed-point
 # error; the float32 output's rounding alone is up to 6e-8)
@@ -295,96 +295,16 @@ def capture(scene, cam, cfg):
     return {k: r.calls for k, r in rec.items()}
 
 
-def sample_rays(rays, idx):
-    from raytracebvh_tpu_torch.core.types import Rays
-
-    return Rays(rays.origin[idx].contiguous(), rays.direction[idx].contiguous())
-
-
-def k1_parity(name, bvh, rays, eps):
-    """K1 against the plain walk on the same rays: hit and leaf on
-    >= 99.99% of rays (each mismatch a tie or an edge hit), distance
-    within rtol 1e-6 where both hit, no ray cut by the step cap."""
-    from raytracebvh_tpu_torch.ops import traverse as plain
-    from raytracebvh_tpu_torch.ops import traverse_cuda
-
-    traverse_cuda.reset_truncated()
-    got = traverse_cuda.traverse(bvh, rays, eps)
-    want = plain.traverse(bvh, rays, eps)
-    torch.cuda.synchronize()
-    trunc = traverse_cuda.truncated_rays()
-    bad = (got.hit != want.hit) | (got.leaf != want.leaf)
-    nbad = int(bad.sum())
-    both = got.hit & want.hit
-    err = rel = 0.0
-    if both.any():
-        dp = want.distance[both]
-        diff = (got.distance[both] - dp).abs()
-        err = float(diff.max())
-        rel = float((diff / dp.abs().clamp(min=1e-30)).max())
-    unexplained = 0
-    if nbad:
-        unexplained = int((~_tie_or_edge(bvh, rays, got, want, bad)).sum())
-    nrays = rays.origin.shape[0]
-    log(f"  K1 {name}: {nrays} rays, {int(want.hit.sum())} hits, "
-        f"{nbad} hit/leaf mismatches ({unexplained} neither tie nor edge), "
-        f"max |d distance| {err:.3g} (rel {rel:.3g}), "
-        f"truncated {trunc}")
-    check(nbad <= (1 - MATCH_MIN) * nrays and unexplained == 0,
-          f"K1 {name}: {nbad} mismatches, {unexplained} unexplained")
-    check(rel <= 1e-6, f"K1 {name}: distance rel error {rel}")
-    check(trunc == 0, f"K1 {name}: {trunc} rays cut by the step cap")
-    return err
-
-
-def _tie_or_edge(bvh, rays, got, want, bad):
-    """Mismatched rays explained by a tie (equal distances) or a hit
-    within 1e-4 of a triangle edge in barycentric terms."""
-    from raytracebvh_tpu_torch.ops.traverse_cuda import pack_tables
-
-    idx = bad.nonzero().squeeze(1)
-    tie = got.hit[idx] & want.hit[idx] & (
-        (got.distance[idx] - want.distance[idx]).abs()
-        <= 1e-6 * want.distance[idx].abs())
-    _, leaves = pack_tables(bvh)
-    o, d = rays.origin[idx], rays.direction[idx]
-    edge = torch.zeros_like(tie)
-    for rec in (got, want):
-        lt = leaves[rec.leaf[idx].long()]
-        v0, e1, e2 = lt[:, 0:3], lt[:, 3:6], lt[:, 6:9]
-        p = torch.cross(d, e2, dim=1)
-        det = (e1 * p).sum(1)
-        tv = o - v0
-        u = (tv * p).sum(1) / det
-        v = (d * torch.cross(tv, e1, dim=1)).sum(1) / det
-        near = torch.stack([u.abs(), v.abs(), (1 - u - v).abs()]).amin(0)
-        edge |= rec.hit[idx] & (near <= 1e-4)
-    return tie | edge
-
-
-def k4_parity(name, bvh, rays, eps, max_t):
-    """K4 against the plain any-hit walk on the same rays: every flag
-    equal, no ray cut by the step cap, and the occluded share of live
-    shadow rays strictly between 0 and 1.  Returns max |got - want|."""
-    from raytracebvh_tpu_torch.ops import traverse as plain
-    from raytracebvh_tpu_torch.ops import traverse_cuda
-
-    traverse_cuda.reset_truncated()
-    got = traverse_cuda.traverse_any(bvh, rays, eps, max_t)
-    want = plain.traverse_any(bvh, rays, eps, max_t)
-    torch.cuda.synchronize()
-    trunc = traverse_cuda.truncated_rays()
-    nbad = int((got != want).sum())
-    live = rays.origin[:, 0] < 1e29  # dead lanes start at 1e30
-    nlive = int(live.sum())
-    share = float(want[live].float().mean()) if nlive else 0.0
-    log(f"  K4 {name}: {rays.origin.shape[0]} rays, {nlive} live, "
-        f"occluded share of live {share:.4f}, {nbad} mismatches, "
-        f"truncated {trunc}")
-    check(nbad == 0, f"K4 {name}: {nbad} mismatches")
-    check(trunc == 0, f"K4 {name}: {trunc} rays cut by the step cap")
-    check(0.0 < share < 1.0, f"K4 {name}: occluded share {share}")
-    return float((got.float() - want.float()).abs().max())
+def lane_efficiency(steps):
+    """(lane efficiency, warp-iterations) of one walk launch from its
+    per-ray step counts in launch order, 32 rays a warp as K1/K4 take them:
+    the node steps over 32 x the sum of each warp's longest walk, which
+    counts the warp-iterations.  1 - efficiency bounds what a lane refill
+    (a work queue) could win."""
+    s = steps.to(torch.int64)
+    warps = torch.nn.functional.pad(s, (0, (-s.numel()) % 32)).view(-1, 32)
+    its = int(warps.max(1).values.sum())
+    return float(s.sum()) / (32 * max(its, 1)), its
 
 
 def walk_bound(rays, steps, tables, out_bytes_per_ray, in_bytes_per_ray):
@@ -406,7 +326,6 @@ def phase_kernels(frames):
                                                  quantize_quads_u8)
 
     result = {}
-    gen = torch.Generator(device="cpu").manual_seed(0)
     scene_d, cam_d, cfg_d = frames["dense"]
     calls = capture(scene_d, cam_d, cfg_d)
     k1_calls, k2_calls = calls["K1"], calls["K2"]
@@ -415,39 +334,33 @@ def phase_kernels(frames):
     bvh_d, prim_rays, eps = k1_calls[0][0][:3]
     bvh_d = traverse_cuda.with_tables(bvh_d)
     bounce_rays = k1_calls[1][0][1]
-    live = (bounce_rays.origin[:, 0] < 1e29).nonzero().squeeze(1).cpu()
-    pick = live[torch.randperm(live.numel(), generator=gen)[:K1_SAMPLE_BOUNCE]]
-    bounce_sample = sample_rays(bounce_rays, pick.to(prim_rays.origin.device))
-    log(f"  K1 dense bounce sample: {pick.numel()} of {live.numel()} live "
-        f"first-bounce rays")
-    errs = [k1_parity("dense primary", bvh_d, prim_rays, eps),
-            k1_parity("dense bounce", bvh_d, bounce_sample, eps)]
-
     l_calls = capture(*frames["large"])["K1"]
     bvh_l, rays_l = l_calls[0][0][:2]
-    pick = torch.randperm(rays_l.origin.shape[0], generator=gen)[
-        :K1_SAMPLE_LARGE].to(rays_l.origin.device)
-    large_sample = sample_rays(rays_l, pick)
-    log(f"  K1 large sample: {K1_SAMPLE_LARGE} of {rays_l.origin.shape[0]} "
-        f"primary rays, {bvh_l.n_leaves} leaves")
-    errs.append(k1_parity("large primary", bvh_l, large_sample, eps))
+    log(f"  K1 large: {bvh_l.n_leaves} leaves")
+    errs, steps = [], {}
+    for what, bvh, rays in (("dense primary", bvh_d, prim_rays),
+                            ("dense bounce launch", bvh_d, bounce_rays),
+                            ("large primary", bvh_l, rays_l)):
+        err, steps[what], _ = exact_walk(
+            f"K1 {what}", traverse_cuda.traverse, plain.traverse, bvh, rays,
+            eps)
+        errs.append(err)
+        ms = cuda_ms(lambda: traverse_cuda.traverse(bvh, rays, eps))
+        dev_ms = walk_ms(lambda: traverse_cuda.traverse(bvh, rays, eps))
+        log(f"  K1 time, {what}: {ms:.3f} ms, device {dev_ms:.4f} ms")
+        if what == "dense primary":
+            k1 = dict(ms=ms, device_ms=dev_ms)
 
-    ms = cuda_ms(lambda: traverse_cuda.traverse(bvh_d, prim_rays, eps))
     plain_ms = cuda_ms(lambda: plain.traverse(bvh_d, prim_rays, eps))
-    ms_l = cuda_ms(lambda: traverse_cuda.traverse(bvh_l, large_sample, eps))
-    plain_ms_l = cuda_ms(lambda: plain.traverse(bvh_l, large_sample, eps))
-    _, steps = traverse_cuda.traverse(bvh_d, prim_rays, eps,
-                                      return_steps=True)
     b_ms, b_by, nbytes, nsteps = walk_bound(
-        prim_rays, steps, (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
-    log(f"  K1 time, dense primary ({prim_rays.origin.shape[0]} rays): "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; large sample: "
-        f"{ms_l:.3f} ms vs plain {plain_ms_l:.3f} ms")
-    log(f"  K1 bound, dense primary: {nsteps} node steps "
-        f"({nsteps / prim_rays.origin.shape[0]:.2f} a ray), {nbytes} bytes "
-        f"-> {b_ms:.4f} ms, by {b_by}; no PyTorch call computes a traversal")
-    result["K1"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        prim_rays, steps["dense primary"],
+        (bvh_d.node_table, bvh_d.leaf_table), 9, 24)
+    log(f"  K1 dense primary: plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({nsteps} node steps, {nsteps / prim_rays.origin.shape[0]:.2f} a "
+        f"ray, {nbytes} bytes, by {b_by}); no PyTorch call computes a "
+        "traversal")
+    result["K1"] = dict(max_abs_err=max(errs), plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None, **k1)
 
     # K2: the frame's own indices into its own tables
     leaf_attrs, leaf_ids = k2_calls[0][0]
@@ -491,50 +404,49 @@ def phase_kernels(frames):
                         library_ms=tl, device_ms=t_dev,
                         library_device_ms=tl_dev)
 
-    # K4: every shadow ray of the dense shadow frame, and a sample of the
-    # large one's
+    # K4: every shadow ray of the dense shadow frame and of the large one
     k4_calls = capture(*frames["dense_shadows"])["K4"]
     check(len(k4_calls) == 1, f"dense_shadows made {len(k4_calls)} K4 calls")
     bvh_s, shadow_rays, eps, max_t = k4_calls[0][0][:4]
     bvh_s = traverse_cuda.with_tables(bvh_s)
-    errs = [k4_parity("dense shadows", bvh_s, shadow_rays, eps, max_t)]
     k4_large = capture(*frames["large_shadows"])["K4"]
     check(len(k4_large) == 1, f"large_shadows made {len(k4_large)} K4 calls")
     bvh_ls, rays_ls, _, max_t_ls = k4_large[0][0][:4]
-    live = (rays_ls.origin[:, 0] < 1e29).nonzero().squeeze(1).cpu()
-    pick = live[torch.randperm(live.numel(), generator=gen)[:K4_SAMPLE_LARGE]]
-    pick = pick.to(rays_ls.origin.device)
-    log(f"  K4 large sample: {pick.numel()} of {live.numel()} live shadow "
-        f"rays, {bvh_ls.n_leaves} leaves")
-    check(pick.numel() >= min(K4_SAMPLE_LARGE, live.numel()) > 0,
-          "large_shadows: too few live shadow rays")
-    errs.append(k4_parity("large shadows", bvh_ls, sample_rays(rays_ls, pick),
-                          eps, max_t_ls[pick].contiguous()))
-    ms = cuda_ms(lambda: traverse_cuda.traverse_any(bvh_s, shadow_rays, eps,
-                                                    max_t))
+    errs = []
+    for what, bvh, rays, mt in (("dense shadows", bvh_s, shadow_rays, max_t),
+                                ("large shadows", bvh_ls, rays_ls, max_t_ls)):
+        err, st, occ = exact_walk(f"K4 {what}", traverse_cuda.traverse_any,
+                                  plain.traverse_any, bvh, rays, eps, mt)
+        errs.append(err)
+        live = rays.origin[:, 0] < 1e29  # dead lanes start at 1e30
+        share = float(occ[live].float().mean())
+        check(0.0 < share < 1.0, f"K4 {what}: occluded share {share} of "
+              f"{int(live.sum())} live rays")
+        ms = cuda_ms(lambda: traverse_cuda.traverse_any(bvh, rays, eps, mt))
+        dev_ms = walk_ms(lambda: traverse_cuda.traverse_any(bvh, rays, eps,
+                                                            mt))
+        log(f"  K4 time, {what}: {ms:.3f} ms, device {dev_ms:.4f} ms; "
+            f"occluded share of {int(live.sum())} live rays {share:.4f}")
+        if what == "dense shadows":
+            k4, steps = dict(ms=ms, device_ms=dev_ms), st
     plain_ms = cuda_ms(lambda: plain.traverse_any(bvh_s, shadow_rays, eps,
                                                   max_t))
-    ms_l = cuda_ms(lambda: traverse_cuda.traverse_any(bvh_ls, rays_ls, eps,
-                                                      max_t_ls))
-    _, steps = traverse_cuda.traverse_any(bvh_s, shadow_rays, eps, max_t,
-                                          return_steps=True)
     b_ms, b_by, nbytes, nsteps = walk_bound(
         shadow_rays, steps, (bvh_s.node_table, bvh_s.leaf_table), 1, 28)
-    log(f"  K4 time, dense shadows ({shadow_rays.origin.shape[0]} rays): "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; large shadows (all "
-        f"{rays_ls.origin.shape[0]} rays): {ms_l:.3f} ms")
-    log(f"  K4 bound, dense shadows: {nsteps} node steps "
-        f"({nsteps / shadow_rays.origin.shape[0]:.2f} a ray), {nbytes} bytes "
-        f"-> {b_ms:.4f} ms, by {b_by}; no PyTorch call computes a traversal")
-    result["K4"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  K4 dense shadows: plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({nsteps} node steps, {nsteps / shadow_rays.origin.shape[0]:.2f} a "
+        f"ray, {nbytes} bytes, by {b_by}); no PyTorch call computes a "
+        "traversal")
+    result["K4"] = dict(max_abs_err=max(errs), plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None, **k4)
     return result
 
 
 def exact_walk(name, kernel, plain_walk, bvh, rays, *args):
-    """A walk kernel (K5 or K6) against the plain walk on the same rays:
-    every record and step count equal, no ray cut by the step cap.
-    Returns (max |got - want| over the outputs, the kernel's steps)."""
+    """A walk kernel (K1, K4, K5 or K6) against the plain walk on the same
+    rays: every record and step count equal, no ray cut by the step cap;
+    logs the launch's lane efficiency.  Returns (max |got - want| over the
+    outputs, the kernel's steps, its output)."""
     from raytracebvh_tpu_torch.ops import traverse_cuda
 
     traverse_cuda.reset_truncated()
@@ -552,12 +464,15 @@ def exact_walk(name, kernel, plain_walk, bvh, rays, *args):
     nbad = sum(int((a != b).sum()) for a, b in pairs)
     nsteps = int((steps != wsteps).sum())
     err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    eff, its = lane_efficiency(steps)
     log(f"  {name}: {rays.origin.shape[0]} rays, {what}, {nbad} differing "
-        f"outputs, {nsteps} differing step counts, truncated {trunc}")
+        f"outputs, {nsteps} differing step counts, truncated {trunc}; "
+        f"{float(steps.float().mean()):.2f} steps a ray, lane efficiency "
+        f"{eff:.4f} over {its} warp-iterations")
     check(nbad == 0 and nsteps == 0, f"{name}: {nbad} outputs and {nsteps} "
           "step counts differ from the plain walk")
     check(trunc == 0, f"{name}: {trunc} rays cut by the step cap")
-    return err, steps
+    return err, steps, got
 
 
 def cat_rays(calls):
@@ -669,7 +584,8 @@ def walk_pair(name, bvh, rays, eps, max_t=None):
                                    traverse_cuda.traverse_any,
                                    plain.traverse_any)
         args, k = (eps, max_t), "K6"
-    err, steps = exact_walk(f"{k} {name}", kernel, plain_walk, bvh, rays, *args)
+    err, steps, _ = exact_walk(f"{k} {name}", kernel, plain_walk, bvh, rays,
+                               *args)
     ms = cuda_ms(lambda: kernel(bvh, rays, *args))
     ref_ms = cuda_ms(lambda: ref(bvh, rays, *args))
     dev_ms = walk_ms(lambda: kernel(bvh, rays, *args))

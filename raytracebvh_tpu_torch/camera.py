@@ -85,9 +85,10 @@ def transform_normals(normals, wv):
 
 
 def reference_rays(width: int, height: int, ortho_scale: float,
-                   dtype=torch.float32, device=None) -> Rays:
+                   dtype=torch.float32, device="cuda") -> Rays:
     """The reference's orthographic primary rays in clip space: origin
-    ((x - w//2) / s, (y - h//2) / s, 0), direction (0, 0, 1), row-major."""
+    ((x - w//2) / s, (y - h//2) / s, 0), direction (0, 0, 1), row-major.
+    On the CUDA device unless asked for another (without one it raises)."""
     xs = torch.arange(width, dtype=dtype, device=device)
     ys = torch.arange(height, dtype=dtype, device=device)
     hx = torch.tensor(width // 2, dtype=dtype, device=device)

@@ -16,19 +16,32 @@
 // max_t is computed by the caller (dist * (1 - 1e-4) in PyTorch) and
 // compared here as the same float32 value the plain version compares.
 //
-// What bounds them on an H100: latency.  Each step of a walk is a dependent
-// chain -- load the node, test its box, pick the next node from the links
-// just loaded -- so a thread waits on one global load per step (two more
-// at a leaf), and the SM hides that only with many warps in flight.  The
-// design answers it simply: a stackless skip-link walk needs no stack in
-// local memory, so a thread needs few registers and an SM keeps many warps
-// resident; a node is one 32-byte load (two float4), a leaf triangle three
-// float4 with the edges precomputed once per build; the tables stay in
-// global memory, and the 50 MB L2 holds them whole (0.34 MB for 3 072
-// triangles, 11.5 MB for 102 400).  K4's walks are shorter than K1's: no
-// nearest-hit pruning, but an occluded ray stops at its first occluder,
-// and a dead shadow ray (origin 1e30) misses the root on step one.  The
-// TPU kernel's rank-space windows, refill slots, pump and wsweep answered
+// What bounds them on an H100: issue slots, not latency.  A thread walks
+// one ray, 48 warps an SM (38-39 registers, blocks of 128), and rays in
+// launch order keep a warp's walks of nearly equal length (lane
+// efficiency 0.95-0.97 on the 1080p primary and shadow rays, 0.91 on the
+// bounce rays), so a warp-iteration is one node step for 32 lanes.  On
+// the dense 1080p frame K1's walk spends ~60 issue slots a warp-iteration
+// (device time less that of rays that all miss the root, at 1.755-1.98
+// GHz over the SM's four schedulers), and the loop needs ~45 of them:
+// the schedulers are 75-85% busy, and more warps in flight could buy at
+// most the rest.  So the design counts instructions.  In SASS a node step
+// (box test, link choice, loop control) is 41 instructions: two 16-byte
+// loads of the 32-byte node record (one wide multiply for its address),
+// six subtractions and six multiplies, ten min/max as single FMNMX.NAN
+// (walk.cuh; the compare-and-select form took 27 instructions), four
+// compares and one select for the next link, the same in K1 and K4.  The
+// Moeller-Trumbore test (~80 instructions, three loads of the leaf table,
+// the division's slow path called out of the loop) runs in 5-12% of
+// warp-iterations, so it stays a branch of the step.  What is not here:
+// a stack (the skip links need none, so registers stay few), a work
+// queue or lane refill (worth at most 1 - lane efficiency), staging the
+// tree in shared memory (K5/K6), and two rays a thread (the slots, not
+// the latency, bound the loop).  K4's walks are shorter than K1's: no
+// nearest-hit pruning, but an occluded ray stops at its first occluder
+// (set inside the leaf test, so the link choice is one select), and a
+// dead shadow ray (origin 1e30) misses the root on step one.  The TPU
+// kernel's rank-space windows, refill slots, pump and wsweep answered
 // VMEM capacity and lock-step lanes; a GPU warp diverges instead, so none
 // of it is carried over, for either kernel.
 //

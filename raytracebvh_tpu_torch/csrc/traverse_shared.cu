@@ -11,8 +11,9 @@
 // agree with K1/K4 and with the plain version bit for bit; only where a
 // node record is read from, and the launch, differ.
 //
-// What bounds them on an H100: latency, as for K1/K4.  A step of a walk
-// is a dependent chain: load the node, test its box, take the next node
+// What bounds them on an H100: the walk's issue slots (traverse.cu counts
+// them for K1/K4) and, with fewer warps, latency.  A step of a walk is a
+// dependent chain: load the node, test its box, take the next node
 // from the links just loaded.  Here the node records (K1's 32-byte record,
 // ops/traverse_cuda.pack_tables) of nodes `first` .. 2n-2 sit in shared
 // memory, whose latency is below an L1 hit's and far below L2's; the rest

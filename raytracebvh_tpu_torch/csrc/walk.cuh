@@ -8,7 +8,13 @@
 //  * Slab test NaNs.  A ray with direction (0, 0, 1) has 1/d = inf on x
 //    and y; an origin exactly on a box plane gives 0 * inf = NaN.
 //    torch.minimum/maximum propagate NaN, so that box is missed; fminf and
-//    fmaxf would drop the NaN and hit it.  min_nan/max_nan propagate it.
+//    fmaxf would drop the NaN and hit it.  min_nan/max_nan propagate it,
+//    each one instruction (PTX min.NaN / max.NaN, SASS FMNMX.NAN).  They
+//    may differ from torch.minimum/maximum only in the sign of a zero
+//    result (min of -0 and +0) and in a NaN's payload; tmin and tmax, their
+//    only users, enter nothing but the comparisons below, where -0 == +0
+//    and every NaN compares false, so hits, leaves, distances and step
+//    counts are the same.
 //  * Every a*b + c*d rounds each product and each sum (no FMA), evaluated
 //    left to right as the torch expression is.
 //  * Dead rays (origin 1e30) and padding leaves (empty boxes, bbmin.x >
@@ -18,16 +24,22 @@
 //    caller can see the cut.
 #pragma once
 
+#include <cstddef>
+
 #include <cuda_runtime.h>
 
 namespace rtbvh {
 
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // Node records: [2n] x (float4 bbmin.xyz|bbmax.x, float4 bbmax.yz|entry|skip)
@@ -35,8 +47,9 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 struct GlobalNodes {
   const float4* __restrict__ nodes;
   __device__ __forceinline__ void load(int node, float4& a, float4& b) const {
-    a = __ldg(&nodes[2 * node]);
-    b = __ldg(&nodes[2 * node + 1]);
+    const float4* rec = nodes + 2 * static_cast<ptrdiff_t>(node);  // 32 bytes
+    a = __ldg(rec);
+    b = __ldg(rec + 1);
   }
 };
 
@@ -59,7 +72,9 @@ __device__ __forceinline__ void walk_ray(
 
   int node = n_leaves;  // root
   bool hit = false;
-  float dist = 0.0f;
+  // the nearest hit so far, +inf before the first: tmin <= dist then
+  // prunes as !hit || tmin <= dist does (a NaN tmin misses the box anyway)
+  float dist = __int_as_float(0x7f800000);
   int leaf = 0;
   int it = 0;
   for (; node >= 0 && it < max_steps; ++it) {
@@ -73,10 +88,10 @@ __device__ __forceinline__ void walk_ray(
     const float tmax = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
                                max_nan(t0z, t1z));
     const bool nonempty = a.x <= a.w;
-    const bool prune_ok = AnyHit ? (tmin <= ray_max) : (!hit || tmin <= dist);
+    const bool prune_ok = tmin <= (AnyHit ? ray_max : dist);
     const bool bhit = (0.0f <= tmax) && (tmin <= tmax) && nonempty && prune_ok;
     const bool is_leaf = node < n_leaves;
-    bool found = false;
+    int next = (bhit && !is_leaf) ? __float_as_int(b.z) : __float_as_int(b.w);
     if (bhit && is_leaf) {  // Moeller-Trumbore against the leaf triangle
       const float4 l0 = __ldg(&leaves[3 * node]);
       const float4 l1 = __ldg(&leaves[3 * node + 1]);
@@ -100,21 +115,22 @@ __device__ __forceinline__ void walk_ray(
       const bool tri_ok = det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                           u + v <= 1.0f && t > eps;
       if (AnyHit) {
-        found = tri_ok && t < ray_max;
-        hit = hit || found;
+        if (tri_ok && t < ray_max) {  // the any-hit early out
+          hit = true;
+          next = -1;
+        }
       } else if (tri_ok && (!hit || t < dist)) {
         dist = t;
         leaf = node;
         hit = true;
       }
     }
-    node = found ? -1  // the any-hit early out
-                 : (bhit && !is_leaf) ? __float_as_int(b.z) : __float_as_int(b.w);
+    node = next;
   }
   if (node >= 0) atomicAdd(truncated, 1);
   hit_out[r] = hit ? 1 : 0;
   if (!AnyHit) {
-    dist_out[r] = dist;
+    dist_out[r] = hit ? dist : 0.0f;
     leaf_out[r] = leaf;
   }
   if (steps_out != nullptr) steps_out[r] = it;

@@ -79,11 +79,13 @@ def test_scene_from_numpy_takes_jax_scene():
 
 def test_carry_across_functions_default_to_the_card(tmp_path):
     """scene_from_numpy, materials_from_numpy, camera_from_numpy,
-    bvh_from_numpy, Camera.default and the scene constructors
-    (random_triangles, sphere_grid, load_obj) put their tensors on the CUDA
-    device unless asked for another: without one they raise rather than
-    return CPU tensors.  With device="cpu" they equal the JAX arrays
-    exactly."""
+    bvh_from_numpy, Camera.default, the scene constructors
+    (random_triangles, sphere_grid, load_obj) and reference_rays put their
+    tensors on the CUDA device unless asked for another: without one they
+    raise rather than return CPU tensors.  With device="cpu" they equal
+    the JAX arrays exactly."""
+    from raytracebvh_tpu.camera import reference_rays as j_reference_rays
+    from raytracebvh_tpu_torch.camera import reference_rays
     from raytracebvh_tpu_torch.core import types as tt
     from raytracebvh_tpu_torch.io.obj import load_obj
 
@@ -102,7 +104,8 @@ def test_carry_across_functions_default_to_the_card(tmp_path):
              "random_triangles": lambda **kw: t_proc.random_triangles(
                  20, seed=1, **kw),
              "sphere_grid": lambda **kw: t_proc.sphere_grid(1, 1, 2, **kw),
-             "load_obj": lambda **kw: load_obj(str(obj), **kw)}
+             "load_obj": lambda **kw: load_obj(str(obj), **kw),
+             "reference_rays": lambda **kw: reference_rays(16, 8, 4.0, **kw)}
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()
@@ -119,6 +122,11 @@ def test_carry_across_functions_default_to_the_card(tmp_path):
         for f in ("eye", "at", "up", "fov", "near", "far"):
             np.testing.assert_array_equal(np.asarray(getattr(jcam, f)),
                                           getattr(tcam, f).numpy(), f)
+    jr, tr = j_reference_rays(16, 8, 4.0), reference_rays(16, 8, 4.0,
+                                                          device="cpu")
+    for f in ("origin", "direction"):
+        np.testing.assert_array_equal(np.asarray(getattr(jr, f)),
+                                      getattr(tr, f).numpy(), f)
     tb = tt.bvh_from_numpy(jb, device="cpu")
     for f in BVH_FIELDS:
         np.testing.assert_array_equal(_np(getattr(jb, f)),

@@ -62,7 +62,7 @@ def test_camera_from_numpy_and_transforms():
 @pytest.mark.parametrize("w,h,scale", [(48, 32, 4.0), (33, 17, 256.0)])
 def test_reference_and_perspective_rays(w, h, scale):
     jr = j_cam.reference_rays(w, h, scale)
-    tr = t_cam.reference_rays(w, h, scale)
+    tr = t_cam.reference_rays(w, h, scale, device="cpu")
     np.testing.assert_array_equal(tr.origin.numpy(), np.asarray(jr.origin))
     np.testing.assert_array_equal(tr.direction.numpy(),
                                   np.asarray(jr.direction))
@@ -88,7 +88,8 @@ def test_tile_untile_equal(order):
     back = t_cam.untile_flat(tiled, w, h, th, tw, order)
     np.testing.assert_array_equal(back.numpy(), x)
     jr = j_cam.tile_rays(j_cam.reference_rays(w, h, 4.0), w, h, th, tw, order)
-    tr = t_cam.tile_rays(t_cam.reference_rays(w, h, 4.0), w, h, th, tw, order)
+    tr = t_cam.tile_rays(t_cam.reference_rays(w, h, 4.0, device="cpu"), w, h,
+                           th, tw, order)
     np.testing.assert_array_equal(tr.origin.numpy(), np.asarray(jr.origin))
 
 
@@ -100,7 +101,7 @@ def test_tile_order_and_permute_equal():
     np.testing.assert_array_equal(tp, jp)
     np.testing.assert_array_equal(ti, ji)
     jr = j_cam.permute_rays(j_cam.reference_rays(w, h, 2.0), jnp.asarray(jp))
-    tr = t_cam.permute_rays(t_cam.reference_rays(w, h, 2.0), tp)
+    tr = t_cam.permute_rays(t_cam.reference_rays(w, h, 2.0, device="cpu"), tp)
     np.testing.assert_array_equal(tr.origin.numpy(), np.asarray(jr.origin))
 
 

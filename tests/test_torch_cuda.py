@@ -8,8 +8,9 @@ package).  On a GPU machine, which need not have JAX:
 
 Tolerances: K2 and K7 exact; K1 and K5 hit and leaf exact, distance
 exact; K4's and K6's occlusion flags exact, K4's with max_t one ulp around
-hit distances included (the kernels are built with -fmad=false and IEEE
-division, so they round as the plain versions' separate PyTorch ops do);
+hit distances included; the walks' step counts exact (the kernels are
+built with -fmad=false and IEEE division, so they round as the plain
+versions' separate PyTorch ops do);
 K8's (sorted_codes, order) exact against torch.sort(stable=True) and its
 plain network, at every size and on every input.  K3 sums blocks in float64
 and adds them in fixed point: it is held to the float64 sum within 1e-6 of
@@ -20,6 +21,8 @@ coherent and random ids and on every ray into one row.
 import numpy as np
 import pytest
 import torch
+
+from walk_edge_rays import corner_edge_rays
 
 pytestmark = pytest.mark.gpu
 
@@ -75,29 +78,78 @@ def _assert_same(got, want):
     assert torch.equal(got.distance, want.distance)
 
 
-def test_k1_matches_plain_random_rays(dev):
+def _launch_rays(dev, bvh, case, seed, any_hit=False):
+    """(rays, max_t) of one launch: ``case`` random rays and random max_t,
+    or 'mixed': 2 304 rays whose lanes take turns at a dead ray (origin
+    1e30, one step), a short walk (at most 5 steps) and a long one (100
+    steps or more) of the nearest-hit walk, or of the any-hit walk with
+    ``any_hit``, so every warp holds all three."""
+    from raytracebvh_tpu_torch.core.types import Rays
+    from raytracebvh_tpu_torch.ops import traverse
+
+    if case != "mixed":
+        return _rays(dev, case, seed), _max_t(dev, case, seed + 1)
+    pool, max_t = _rays(dev, 20000, seed), _max_t(dev, 20000, seed + 1)
+    if any_hit:
+        steps = traverse.traverse_any(bvh, pool, 0.01, max_t,
+                                      return_steps=True)[1]
+    else:
+        steps = traverse.traverse(bvh, pool, 0.01, return_steps=True)[1]
+    short = (steps <= 5).nonzero().squeeze(1)[:768]
+    long = (steps >= 100).nonzero().squeeze(1)[:768]
+    assert short.numel() == long.numel() == 768
+    idx = torch.stack([short, short, long], 1).reshape(-1)
+    o = pool.origin[idx].clone()
+    o[::3] = 1.0e30
+    return (Rays(o.contiguous(), pool.direction[idx].contiguous()),
+            max_t[idx].contiguous())
+
+
+def _check_mixed(case, wsteps):
+    """The mixed launch's lanes walk as _launch_rays chose them."""
+    if case == "mixed":
+        assert int(wsteps[0::3].max()) == 1
+        assert int(wsteps[1::3].max()) <= 5 and int(wsteps[2::3].min()) >= 100
+
+
+# launch sizes: one ray, a warp less and more one ray, a 1080p frame and
+# one ray more, and lanes of dead, short and long walks in every warp
+LAUNCHES = [20000, 1, 31, 33, 2073601, "mixed"]
+
+
+@pytest.mark.parametrize("case", LAUNCHES)
+def test_k1_matches_plain_random_rays(dev, case):
     from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
 
     bvh = _bvh(dev)
-    rays = _rays(dev, 20000, 1)
+    rays = _launch_rays(dev, bvh, case, 1)[0]
+    traverse_cuda.reset_truncated()
     before = traverse_cuda.launches
     got, steps = traverse_cuda.traverse(bvh, rays, 0.01, return_steps=True)
     want, wsteps = traverse.traverse(bvh, rays, 0.01, return_steps=True)
     assert traverse_cuda.launches == before + 1
-    assert 0 < int(want.hit.sum()) < rays.origin.shape[0]
+    nrays = rays.origin.shape[0]
+    if nrays >= 1000:
+        assert 0 < int(want.hit.sum()) < nrays
     _assert_same(got, want)
     assert torch.equal(steps, wsteps)
+    assert traverse_cuda.truncated_rays() == 0
+    _check_mixed(case, wsteps)
 
 
-def test_k1_on_plane_rays_miss_like_plain(dev):
-    """direction (0, 0, 1) and origins exactly on box planes: the slab
-    test meets 0 * inf = NaN and must miss, as torch.minimum does."""
+def _slab_zero_rays(dev, bvh, kind, seed):
+    """Rays whose slab test meets distances of exactly 0: 'plane',
+    direction (0, 0, 1) from origins exactly on an x or y plane of a box
+    (0 * inf = NaN, and the box must be missed, as torch.minimum does),
+    or corner_edge_rays' 'corner' and 'edge'."""
     from raytracebvh_tpu_torch.core.types import Rays
-    from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
 
-    bvh = _bvh(dev, 500, 2)
+    if kind != "plane":
+        o, d = corner_edge_rays(bvh.bbmin.cpu().numpy(),
+                                bvh.bbmax.cpu().numpy(), 4096, seed, kind)
+        return Rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
     n = bvh.n_leaves
-    gen = torch.Generator(device="cpu").manual_seed(3)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     nodes = torch.randint(0, 2 * n - 1, (4096,), generator=gen).to(dev)
     lo, hi = bvh.bbmin[nodes], bvh.bbmax[nodes]
     o = 0.5 * (lo + hi)
@@ -106,9 +158,26 @@ def test_k1_on_plane_rays_miss_like_plain(dev):
     o[:, 2] = lo[:, 2] - 1.0
     o = torch.where(torch.isfinite(o), o, 0.0).contiguous()
     d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(o).contiguous()
-    rays = Rays(o, d)
-    _assert_same(traverse_cuda.traverse(bvh, rays, 0.01),
-                 traverse.traverse(bvh, rays, 0.01))
+    return Rays(o, d)
+
+
+SLAB_ZERO = ["plane", "corner", "edge"]
+
+
+@pytest.mark.parametrize("kind", SLAB_ZERO)
+def test_k1_on_plane_rays_miss_like_plain(dev, kind):
+    """Origins on box planes, corners and edges (_slab_zero_rays): hit,
+    leaf, distance and steps equal to the plain walk's."""
+    from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
+
+    bvh = _bvh(dev, 500, 2)
+    rays = _slab_zero_rays(dev, bvh, kind, 3)
+    got, steps = traverse_cuda.traverse(bvh, rays, 0.01, return_steps=True)
+    want, wsteps = traverse.traverse(bvh, rays, 0.01, return_steps=True)
+    _assert_same(got, want)
+    assert torch.equal(steps, wsteps)
+    if kind != "plane":
+        assert 0 < int(want.hit.sum()) < rays.origin.shape[0]
 
 
 def test_k1_step_cap_counts_truncated_rays(dev):
@@ -132,14 +201,15 @@ def _max_t(dev, nrays, seed, lo=5.0, hi=300.0):
     return torch.from_numpy(rng.uniform(lo, hi, nrays).astype(np.float32)).to(dev)
 
 
-def test_k4_matches_plain_random_rays(dev):
+@pytest.mark.parametrize("case", LAUNCHES)
+def test_k4_matches_plain_random_rays(dev, case):
     """Random max_t, and max_t one ulp above, at, and one ulp below each
-    ray's nearest hit distance."""
+    ray's nearest hit distance, on every launch size of LAUNCHES."""
     from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
 
     bvh = _bvh(dev)
-    rays = _rays(dev, 20000, 5)
-    max_t = _max_t(dev, 20000, 6)
+    rays, max_t = _launch_rays(dev, bvh, case, 5, any_hit=True)
+    nrays = rays.origin.shape[0]
     traverse_cuda.reset_truncated()
     before = traverse_cuda.any_launches
     got, steps = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t,
@@ -147,9 +217,11 @@ def test_k4_matches_plain_random_rays(dev):
     want, wsteps = traverse.traverse_any(bvh, rays, 0.01, max_t,
                                          return_steps=True)
     assert traverse_cuda.any_launches == before + 1
-    assert 0 < int(want.sum()) < rays.origin.shape[0]
+    if nrays >= 1000:
+        assert 0 < int(want.sum()) < nrays
     assert torch.equal(got, want)
     assert torch.equal(steps, wsteps)
+    _check_mixed(case, wsteps)
     rec = traverse.traverse(bvh, rays, 0.01)
     t = torch.where(rec.hit, rec.distance, 100.0)
     for m in (torch.nextafter(t, torch.full_like(t, float("inf"))), t,
@@ -159,28 +231,21 @@ def test_k4_matches_plain_random_rays(dev):
     assert traverse_cuda.truncated_rays() == 0
 
 
-def test_k4_on_plane_rays_match_plain(dev):
-    """direction (0, 0, 1) and origins exactly on box planes: the slab
-    test meets 0 * inf = NaN and must miss, as torch.minimum does."""
-    from raytracebvh_tpu_torch.core.types import Rays
+@pytest.mark.parametrize("kind", SLAB_ZERO)
+def test_k4_on_plane_rays_match_plain(dev, kind):
+    """Origins on box planes, corners and edges (_slab_zero_rays):
+    occlusion and steps equal to the plain walk's."""
     from raytracebvh_tpu_torch.ops import traverse, traverse_cuda
 
     bvh = _bvh(dev, 500, 2)
-    n = bvh.n_leaves
-    gen = torch.Generator(device="cpu").manual_seed(7)
-    nodes = torch.randint(0, 2 * n - 1, (4096,), generator=gen).to(dev)
-    lo, hi = bvh.bbmin[nodes], bvh.bbmax[nodes]
-    o = 0.5 * (lo + hi)
-    o[:2048, 0] = lo[:2048, 0]
-    o[2048:, 1] = hi[2048:, 1]
-    o[:, 2] = lo[:, 2] - 1.0
-    o = torch.where(torch.isfinite(o), o, 0.0).contiguous()
-    d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(o).contiguous()
-    rays = Rays(o, d)
+    rays = _slab_zero_rays(dev, bvh, kind, 7)
     max_t = torch.full((4096,), 1e3, device=dev)
-    got = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t)
-    want = traverse.traverse_any(bvh, rays, 0.01, max_t)
+    got, steps = traverse_cuda.traverse_any(bvh, rays, 0.01, max_t,
+                                            return_steps=True)
+    want, wsteps = traverse.traverse_any(bvh, rays, 0.01, max_t,
+                                         return_steps=True)
     assert torch.equal(got, want)
+    assert torch.equal(steps, wsteps)
     assert bool(want.any())
 
 
@@ -428,25 +493,19 @@ def test_k5_k6_match_plain_random_and_dead_rays(dev):
     assert int(wsteps[::4].max()) == 1  # dead rays miss the root
 
 
-def test_k5_k6_on_plane_rays_match_plain(dev):
-    """Axis-parallel rays with origins on box planes (0 * inf = NaN)."""
-    from raytracebvh_tpu_torch.core.types import Rays
+@pytest.mark.parametrize("kind", SLAB_ZERO)
+def test_k5_k6_on_plane_rays_match_plain(dev, kind):
+    """Origins on box planes, corners and edges (_slab_zero_rays): K5 and
+    K6 run the same walk as K1 and K4."""
     from raytracebvh_tpu_torch.ops import traverse, traverse_shared_cuda
 
     bvh = _bvh(dev, 500, 2)
-    n = bvh.n_leaves
-    gen = torch.Generator(device="cpu").manual_seed(23)
-    nodes = torch.randint(0, 2 * n - 1, (4096,), generator=gen).to(dev)
-    lo, hi = bvh.bbmin[nodes], bvh.bbmax[nodes]
-    o = 0.5 * (lo + hi)
-    o[:2048, 0] = lo[:2048, 0]
-    o[2048:, 1] = hi[2048:, 1]
-    o[:, 2] = lo[:, 2] - 1.0
-    o = torch.where(torch.isfinite(o), o, 0.0).contiguous()
-    d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(o).contiguous()
-    rays = Rays(o, d)
-    _assert_same(traverse_shared_cuda.traverse(bvh, rays, 0.01),
-                 traverse.traverse(bvh, rays, 0.01))
+    rays = _slab_zero_rays(dev, bvh, kind, 23)
+    got, steps = traverse_shared_cuda.traverse(bvh, rays, 0.01,
+                                               return_steps=True)
+    want, wsteps = traverse.traverse(bvh, rays, 0.01, return_steps=True)
+    _assert_same(got, want)
+    assert torch.equal(steps, wsteps)
     max_t = torch.full((4096,), 1e3, device=dev)
     want = traverse.traverse_any(bvh, rays, 0.01, max_t)
     assert bool(want.any())

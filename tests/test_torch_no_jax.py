@@ -8,7 +8,11 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|flax|raytracebvh_tpu)\b", re.MULTILINE)
 
 SCRIPT = """
 import sys
@@ -59,11 +63,17 @@ def test_port_runs_without_jax():
 
 
 def test_no_module_imports_jax():
-    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|raytracebvh_tpu)\b",
-                     re.MULTILINE)
     pkg = os.path.join(ROOT, "raytracebvh_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
-                    assert not bad.search(fh.read()), f
+                    assert not JAX_IMPORT.search(fh.read()), f
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_frames.py",
+                                    "walk_sass.py"])
+def test_chip_scripts_import_no_jax(script):
+    """The scripts run on the GPU machine, which has no JAX."""
+    with open(os.path.join(ROOT, script)) as fh:
+        assert not JAX_IMPORT.search(fh.read()), script

@@ -21,11 +21,14 @@ from raytracebvh_tpu.core.types import Rays as JRays
 from raytracebvh_tpu.core.types import scene_to_device
 from raytracebvh_tpu.models.procedural import random_triangles
 from raytracebvh_tpu.ops.traverse import traverse as j_traverse
+from raytracebvh_tpu.ops.traverse import traverse_any as j_traverse_any
 from raytracebvh_tpu.ops.traverse_hbm import traverse_hbm_pallas
 from raytracebvh_tpu.pipeline import build_bvh as j_build_bvh
 from raytracebvh_tpu_torch.core.types import Rays, bvh_from_numpy
 from raytracebvh_tpu_torch.ops import traverse as t_traverse
 from raytracebvh_tpu_torch.ops import traverse_cuda
+
+from walk_edge_rays import corner_edge_rays
 
 EPS = 0.01
 
@@ -115,6 +118,54 @@ def test_on_plane_rays_miss_like_jax():
     k1 = traverse_hbm_pallas(jb, jr, EPS, win=256, block_rays=256,
                              interpret=True)
     _assert_records_equal(got, k1, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("walk", ["nearest", "any"])
+@pytest.mark.parametrize("kind", ["corner", "edge"])
+def test_corner_and_edge_rays_like_jax(kind, walk):
+    """Origins on box corners and edges, directions of both signs on each
+    axis, a third of them axis-parallel (corner_edge_rays): the slab test
+    meets distances of exactly +0 and -0 and 0 * inf = NaN, where
+    NaN-propagating min/max in one form or another could part.  The plain
+    traverse (records) and traverse_any (flags, max_t far beyond every hit
+    and 1e-4 (relative) on either side of each ray's nearest hit) against
+    the jitted JAX walks.  Distances within rtol 1e-6 and atol 1e-6: an
+    origin on a box corner can sit next to a triangle, where the distance
+    is small and its numerator a difference of products near 1; an FMA
+    that XLA contracts there moves it by an ulp of those products, not of
+    the distance (measured: 2.2e-7 on a distance of 0.15)."""
+    jb = _jax_bvh(300, 12)
+    tb = bvh_from_numpy(jb, "cpu")
+    origin, direction = corner_edge_rays(np.asarray(jb.bbmin),
+                                         np.asarray(jb.bbmax), 768,
+                                         13 if kind == "corner" else 14, kind)
+    jr, tr = _both(origin, direction)
+    t = (tb.bbmin[None] - tr.origin[:, None]) * tr.inv_direction[:, None]
+    zero = t == 0
+    assert torch.isnan(t).any()
+    assert (zero & torch.signbit(t)).any() and (zero & ~torch.signbit(t)).any()
+    rec = t_traverse.traverse(tb, tr, EPS)
+    hit = rec.hit.numpy()
+    assert hit.any() and not hit.all()
+    if walk == "nearest":
+        want = jax.jit(lambda b, r: j_traverse(b, r, EPS))(jb, jr)
+        _assert_records_equal(rec, want, rtol=1e-6, atol=1e-6)
+        return
+    far = np.full(768, 1e3, np.float32)
+    t_hit = rec.distance.numpy()
+    above = np.where(hit, t_hit * np.float32(1 + 1e-4), far).astype(np.float32)
+    below = np.where(hit, t_hit * np.float32(1 - 1e-4), far).astype(np.float32)
+    any_jit = jax.jit(lambda b, r, mt: j_traverse_any(b, r, EPS, mt))
+    for m in (far, above, below):
+        want = np.asarray(any_jit(jb, jr, jnp.asarray(m)))
+        got = t_traverse.traverse_any(tb, tr, EPS, torch.from_numpy(m))
+        np.testing.assert_array_equal(got.numpy(), want)
+        if m is far:
+            assert want.any() and not want.all()
+        elif m is above:  # occluded exactly where a nearest hit lies below
+            np.testing.assert_array_equal(want, hit)
+        else:
+            assert not want.any()
 
 
 def test_steps_and_cap():
