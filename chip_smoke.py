@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels K1-K8, holds each against its
-plain PyTorch version at the main path's shapes, renders eight 1920x1080
-frames through ``render_frame`` (forward, shadowed, refractive, and the
-small-scene on-chip configuration), runs the inverse-rendering training
-step at 1920x1080 on three frames, and runs the render CLI.
+plain PyTorch version at the main path's shapes, renders nine 1920x1080
+frames through ``render_frame`` (forward, shadowed, refractive, the
+small-scene on-chip configuration and bfloat16), runs the
+inverse-rendering training step at 1920x1080 on three frames, and runs
+the render, train and profile CLIs, the depth reference image and the
+native asset loader.
 
     python3 chip_smoke.py
 
@@ -33,7 +35,9 @@ Phases (one line of output each, or more):
      at three tree sizes and on a sparse chunk, also as device time, and
      the staging alone (K1 beside it: launch and ray I/O)
   4. main path: the dense, sparse and large frames, then dense_shadows,
-     sparse_shadows, large_shadows, refract and dense_onchip; every
+     sparse_shadows, large_shadows, refract, dense_onchip and dense_bf16
+     (the dense frame in bfloat16, held to the plain path given its
+     kernels' float32 casts); every
      kernel's launch count over each frame (counts set to 0 just before
      it, read just after); frame ms and Mrays/s (median of 5 after one
      warm-up); each image but sparse's and large's against the
@@ -48,6 +52,25 @@ Phases (one line of output each, or more):
   6. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
      the 3 072-triangle scene, plain and with --shadows --refract; its
      default backend runs K5 (and K6) there
+  7. train cli: raytracebvh_tpu_torch.cli.train at 1920x1080 on that OBJ
+     with --self-target: two uninterrupted 4-step runs with checkpoints
+     every 2 steps, and a 2-step run resumed to 4 from its checkpoint;
+     K5, K2 and K3 (twice a step) launched, never K1/K4; losses finite and
+     falling; the resumed run's final leaves equal the uninterrupted
+     run's within the spread of the two uninterrupted runs (bit for bit
+     where they agree bit for bit); steps/s, the checkpoint's size, and
+     its save and restore ms
+  8. profile cli: raytracebvh_tpu_torch.cli.profile at 1920x1080 on that
+     OBJ and on an OBJ of the large scene (read by the native loader),
+     with --sort lax and --sort bitonic (K8 in the sort stage), 20 calls a
+     stage: the stage tables, every stage finite and positive, the build
+     within the frame;
+     a Chrome trace (--trace) that names K5, K2 and K8
+  9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
+     the 3 072-triangle scene through the traversal dispatch (K5), byte
+     for byte against the plain walk's on the card; io.obj.load_obj's
+     native loader bit for bit against the Python one on both OBJs, with
+     their seconds
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -56,7 +79,9 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -130,6 +155,8 @@ def frames_on(device):
     3 072-leaf tree, as the TPU's 'auto' took 'pallas'; the large frames'
     102 400 leaves resolve to K1/K4.  dense_onchip is the dense frame with
     shadows through K5/K6, K7 and K8 ('shared', 'shared', 'bitonic').
+    dense_bf16 is the dense frame in bfloat16: its wrappers cast rays to
+    float32 and gather the bfloat16 leaf table as float32.
 
     The dense frames keep the bench's dense config but frame one sphere:
     its ortho_scale=256 was set for Image_Test.obj, and on the fallback
@@ -162,6 +189,7 @@ def frames_on(device):
             enable_refraction=True)),
         "dense_onchip": (small, aimed, onchip(dense.replace(
             enable_shadows=True))),
+        "dense_bf16": (small, aimed, dense.replace(dtype="bfloat16")),
     }
 
 
@@ -267,6 +295,53 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.inner)
+
+
+class Swap:
+    """Sets ``module.name`` to ``value`` for the block."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.old)
+
+
+def float32_walk(walk):
+    """The plain walk ``walk`` given the kernels' casts (their wrappers'
+    ``as_float32``): the rays, max_t and the tree's boxes and triangles in
+    float32."""
+    from raytracebvh_tpu_torch.core.types import Rays
+
+    f32 = torch.float32
+
+    def run(bvh, rays, epsilon, *args, **kw):
+        bvh = bvh.replace(bbmin=bvh.bbmin.to(f32), bbmax=bvh.bbmax.to(f32),
+                          tri_verts=bvh.tri_verts.to(f32))
+        rays = Rays(rays.origin.to(f32), rays.direction.to(f32))
+        args = tuple(a.to(f32) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        return walk(bvh, rays, epsilon, *args, **kw)
+    return run
+
+
+def plain_walks_like_kernels():
+    """The plain walks, for the block, with the kernels' float32 casts:
+    the plain path of a bfloat16 frame given the same casts."""
+    from contextlib import ExitStack
+
+    from raytracebvh_tpu_torch.ops import traverse as plain_ops
+
+    stack = ExitStack()
+    for name in ("traverse", "traverse_any"):
+        stack.enter_context(Swap(plain_ops, name,
+                                 float32_walk(getattr(plain_ops, name))))
+    return stack
 
 
 def capture(scene, cam, cfg):
@@ -1106,9 +1181,12 @@ def phase_main_path(frames):
     check(ndiff == 0, f"dense_onchip: {ndiff} pixels differ from K1/K4/K2/lax")
 
     for name in ("dense", "dense_shadows", "sparse_shadows", "large_shadows",
-                 "refract", "dense_onchip"):
+                 "refract", "dense_onchip", "dense_bf16"):
         scene, cam, cfg = frames[name]
-        with torch.inference_mode():
+        # dense_bf16's plain path takes the casts its kernels' wrappers make
+        casts = (plain_walks_like_kernels() if cfg.dtype == "bfloat16"
+                 else contextlib.nullcontext())
+        with torch.inference_mode(), casts:
             t0 = time.perf_counter()
             ref = render_frame(scene, cam, plain(cfg))
             torch.cuda.synchronize()
@@ -1254,12 +1332,11 @@ def write_obj_scene(scene, directory):
     return path
 
 
-def phase_cli(scene, device):
+def phase_cli(obj, device):
     from raytracebvh_tpu_torch.cli import render as cli
     from raytracebvh_tpu_torch.io.bmp import read_bmp
 
     with tempfile.TemporaryDirectory() as tmp:
-        obj = write_obj_scene(scene, tmp)
         for extra in ([], ["--shadows", "--refract"]):
             out = os.path.join(tmp, "out.bmp")
             t0 = time.perf_counter()
@@ -1286,6 +1363,221 @@ def phase_cli(scene, device):
             check(img.shape == (H, W, 3), f"cli image shape {img.shape}")
 
 
+def run_cli(module, argv):
+    """``module.main(argv)`` in this process with every launch count set
+    to 0 just before it: (exit code, printed lines, counts read just
+    after, seconds)."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().splitlines(), read_counts(), \
+        time.perf_counter() - t0
+
+
+def npz_leaves(path):
+    with np.load(path) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+
+def phase_train_cli(obj, device):
+    """cli.train at 1920x1080 on the OBJ, --self-target: two
+    uninterrupted 4-step runs (checkpoints every 2 steps), and a 2-step
+    run resumed to 4; returns the launch counts summed over the runs."""
+    from raytracebvh_tpu_torch.cli import train as cli
+    from raytracebvh_tpu_torch.io.obj import load_obj
+    from raytracebvh_tpu_torch.models.inverse import (adam_state, init_params,
+                                                      make_optimizer,
+                                                      optimizer_from_numpy,
+                                                      params_from_numpy)
+    from raytracebvh_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                        save_checkpoint)
+
+    totals = dict.fromkeys(KERNELS, 0)
+    common = ["--obj", obj, "--self-target", "--width", str(W), "--height",
+              str(H), "--log-every", "1", "--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = {k: os.path.join(tmp, f"{k}.npz") for k in ("A", "C", "B")}
+        runs = [("A", ["--steps", "4", "--ckpt-every", "2"], 4),
+                ("C", ["--steps", "4", "--ckpt-every", "2"], 4),
+                ("B", ["--steps", "2"], 2),
+                ("B", ["--steps", "4"], 2)]
+        for i, (name, args, trained) in enumerate(runs):
+            argv = common + args + ["--ckpt", ck[name]]
+            rc, lines, n, dt = run_cli(cli, argv)
+            what = f"train cli {name} {' '.join(args)}"
+            for line in lines:
+                log(f"  {what}: {line}")
+            log(f"  {what}: exit {rc} in {dt:.1f} s, launches {n}")
+            check(rc == 0, f"{what} exited {rc}")
+            # --backend auto on a 3 072-leaf tree: K5 (a walk a pass, two
+            # passes a render), K2, and K3 twice a step
+            check(n["K5"] > 0 and n["K1"] == n["K4"] == n["K6"] == 0,
+                  f"{what}: launches {n}, not K5 alone among the walks")
+            check(n["K2"] > 0, f"{what}: K2 was not launched")
+            check(n["K3"] == 2 * trained,
+                  f"{what}: {n['K3']} K3 launches for {trained} steps")
+            losses = [float(ln.split()[-1]) for ln in lines
+                      if ln.startswith("step ")]
+            check(len(losses) == trained and all(np.isfinite(losses)),
+                  f"{what}: losses {losses}")
+            if i == len(runs) - 1:
+                check(lines[0] == f"resumed from {ck[name]} at step 2",
+                      f"{what}: did not resume ({lines[0]!r})")
+            else:
+                check(losses[-1] < losses[0], f"{what}: losses {losses} "
+                      "did not fall")
+            rate = [ln for ln in lines if ln.startswith("trained ")]
+            check(len(rate) == 1, f"{what}: no steps/s line")
+            for k in totals:
+                totals[k] += n[k]
+        a, c, b = (npz_leaves(ck[k]) for k in ("A", "C", "B"))
+        check(len(a) == len(b) == len(c) == 11, "checkpoints of "
+              f"{len(a)}, {len(c)}, {len(b)} leaves, not 11")
+        spread = max(float(np.abs(x.astype(np.float64) - y).max())
+                     for x, y in zip(a, c))
+        resumed = max(float(np.abs(x.astype(np.float64) - y).max())
+                      for x, y in zip(a, b))
+        log(f"  train cli: two uninterrupted runs differ by at most "
+            f"{spread!r} (the tolerance of the resume check); the resumed "
+            f"run differs from the first by at most {resumed!r}")
+        check(resumed <= spread, f"train cli: resumed run {resumed} off the "
+              f"uninterrupted one, beyond the runs' own spread {spread}")
+        log(f"  train cli: checkpoint {os.path.getsize(ck['A'])} bytes, "
+            f"11 leaves")
+
+        # checkpoint save and restore on their own, the CLI's state tree
+        params = init_params(load_obj(obj, device=device))
+        like = (params, adam_state(make_optimizer(params), params), 0)
+        restore_ms, save_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            p_np, s_np, step = restore_checkpoint(ck["A"], like)
+            params = params_from_numpy(p_np, device)
+            opt = optimizer_from_numpy(params, s_np, 1e-2, device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "S.npz"),
+                            (params, adam_state(opt, params), step))
+            t2 = time.perf_counter()
+            restore_ms.append((t1 - t0) * 1e3)
+            save_ms.append((t2 - t1) * 1e3)
+        log(f"  train cli: checkpoint restore (to the card) "
+            f"{np.median(restore_ms):.3f} ms, save {np.median(save_ms):.3f} "
+            "ms (median of 5)")
+    log(f"  train cli launches: {totals}")
+    return totals
+
+
+STAGES = ["morton", "sort", "topology", "fit", "links", "build_total",
+          "trace_shade", "frame_total"]
+# what a Chrome trace of the small OBJ's frame (cli.profile --sort
+# bitonic --trace) must name: K5, K2 and K8's one-block route
+TRACE_KERNELS = ("traverse_shared_kernel", "gather_f32_kernel",
+                 "sort_tile_kernel")
+
+
+def phase_profile_cli(objs, device):
+    """cli.profile at 1920x1080 on the small OBJ and the large one (read
+    by the native loader), with the lax sort and with K8; the small one
+    with --trace.  Returns the launch counts summed over the runs."""
+    from raytracebvh_tpu_torch import native
+    from raytracebvh_tpu_torch.cli import profile as cli
+
+    check(native.available(), "the native library did not build")
+    totals = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, obj in objs.items():
+            for sort in ("lax", "bitonic"):
+                # 20 calls a stage: a host-bound stage's time moves by
+                # ~15% between runs, and the build must read within the
+                # frame
+                argv = ["--obj", obj, "--width", str(W), "--height", str(H),
+                        "--sort", sort, "--iters", "20", "--device", device]
+                traced = name == "small" and sort == "bitonic"
+                if traced:
+                    argv += ["--trace", os.path.join(tmp, "trace")]
+                with Recorder(native, "load_obj_native") as loader:
+                    rc, lines, n, dt = run_cli(cli, argv)
+                what = f"profile cli {name} --sort {sort}"
+                for line in lines:
+                    log(f"  {what}: {line}")
+                log(f"  {what}: exit {rc} in {dt:.1f} s, launches {n}")
+                check(rc == 0, f"{what} exited {rc}")
+                check(len(loader.results) == 1
+                      and loader.results[0] is not None,
+                      f"{what}: the OBJ was not read by the native loader")
+                ms = {ln.split()[0]: float(ln.split()[1]) for ln in lines[1:9]}
+                check(list(ms) == STAGES, f"{what}: stages {list(ms)}")
+                check(all(np.isfinite(v) and v > 0 for v in ms.values()),
+                      f"{what}: stage times {ms}")
+                check(ms["build_total"] <= ms["frame_total"],
+                      f"{what}: build {ms['build_total']} ms over the frame's "
+                      f"{ms['frame_total']} ms")
+                check((n["K8"] > 0) == (sort == "bitonic"),
+                      f"{what}: {n['K8']} K8 launches")
+                if traced:
+                    path = lines[-1].split("trace written to ", 1)[-1]
+                    with open(path) as f:
+                        names = {e.get("name", "") for e in
+                                 json.load(f)["traceEvents"]}
+                    found = {k: any(k in x for x in names)
+                             for k in TRACE_KERNELS}
+                    log(f"  {what}: trace {os.path.getsize(path)} bytes, "
+                        f"{len(names)} names, kernels {found}")
+                    check(all(found.values()),
+                          f"{what}: the trace lacks kernels: {found}")
+                for k in totals:
+                    totals[k] += n[k]
+    log(f"  profile cli launches: {totals}")
+    return totals
+
+
+def phase_depth_and_loader(objs, small, device):
+    """render_depth_bmp at 500x500 on the 3 072-triangle scene, through
+    the traversal dispatch and through the plain walk; the native loader
+    against the Python one on both OBJs.  Returns the depth image's
+    launch counts."""
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.io.obj import load_obj
+    from raytracebvh_tpu_torch.ref.refimage import MISS_RGB, render_depth_bmp
+
+    reset_counts()
+    img = render_depth_bmp(small, 500, 500, 1)
+    torch.cuda.synchronize()
+    n = read_counts()
+    with Swap(pipeline, "resolve_traversal_backend", lambda *a: "torch"):
+        ref = render_depth_bmp(small, 500, 500, 1)
+    hits = float((img != MISS_RGB).any(-1).mean())
+    ndiff = int((img != ref).any(-1).sum())
+    log(f"  depth image: {img.shape}, hit share {hits:.4f}, launches {n}, "
+        f"{ndiff} pixels differ from the plain walk's")
+    check(img.shape == (500, 500, 3) and hits > 0, "depth image: no hit")
+    check(n["K5"] + n["K1"] == 1 and n["K2"] == n["K3"] == 0,
+          f"depth image: launches {n}")
+    check(ndiff == 0, f"depth image: {ndiff} pixels off the plain walk's")
+    for name, obj in objs.items():
+        scenes, secs = {}, {}
+        for backend in ("native", "python"):
+            t0 = time.perf_counter()
+            scenes[backend] = load_obj(obj, backend=backend, device="cpu")
+            secs[backend] = time.perf_counter() - t0
+        a, b = scenes["native"], scenes["python"]
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+            "verts", "normals", "uv", "indices", "mat_index", "textures",
+            "tex_hw")) and all(
+            torch.equal(getattr(a.materials, f), getattr(b.materials, f))
+            for f in ("ambient", "diffuse", "specular", "shininess",
+                      "optical_density", "alpha", "tex_id"))
+        log(f"  load_obj {name} ({a.num_faces} triangles): native "
+            f"{secs['native']:.3f} s, python {secs['python']:.3f} s, "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        check(same, f"load_obj {name}: native and python scenes differ")
+    return n
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1293,7 +1585,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1301,7 +1593,7 @@ def main() -> int:
             capture_output=True, text=True, timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         smi = f"nvidia-smi unavailable ({e})"
-    log(f"phase 1 device: {name}; torch {torch.__version__}, CUDA "
+    log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -1317,6 +1609,14 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    def phase_done(k):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {k} took {now - t_phase:.1f} s")
+        t_phase = now
+
     try:
         frames = frames_on(dev)
         train = train_frames(frames)
@@ -1324,13 +1624,37 @@ def main() -> int:
         kern = phase_kernels(frames)
         kern["K3"] = phase_k3(train)
         kern.update(phase_onchip_kernels(frames))
+        phase_done(3)
         log("phase 4 main path:")
         launches = phase_main_path(frames)
+        phase_done(4)
         log("phase 5 training:")
         for k, v in phase_train(train).items():
             launches[k] += v
-        log("phase 6 cli:")
-        phase_cli(frames["refract"][0], dev.type)
+        phase_done(5)
+        with tempfile.TemporaryDirectory() as assets:
+            objs = {}
+            for which, scene in (("small", frames["refract"][0]),
+                                 ("large", frames["large"][0])):
+                os.mkdir(os.path.join(assets, which))
+                objs[which] = write_obj_scene(scene,
+                                              os.path.join(assets, which))
+            log("phase 6 cli:")
+            phase_cli(objs["small"], dev.type)
+            phase_done(6)
+            log("phase 7 train cli:")
+            for k, v in phase_train_cli(objs["small"], dev.type).items():
+                launches[k] += v
+            phase_done(7)
+            log("phase 8 profile cli:")
+            for k, v in phase_profile_cli(objs, dev.type).items():
+                launches[k] += v
+            phase_done(8)
+            log("phase 9 depth image and native loader:")
+            for k, v in phase_depth_and_loader(
+                    objs, frames["dense"][0], dev.type).items():
+                launches[k] += v
+            phase_done(9)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -1360,7 +1684,7 @@ def main() -> int:
              replaces=sources[k][1], launches=launches[k], **kern[k])
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -17,7 +17,6 @@ channel-major leaf gather K7.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 import time
@@ -89,6 +88,7 @@ def main(argv=None):
     from raytracebvh_tpu_torch.io.bmp import write_bmp
     from raytracebvh_tpu_torch.io.obj import load_obj
     from raytracebvh_tpu_torch.utils.assets import find_asset
+    from raytracebvh_tpu_torch.utils.logging import MetricsWriter
 
     device = args.device
     if device == "cuda" and not torch.cuda.is_available():
@@ -128,41 +128,33 @@ def main(argv=None):
     if args.metrics and not args.sync:
         print("note: --metrics implies --sync (per-frame timing)")
         args.sync = True
-    metrics = open(args.metrics, "a") if args.metrics else None
     img = None
     t0 = last_print = last_t = time.perf_counter()
     frames = 0
-    try:
-        with torch.inference_mode():
-            for i in range(args.frames):
-                img = render_frame(scene, cam, cfg)
-                frames += 1
-                if args.sync or args.frames == 1:
+    with MetricsWriter(args.metrics) as metrics, torch.inference_mode():
+        for i in range(args.frames):
+            img = render_frame(scene, cam, cfg)
+            frames += 1
+            if args.sync or args.frames == 1:
+                sync()
+                now = time.perf_counter()
+                metrics.write("frame", frame=i, ms=(now - last_t) * 1e3,
+                              mrays_per_sec=rays_per_frame
+                              / max(now - last_t, 1e-9) / 1e6)
+                last_t = now
+            else:
+                # pipelined: frames stay queued on the device, which runs
+                # them in order; a sync drains everything before
+                now = time.perf_counter()
+            if now - last_print >= 1.0:  # once-a-second FPS print
+                if not args.sync:
                     sync()
                     now = time.perf_counter()
-                    if metrics is not None:
-                        metrics.write(json.dumps(dict(
-                            ts=time.time(), event="frame", frame=i,
-                            ms=(now - last_t) * 1e3,
-                            mrays_per_sec=rays_per_frame
-                            / max(now - last_t, 1e-9) / 1e6)) + "\n")
-                    last_t = now
-                else:
-                    # pipelined: frames stay queued on the device, which
-                    # runs them in order; a sync drains everything before
-                    now = time.perf_counter()
-                if now - last_print >= 1.0:  # once-a-second FPS print
-                    if not args.sync:
-                        sync()
-                        now = time.perf_counter()
-                    print(f"FPS: {frames / (now - t0):.2f}")
-                    last_print = now
-                if args.frames > 1:
-                    cam = orbit(cam, args.orbit_yaw, 0.0)
-            sync()
-    finally:
-        if metrics is not None:
-            metrics.close()
+                print(f"FPS: {frames / (now - t0):.2f}")
+                last_print = now
+            if args.frames > 1:
+                cam = orbit(cam, args.orbit_yaw, 0.0)
+        sync()
     dt = time.perf_counter() - t0
     print(f"rendered {args.frames} frame(s) in {dt:.3f}s "
           f"({args.frames / dt:.2f} FPS)")

@@ -13,8 +13,9 @@ Differences (deliberate):
     replicate the bug (SURVEY.md Q8).
   * The v texture coordinate is flipped (1 - v) on import so sampling uses
     DirectX top-left texture space (see ops/shade.py).
-  * Parsed in pure numpy; the Scene's tensors are made on the device
-    asked for, the CUDA device by default.
+  * Parsed by the native loader (``native.py``) or in pure Python into
+    numpy arrays; the Scene's tensors are made on the device asked for,
+    the CUDA device by default.
 """
 
 from __future__ import annotations
@@ -97,17 +98,41 @@ def _resolve_index(i: int, count: int, what: str, path: str) -> int:
     return j
 
 
-def load_obj(path: str, load_textures: bool = True, device="cuda") -> Scene:
+def load_obj(path: str, load_textures: bool = True, backend: str = "auto",
+             device="cuda") -> Scene:
     """Parse an OBJ file into the port's Scene on ``device`` (the CUDA
     device unless the caller asks for another; without a card the default
-    raises); the pure-Python parser of the JAX package
-    (``io/obj.py:_load_obj_python``), which its native loader matches bit
-    for bit."""
-    return _load_obj_python(path, load_textures, device)
+    raises).
+
+    backend: 'auto' uses the native C++ loader (``native.py`` over
+    native/rtbvh_native.cpp) when its library builds, else the
+    pure-Python parser; 'native' requires it; 'python' forces the parser.
+    Both give the same bits on a file both take, as in the JAX package
+    (``io/obj.py``).  The native parser refuses some files the Python one
+    takes (relative, negative face indices): where it raises, 'auto'
+    parses the file in Python, which reads it or raises its own error.
+    """
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend {backend!r}; expected auto, "
+                         "native or python")
+    arrays = None
+    if backend in ("auto", "native"):
+        from .. import native
+
+        try:
+            arrays = native.load_obj_native(path, load_textures)
+        except OSError:
+            if backend == "native":
+                raise
+        if arrays is None and backend == "native":
+            raise RuntimeError("native loader unavailable (g++ missing?)")
+    if arrays is None:
+        arrays = _load_obj_python(path, load_textures)
+    return scene_from_numpy(arrays, device=device)
 
 
-def _load_obj_python(path: str, load_textures: bool = True,
-                     device="cuda") -> Scene:
+def _load_obj_python(path: str, load_textures: bool = True) -> dict:
+    """The pure-Python parser: the scene as a dict of numpy arrays."""
     positions: List[List[float]] = []
     normals: List[List[float]] = []
     uvs: List[List[float]] = []
@@ -212,7 +237,7 @@ def _load_obj_python(path: str, load_textures: bool = True,
         alpha=np.array([m.alpha for m in materials], np.float32),
         tex_id=np.array(tex_ids, np.int32),
     )
-    return scene_from_numpy(dict(
+    return dict(
         verts=verts_arr,
         normals=np.asarray(out_nrm, np.float32),
         uv=np.asarray(out_uv, np.float32),
@@ -221,4 +246,4 @@ def _load_obj_python(path: str, load_textures: bool = True,
         materials=mats,
         textures=tex_stack,
         tex_hw=tex_hw,
-    ), device=device)
+    )

@@ -8,6 +8,9 @@ shading re-evaluates each hit from its leaf-attribute row, whose gather
 (kernel K2 on CUDA tensors) has kernel K3 as its backward
 (``ops/gather_cuda``).  ``torch.optim.Adam`` with optax's defaults takes
 the place of ``optax.adam``: it updates the parameters in place.
+``adam_state`` and ``optimizer_from_numpy`` carry its state to and from
+optax's layout (``AdamState``), the one checkpoints hold
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,51 @@ def params_from_numpy(p, device="cuda") -> InverseParams:
     return InverseParams(*(
         _leaf(torch.as_tensor(np.array(getattr(p, f)), device=device))
         for f in InverseParams._fields))
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the step count and the two moments."""
+    count: object  # int32 scalar
+    mu: InverseParams
+    nu: InverseParams
+
+
+def adam_state(optimizer, params: InverseParams):
+    """The state of ``optimizer`` (``make_optimizer(params)``) in the
+    layout of ``optax.adam``'s state, ``(AdamState(count, mu, nu), ())``:
+    ``count`` is ``state['step']`` as an int32 scalar, ``mu`` and ``nu``
+    are ``exp_avg`` and ``exp_avg_sq`` (zeros, count 0, before the first
+    step).  The empty tuple stands for optax's ``EmptyState``: neither
+    holds a leaf."""
+    states = [optimizer.state.get(p, {}) for p in params]
+    count = np.int32(int(states[0]["step"]) if states[0] else 0)
+    mu, nu = (InverseParams(*(s[k].detach().clone() if s
+                              else torch.zeros_like(p.detach())
+                              for s, p in zip(states, params)))
+              for k in ("exp_avg", "exp_avg_sq"))
+    return AdamState(count=count, mu=mu, nu=nu), ()
+
+
+def optimizer_from_numpy(params: InverseParams, opt_state, lr: float = 1e-2,
+                         device="cuda"):
+    """``make_optimizer(params, lr)`` holding ``opt_state``, an
+    ``optax.adam`` state of host arrays (the JAX package's, or one
+    restored from a checkpoint): ``count`` becomes each parameter's
+    ``step``, ``mu`` its ``exp_avg`` and ``nu`` its ``exp_avg_sq``, made
+    on ``device`` (the CUDA device unless the caller asks for another;
+    without a card the default raises).  A fresh optimizer takes the
+    state through ``load_state_dict``."""
+    adam = opt_state[0]
+    optimizer = make_optimizer(params, lr)
+    step = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {
+        "step": torch.tensor(step, dtype=torch.float32),
+        "exp_avg": torch.as_tensor(np.array(m), device=device),
+        "exp_avg_sq": torch.as_tensor(np.array(v), device=device),
+    } for i, (m, v) in enumerate(zip(adam.mu, adam.nu))}
+    optimizer.load_state_dict(sd)
+    return optimizer
 
 
 def apply_params(params: InverseParams, scene: Scene) -> Scene:

@@ -75,10 +75,14 @@ def gather_cols(tbl, idx):
     """K7: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors.  ``tbl`` is a contiguous [C, width] float32 table, ``idx`` a
     contiguous [R] int32 tensor on the same device.  Returns [C, R]
-    float32.  On CUDA the table's gradient is kernel K3."""
+    float32.  On CUDA the table's gradient is kernel K3.  A bfloat16 or
+    float16 table goes through the kernel as float32 (an exact cast) and
+    returns its own dtype, as ``gather_cuda.gather_rows`` does."""
     if tbl.device.type == "cpu" and idx.device.type == "cpu":
         return gather_cols_torch(tbl, idx)
     if tbl.device.type != "cuda" or idx.device != tbl.device:
         raise ValueError(
             f"gather_cols: table on {tbl.device}, indices on {idx.device}")
+    if tbl.dtype in gather_cuda.HALF_FLOATS:
+        return _GatherCols.apply(tbl.float(), idx).to(tbl.dtype)
     return _GatherCols.apply(tbl, idx)

@@ -31,6 +31,9 @@ from .. import _kernels
 from .ieee import div
 
 launches = 0  # K2 launches (chip_smoke.py checks the main path reaches it)
+# tables of these dtypes go through the float32 kernels, exactly, and the
+# result comes back in the table's dtype, as the JAX gathers return it
+HALF_FLOATS = (torch.bfloat16, torch.float16)
 scatter_launches = 0  # K3 launches
 
 
@@ -112,12 +115,17 @@ def gather_rows(tbl, idx):
     tensors.  ``tbl`` is a contiguous [rows, C] float32 table (C a
     multiple of 4) or uint8 table (C a multiple of 16); ``idx`` a
     contiguous [R] int32 tensor on the same device.  Returns [C, R]
-    float32.  On CUDA a float32 table's gradient is kernel K3."""
+    float32.  On CUDA a float32 table's gradient is kernel K3.  A
+    bfloat16 or float16 table is gathered as float32 (an exact cast) and
+    returns [C, R] in its own dtype, as the JAX gather does; its gradient
+    is K3's float32 sum, rounded once to that dtype."""
     if tbl.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_torch(tbl, idx)
     if tbl.device.type != "cuda" or idx.device != tbl.device:
         raise ValueError(
             f"gather_rows: table on {tbl.device}, indices on {idx.device}")
+    if tbl.dtype in HALF_FLOATS:
+        return _GatherRows.apply(tbl.float(), idx).to(tbl.dtype)
     return _GatherRows.apply(tbl, idx)
 
 

@@ -62,20 +62,31 @@ def with_tables(bvh: BVH) -> BVH:
     return bvh.replace(node_table=nodes, leaf_table=leaves)
 
 
+def as_float32(t: torch.Tensor, what: str, name: str) -> torch.Tensor:
+    """``t`` in float32, the kernels' type: float32 as it is, bfloat16 and
+    float16 cast exactly, as the JAX kernels cast their rays and max_t
+    (``traverse_hbm.py:604-608``, ``traverse_pallas.py:345-353``).  Any
+    other dtype raises."""
+    if t.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"{what}: {name} must be float32 (or bfloat16 / "
+                         f"float16, cast to it); got {t.dtype}")
+    return t.to(torch.float32)
+
+
 def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
-    """Check the rays and tables a launch reads; (bvh with its tables,
-    per-ray step cap, truncation counter)."""
-    origin, direction = rays.origin, rays.direction
-    dev = origin.device
-    if dev.type != "cuda" or direction.device != dev:
-        raise ValueError(f"{what}: rays on {origin.device} and "
-                         f"{direction.device}")
-    for name, t in (("origin", origin), ("direction", direction)):
-        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 3
-                or not t.is_contiguous()):
+    """Check the rays and tables a launch reads; (float32 rays, bvh with
+    its tables, per-ray step cap, truncation counter)."""
+    dev = rays.origin.device
+    if dev.type != "cuda" or rays.direction.device != dev:
+        raise ValueError(f"{what}: rays on {rays.origin.device} and "
+                         f"{rays.direction.device}")
+    rays = Rays(origin=as_float32(rays.origin, what, "origin"),
+                direction=as_float32(rays.direction, what, "direction"))
+    for name, t in (("origin", rays.origin), ("direction", rays.direction)):
+        if t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous [R, 3] "
-                             f"float32 tensor; got {t.dtype} {tuple(t.shape)}")
-    if origin.shape != direction.shape:
+                             f"tensor; got {tuple(t.shape)}")
+    if rays.origin.shape != rays.direction.shape:
         raise ValueError(f"{what}: origin and direction shapes differ")
     bvh = with_tables(bvh)
     n = bvh.n_leaves
@@ -93,7 +104,7 @@ def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
         # may zero it in place
         with torch.inference_mode(False):
             _truncated[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return bvh, (max_steps if max_steps > 0 else 4 * n), _truncated[dev]
+    return rays, bvh, (max_steps if max_steps > 0 else 4 * n), _truncated[dev]
 
 
 def launch_nearest(c_fn: str, what: str, bvh: BVH, rays: Rays,
@@ -102,8 +113,8 @@ def launch_nearest(c_fn: str, what: str, bvh: BVH, rays: Rays,
     """Launch a nearest-hit walk kernel (``c_fn``: K1's, or K5's with the
     same arguments and ``extra`` before the stream) on CUDA rays:
     (the wrapper's result, whether a kernel was launched)."""
+    rays, bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     origin, direction = rays.origin, rays.direction
-    bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     dev = origin.device
     nrays = origin.shape[0]
     hit = torch.empty(nrays, dtype=torch.bool, device=dev)
@@ -131,16 +142,16 @@ def launch_any(c_fn: str, what: str, bvh: BVH, rays: Rays, epsilon: float,
     """Launch an any-hit walk kernel (``c_fn``: K4's, or K6's with the same
     arguments and ``extra`` before the stream) on CUDA rays: (the
     wrapper's result, whether a kernel was launched)."""
+    rays, bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     origin = rays.origin
-    bvh, max_steps, truncated = _prepare(bvh, rays, what, max_steps)
     dev = origin.device
     nrays = origin.shape[0]
     if (not isinstance(max_t, torch.Tensor) or max_t.device != dev
-            or max_t.dtype != torch.float32 or tuple(max_t.shape) != (nrays,)
-            or not max_t.is_contiguous()):
+            or tuple(max_t.shape) != (nrays,) or not max_t.is_contiguous()):
         raise ValueError(
             f"{what}: max_t must be a contiguous [{nrays}] float32 tensor "
             f"on {dev}")
+    max_t = as_float32(max_t, what, "max_t")
     occ = torch.empty(nrays, dtype=torch.bool, device=dev)
     steps = torch.empty(nrays, dtype=torch.int32, device=dev)
     out = (occ, steps) if return_steps else occ
@@ -161,6 +172,8 @@ def launch_any(c_fn: str, what: str, bvh: BVH, rays: Rays, epsilon: float,
 def traverse(bvh: BVH, rays: Rays, epsilon: float, max_steps: int = 0,
              return_steps: bool = False):
     """K1 for CUDA tensors, ``ops.traverse.traverse`` for CPU tensors.
+    On CUDA, bfloat16 or float16 rays are cast to float32 (``as_float32``)
+    and the distances come back in float32, as from the JAX kernel.
 
     ``max_steps`` caps each ray's walk (0 = 4n); a ray that reaches the
     cap keeps its best hit so far and adds one to ``truncated_rays()``.
@@ -179,7 +192,8 @@ def traverse_any(bvh: BVH, rays: Rays, epsilon: float, max_t,
                  max_steps: int = 0, return_steps: bool = False):
     """K4 for CUDA tensors, ``ops.traverse.traverse_any`` for CPU tensors:
     [R] bool, occluded where a triangle meets the ray at t in
-    (epsilon, max_t).  ``max_t`` is a contiguous [R] float32 tensor.
+    (epsilon, max_t).  ``max_t`` is a contiguous [R] float32 tensor; on
+    CUDA, bfloat16 or float16 rays and ``max_t`` are cast to float32.
 
     ``max_steps`` caps each ray's walk (0 = 4n); a ray that reaches the
     cap without an occluder reads False and adds one to

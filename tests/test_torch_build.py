@@ -80,10 +80,11 @@ def test_scene_from_numpy_takes_jax_scene():
 def test_carry_across_functions_default_to_the_card(tmp_path):
     """scene_from_numpy, materials_from_numpy, camera_from_numpy,
     bvh_from_numpy, Camera.default, the scene constructors
-    (random_triangles, sphere_grid, load_obj) and reference_rays put their
-    tensors on the CUDA device unless asked for another: without one they
-    raise rather than return CPU tensors.  With device="cpu" they equal
-    the JAX arrays exactly."""
+    (random_triangles, sphere_grid, load_obj), reference_rays and
+    optimizer_from_numpy (an optax.adam state into torch.optim.Adam) put
+    their tensors on the CUDA device unless asked for another: without one
+    they raise rather than return CPU tensors.  With device="cpu" they
+    equal the JAX arrays exactly."""
     from raytracebvh_tpu.camera import reference_rays as j_reference_rays
     from raytracebvh_tpu_torch.camera import reference_rays
     from raytracebvh_tpu_torch.core import types as tt
@@ -131,6 +132,34 @@ def test_carry_across_functions_default_to_the_card(tmp_path):
     for f in BVH_FIELDS:
         np.testing.assert_array_equal(_np(getattr(jb, f)),
                                       getattr(tb, f).numpy(), f)
+
+    # the optimizer state: an optax.adam state into torch.optim.Adam
+    import optax
+    from raytracebvh_tpu.models import inverse as ji
+    from raytracebvh_tpu_torch.models import inverse as ti
+
+    rng = np.random.default_rng(4)
+    jp = ji.init_params(scene_to_device(js))
+    moment = lambda: ji.InverseParams(*(
+        rng.uniform(0, 1, np.shape(x)).astype(np.float32) for x in jp))
+    jstate = (optax.ScaleByAdamState(count=np.int32(3), mu=moment(),
+                                     nu=moment()), optax.EmptyState())
+    if torch.cuda.is_available():
+        opt = ti.optimizer_from_numpy(ti.params_from_numpy(jp), jstate)
+        assert all(t.device.type == "cuda" for st in opt.state.values()
+                   for k, t in st.items() if k != "step")
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ti.optimizer_from_numpy(ti.params_from_numpy(jp, "cpu"), jstate)
+    params = ti.params_from_numpy(jp, "cpu")
+    opt = ti.optimizer_from_numpy(params, jstate, device="cpu")
+    for f, p in zip(ti.InverseParams._fields, params):
+        st = opt.state[p]
+        assert float(st["step"]) == 3.0
+        np.testing.assert_array_equal(st["exp_avg"].numpy(),
+                                      getattr(jstate[0].mu, f), f)
+        np.testing.assert_array_equal(st["exp_avg_sq"].numpy(),
+                                      getattr(jstate[0].nu, f), f)
 
 
 def test_clz32_every_bit_position():

@@ -758,3 +758,54 @@ def test_onchip_backends_frame_equals_kernel_frame(dev):
         traversal_backend="cuda", shade_gather_backend="cuda",
         sort_backend="lax"))
     assert torch.equal(got, want)
+
+
+def float32_walk(walk):
+    """The plain walk ``walk`` given the kernels' casts: the rays, max_t
+    and the tree's boxes and triangles in float32."""
+    from raytracebvh_tpu_torch.core.types import Rays
+
+    f32 = torch.float32
+
+    def run(bvh, rays, epsilon, *args, **kw):
+        bvh = bvh.replace(bbmin=bvh.bbmin.to(f32), bbmax=bvh.bbmax.to(f32),
+                          tri_verts=bvh.tri_verts.to(f32))
+        rays = Rays(rays.origin.to(f32), rays.direction.to(f32))
+        args = tuple(a.to(f32) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        return walk(bvh, rays, epsilon, *args, **kw)
+    return run
+
+
+@pytest.mark.parametrize("backends", [
+    {}, {"traversal_backend": "cuda"},
+    {"traversal_backend": "shared", "shade_gather_backend": "shared"}])
+def test_bfloat16_frame_through_the_kernels(dev, monkeypatch, backends):
+    """RenderConfig(dtype='bfloat16') renders on the card through the
+    kernels (the default backends: K5/K6 and K2; K1/K4 and K2; K5/K6 and
+    K7): the wrappers cast rays and max_t to float32 and gather bfloat16
+    tables as float32, as the JAX kernels do.  The float32 image is finite
+    and equals the plain path given the same casts (the plain walks on
+    float32 rays and tree) on at least 99.99% of pixels within 1e-4, the
+    dense frame's MATCH_MIN in chip_smoke.py."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.ops import traverse as plain
+
+    scene = random_triangles(300, seed=7, with_texture=True, device=dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=128, height=96, bounces=1, ortho_scale=0.8,
+                         enable_shadows=True, light_pos=(10.0, 80.0, -40.0),
+                         dtype="bfloat16", **backends)
+    got = T.render_frame(scene, cam, cfg)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    bg = torch.tensor(cfg.background, device=dev)
+    assert bool((got - bg).abs().gt(1e-6).any(-1).any())
+    monkeypatch.setattr(plain, "traverse", float32_walk(plain.traverse))
+    monkeypatch.setattr(plain, "traverse_any",
+                        float32_walk(plain.traverse_any))
+    want = T.render_frame(scene, cam, cfg.replace(
+        traversal_backend="torch", shade_gather_backend="torch",
+        texture_gather_backend="torch"))
+    frac = float((got - want).abs().amax(-1).le(1e-4).float().mean())
+    assert frac >= 0.9999, frac

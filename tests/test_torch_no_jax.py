@@ -1,7 +1,9 @@
 """The port imports, renders (shadows and refraction included, and
-through the on-chip backends ``shared`` / ``shared`` / ``bitonic``) and
-takes a training step with JAX and flax blocked: it must run on a machine
-that has neither."""
+through the on-chip backends ``shared`` / ``shared`` / ``bitonic``),
+takes a training step, and imports and runs its tools (checkpoints, the
+train and profile CLIs, profiling, logging, the depth image, the native
+library's build) with JAX and flax blocked: it must run on a machine that
+has neither."""
 
 import os
 import re
@@ -12,12 +14,13 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|raytracebvh_tpu)\b", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|raytracebvh_tpu)\b", re.MULTILINE)
 
 SCRIPT = """
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import torch
 import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models.procedural import random_triangles
@@ -47,8 +50,21 @@ loss = inverse.train_step(params, inverse.make_optimizer(params), scene,
                           T.RenderConfig(width=8, height=8, bounces=1,
                                          ortho_scale=1.0))
 assert bool(torch.isfinite(loss))
+from raytracebvh_tpu_torch import native
+from raytracebvh_tpu_torch.cli import profile, train
+from raytracebvh_tpu_torch.ref import refimage
+from raytracebvh_tpu_torch.utils import checkpoint, logging, profiling
+native.available()
+state = (params, inverse.adam_state(inverse.make_optimizer(params), params), 0)
+assert len(checkpoint.tree_leaves(state)) == 11
+depth = refimage.render_depth_bmp(scene, 16, 16)
+assert depth.shape == (16, 16, 3)
+assert list(profiling.stage_times(scene, T.Camera.default("cpu"),
+                                  T.RenderConfig(width=8, height=8), 1)) == [
+    "morton", "sort", "topology", "fit", "links", "build_total",
+    "trace_shade", "frame_total"]
 assert not any(m in ("jax", "raytracebvh_tpu")
-               or m.startswith(("jax.", "flax", "raytracebvh_tpu."))
+               or m.startswith(("jax.", "flax", "optax", "raytracebvh_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
