@@ -35,9 +35,10 @@ Phases (one line of output each, or more):
      at three tree sizes and on a sparse chunk, also as device time, and
      the staging alone (K1 beside it: launch and ray I/O)
   4. main path: the dense, sparse and large frames, then dense_shadows,
-     sparse_shadows, large_shadows, refract, dense_onchip and dense_bf16
-     (the dense frame in bfloat16, held to the plain path given its
-     kernels' float32 casts); every
+     sparse_shadows, large_shadows, refract, dense_onchip, dense_bf16
+     and dense_bf16_onchip (the dense frame in bfloat16 through K1/K2 and
+     through K5/K7/K8, held to the plain path given its kernels' float32
+     casts); every
      kernel's launch count over each frame (counts set to 0 just before
      it, read just after); frame ms and Mrays/s (median of 5 after one
      warm-up); each image but sparse's and large's against the
@@ -62,9 +63,9 @@ Phases (one line of output each, or more):
      its save and restore ms
   8. profile cli: raytracebvh_tpu_torch.cli.profile at 1920x1080 on that
      OBJ and on an OBJ of the large scene (read by the native loader),
-     with --sort lax and --sort bitonic (K8 in the sort stage), 20 calls a
-     stage: the stage tables, every stage finite and positive, the build
-     within the frame;
+     with --sort lax and --sort bitonic (K8 in the sort stage), each
+     stage's median of 20 rounds: the stage tables, every stage finite and
+     positive, the build within the frame;
      a Chrome trace (--trace) that names K5, K2 and K8
   9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
      the 3 072-triangle scene through the traversal dispatch (K5), byte
@@ -89,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -157,6 +159,8 @@ def frames_on(device):
     shadows through K5/K6, K7 and K8 ('shared', 'shared', 'bitonic').
     dense_bf16 is the dense frame in bfloat16: its wrappers cast rays to
     float32 and gather the bfloat16 leaf table as float32.
+    dense_bf16_onchip is dense_bf16 through K5, K7 and K8: the walk that
+    'auto' takes on this scene, and K7 on the bfloat16 leaf table.
 
     The dense frames keep the bench's dense config but frame one sphere:
     its ortho_scale=256 was set for Image_Test.obj, and on the fallback
@@ -190,6 +194,8 @@ def frames_on(device):
         "dense_onchip": (small, aimed, onchip(dense.replace(
             enable_shadows=True))),
         "dense_bf16": (small, aimed, dense.replace(dtype="bfloat16")),
+        "dense_bf16_onchip": (small, aimed, onchip(dense.replace(
+            dtype="bfloat16"))),
     }
 
 
@@ -297,51 +303,15 @@ class Recorder:
         setattr(self.module, self.name, self.inner)
 
 
-class Swap:
-    """Sets ``module.name`` to ``value`` for the block."""
-
-    def __init__(self, module, name, value):
-        self.module, self.name, self.value = module, name, value
-
-    def __enter__(self):
-        self.old = getattr(self.module, self.name)
-        setattr(self.module, self.name, self.value)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.old)
-
-
-def float32_walk(walk):
-    """The plain walk ``walk`` given the kernels' casts (their wrappers'
-    ``as_float32``): the rays, max_t and the tree's boxes and triangles in
-    float32."""
-    from raytracebvh_tpu_torch.core.types import Rays
-
-    f32 = torch.float32
-
-    def run(bvh, rays, epsilon, *args, **kw):
-        bvh = bvh.replace(bbmin=bvh.bbmin.to(f32), bbmax=bvh.bbmax.to(f32),
-                          tri_verts=bvh.tri_verts.to(f32))
-        rays = Rays(rays.origin.to(f32), rays.direction.to(f32))
-        args = tuple(a.to(f32) if isinstance(a, torch.Tensor) else a
-                     for a in args)
-        return walk(bvh, rays, epsilon, *args, **kw)
-    return run
-
-
 def plain_walks_like_kernels():
     """The plain walks, for the block, with the kernels' float32 casts:
     the plain path of a bfloat16 frame given the same casts."""
-    from contextlib import ExitStack
-
     from raytracebvh_tpu_torch.ops import traverse as plain_ops
+    from raytracebvh_tpu_torch.ops.traverse_cuda import float32_walk
 
-    stack = ExitStack()
-    for name in ("traverse", "traverse_any"):
-        stack.enter_context(Swap(plain_ops, name,
-                                 float32_walk(getattr(plain_ops, name))))
-    return stack
+    return mock.patch.multiple(
+        plain_ops, traverse=float32_walk(plain_ops.traverse),
+        traverse_any=float32_walk(plain_ops.traverse_any))
 
 
 def capture(scene, cam, cfg):
@@ -598,18 +568,25 @@ def profiled(fn, reps: int = 10):
     """(CUDA kernels a call of ``fn`` runs, their device time a call in
     ms): the kernels alone, without the host time between launches that
     CUDA events around a call also count (a memset is not a kernel).  A
-    trace now and then drops a kernel record, so each kernel name counts
-    round(records / reps) launches a call, each at the name's mean
+    trace now and then drops kernel records (once, more than half of
+    K7's), and never adds one: while some name's records are not a multiple of
+    ``reps``, the trace is taken again (five traces at most), and each
+    name keeps its records from the trace that held the most of them.  It
+    counts round(records / reps) launches a call, each at the name's mean
     duration: a dropped record changes neither the count nor, beyond the
     spread of the name's durations, the time.  Callers that know how many
     kernels a call runs check the count."""
-    for _ in range(5):  # a trace now and then comes back without kernels
-        per = {}
+    per = {}
+    for _ in range(5):
+        trace = {}
         for name, d in kernel_durations(fn, reps):
-            per.setdefault(name, []).append(d)
-        if per:
+            trace.setdefault(name, []).append(d)
+        for name, d in trace.items():
+            if len(d) > len(per.get(name, ())):
+                per[name] = d
+        if per and all(len(d) % reps == 0 for d in per.values()):
             break
-    else:
+    if not per:
         raise SmokeFailure("five profiler traces held no kernel")
     counts = {k: round(len(v) / reps) for k, v in per.items()}
     return (sum(counts.values()),
@@ -1067,8 +1044,9 @@ def render_counted(name, scene, cam, cfg):
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # the configs whose walks are K5/K6 (a 3 072-leaf tree through 'auto' or
 # 'shared'), and those that also gather with K7 and sort with K8
-ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip", "onchip_train")
-ONCHIP_ALL = ("dense_onchip", "onchip_train")
+ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
+                "dense_bf16_onchip", "onchip_train")
+ONCHIP_ALL = ("dense_onchip", "dense_bf16_onchip", "onchip_train")
 
 
 def reset_counts():
@@ -1181,7 +1159,8 @@ def phase_main_path(frames):
     check(ndiff == 0, f"dense_onchip: {ndiff} pixels differ from K1/K4/K2/lax")
 
     for name in ("dense", "dense_shadows", "sparse_shadows", "large_shadows",
-                 "refract", "dense_onchip", "dense_bf16"):
+                 "refract", "dense_onchip", "dense_bf16",
+                 "dense_bf16_onchip"):
         scene, cam, cfg = frames[name]
         # dense_bf16's plain path takes the casts its kernels' wrappers make
         casts = (plain_walks_like_kernels() if cfg.dtype == "bfloat16"
@@ -1290,46 +1269,6 @@ def phase_train(train):
             f"device memory {peak / 2**30:.3f} GiB")
     log(f"  training launches: {totals}")
     return totals
-
-
-def write_obj_scene(scene, directory):
-    """The scene as OBJ + MTL + a BMP texture (one material per scene
-    material, textured by texture 0)."""
-    from raytracebvh_tpu_torch.io.bmp import write_bmp
-
-    verts = scene.verts.cpu().numpy()
-    normals = scene.normals.cpu().numpy()
-    uv = scene.uv.cpu().numpy()
-    faces = scene.indices.cpu().numpy().reshape(-1, 3) + 1
-    mat = scene.mat_index.cpu().numpy()
-    m = scene.materials
-    hw = scene.tex_hw[0].tolist()
-    write_bmp(os.path.join(directory, "checker.bmp"),
-              scene.textures[0, :hw[0], :hw[1], :3].cpu().numpy())
-    with open(os.path.join(directory, "scene.mtl"), "w") as f:
-        for k in range(m.count):
-            f.write(f"newmtl m{k}\n")
-            for key, arr in (("Ka", m.ambient), ("Kd", m.diffuse),
-                             ("Ks", m.specular)):
-                f.write(f"{key} " + " ".join(
-                    repr(float(x)) for x in arr[k, :3]) + "\n")
-            f.write(f"Ns {float(m.shininess[k])!r}\n"
-                    f"Ni {float(m.optical_density[k])!r}\n"
-                    f"d {float(m.alpha[k])!r}\nmap_Kd checker.bmp\n")
-    lines = ["mtllib scene.mtl"]
-    lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in verts.tolist()]
-    lines += [f"vt {u!r} {1.0 - v!r}" for u, v in uv.tolist()]
-    lines += [f"vn {x!r} {y!r} {z!r}" for x, y, z in normals.tolist()]
-    cur = None
-    for f_, k in zip(faces.tolist(), mat.tolist()):
-        if k != cur:
-            lines.append(f"usemtl m{k}")
-            cur = k
-        lines.append("f " + " ".join(f"{i}/{i}/{i}" for i in f_))
-    path = os.path.join(directory, "scene.obj")
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    return path
 
 
 def phase_cli(obj, device):
@@ -1491,9 +1430,9 @@ def phase_profile_cli(objs, device):
     with tempfile.TemporaryDirectory() as tmp:
         for name, obj in objs.items():
             for sort in ("lax", "bitonic"):
-                # 20 calls a stage: a host-bound stage's time moves by
-                # ~15% between runs, and the build must read within the
-                # frame
+                # each stage's median over 20 rounds of all the stages:
+                # a host-bound stage's time moves by tens of percent from
+                # call to call, and the build must read within the frame
                 argv = ["--obj", obj, "--width", str(W), "--height", str(H),
                         "--sort", sort, "--iters", "20", "--device", device]
                 traced = name == "small" and sort == "bitonic"
@@ -1548,7 +1487,8 @@ def phase_depth_and_loader(objs, small, device):
     img = render_depth_bmp(small, 500, 500, 1)
     torch.cuda.synchronize()
     n = read_counts()
-    with Swap(pipeline, "resolve_traversal_backend", lambda *a: "torch"):
+    with mock.patch.object(pipeline, "resolve_traversal_backend",
+                           lambda *a: "torch"):
         ref = render_depth_bmp(small, 500, 500, 1)
     hits = float((img != MISS_RGB).any(-1).mean())
     ndiff = int((img != ref).any(-1).sum())
@@ -1632,13 +1572,14 @@ def main() -> int:
         for k, v in phase_train(train).items():
             launches[k] += v
         phase_done(5)
+        from raytracebvh_tpu_torch.io.obj import write_obj
+
         with tempfile.TemporaryDirectory() as assets:
             objs = {}
             for which, scene in (("small", frames["refract"][0]),
                                  ("large", frames["large"][0])):
                 os.mkdir(os.path.join(assets, which))
-                objs[which] = write_obj_scene(scene,
-                                              os.path.join(assets, which))
+                objs[which] = write_obj(scene, os.path.join(assets, which))
             log("phase 6 cli:")
             phase_cli(objs["small"], dev.type)
             phase_done(6)

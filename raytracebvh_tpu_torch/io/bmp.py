@@ -1,6 +1,5 @@
-"""BMP read/write (the JAX package's ``io/bmp.py``): the writer uses the
-native library (``native.py``) where it builds, else numpy; the bytes
-are the same.
+"""Pure-numpy BMP read/write (the JAX package's ``io/bmp.py`` without
+its native-library route; the bytes are the same).
 
 Writer mirrors the reference's SaveBMP (reference: SaveBMP.cpp:3-62):
 24-bit, bottom-up rows, BGR byte order, rows padded to 4 bytes.  Reader
@@ -16,30 +15,12 @@ import numpy as np
 
 
 def write_bmp(path: str, image: np.ndarray) -> None:
-    """Write [h, w, 3|4] uint8 or float (0..1) image as a 24-bit BMP.
-
-    Uses the native writer (native/rtbvh_native.cpp, counterpart of the
-    reference's SaveBMP.cpp:3-62) when it builds; both emit identical
-    bytes (``write_bmp_python`` is the numpy route).
-    """
-    from .. import native
-
-    rgb = _rgb8(image)
-    if not native.write_bmp_native(path, rgb):
-        write_bmp_python(path, rgb)
-
-
-def _rgb8(image) -> np.ndarray:
+    """Write [h, w, 3|4] uint8 or float (0..1) image as a 24-bit BMP."""
     img = np.asarray(image)
     if img.dtype != np.uint8:
         img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    return img[..., :3]
-
-
-def write_bmp_python(path: str, image: np.ndarray) -> None:
-    """The numpy writer of ``write_bmp``."""
-    rgb = _rgb8(image)
-    h, w = rgb.shape[:2]
+    h, w = img.shape[:2]
+    rgb = img[..., :3]
     row_size = (w * 3 + 3) & ~3
     data_size = row_size * h
     header = struct.pack(

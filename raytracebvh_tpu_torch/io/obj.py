@@ -247,3 +247,50 @@ def _load_obj_python(path: str, load_textures: bool = True) -> dict:
         textures=tex_stack,
         tex_hw=tex_hw,
     )
+
+
+def write_obj(scene: Scene, directory: str, name: str = "scene") -> str:
+    """Write ``scene`` as ``{name}.obj`` + ``{name}.mtl`` (+ ``{name}.bmp``,
+    texture 0, where a material is textured) into ``directory``; returns
+    the OBJ's path.  One MTL material a scene material, each with texture
+    0 where the scene has one; every vertex carries its own v/vt/vn, so
+    ``load_obj`` reads the scene's vertices back as they are."""
+    from .bmp import write_bmp
+
+    verts = scene.verts.cpu().numpy()
+    normals = scene.normals.cpu().numpy()
+    uv = scene.uv.cpu().numpy()
+    faces = scene.indices.cpu().numpy().reshape(-1, 3) + 1
+    mat = scene.mat_index.cpu().numpy()
+    m = scene.materials
+    textured = bool((m.tex_id >= 0).any())
+    if textured:
+        h, w = scene.tex_hw[0].tolist()
+        write_bmp(os.path.join(directory, f"{name}.bmp"),
+                  scene.textures[0, :h, :w, :3].cpu().numpy())
+    with open(os.path.join(directory, f"{name}.mtl"), "w") as f:
+        for k in range(m.count):
+            f.write(f"newmtl m{k}\n")
+            for key, arr in (("Ka", m.ambient), ("Kd", m.diffuse),
+                             ("Ks", m.specular)):
+                f.write(f"{key} " + " ".join(
+                    repr(float(x)) for x in arr[k, :3]) + "\n")
+            f.write(f"Ns {float(m.shininess[k])!r}\n"
+                    f"Ni {float(m.optical_density[k])!r}\n"
+                    f"d {float(m.alpha[k])!r}\n")
+            if textured:
+                f.write(f"map_Kd {name}.bmp\n")
+    lines = [f"mtllib {name}.mtl"]
+    lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in verts.tolist()]
+    lines += [f"vt {u!r} {1.0 - v!r}" for u, v in uv.tolist()]
+    lines += [f"vn {x!r} {y!r} {z!r}" for x, y, z in normals.tolist()]
+    cur = None
+    for f_, k in zip(faces.tolist(), mat.tolist()):
+        if k != cur:
+            lines.append(f"usemtl m{k}")
+            cur = k
+        lines.append("f " + " ".join(f"{i}/{i}/{i}" for i in f_))
+    path = os.path.join(directory, f"{name}.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path

@@ -4,11 +4,12 @@ at the root of the checkout), as the JAX package's ``native.py`` binds it.
 The port builds its own copy of the library with ``g++`` at first use,
 into ``build/raytracebvh_tpu_torch/`` (beside the CUDA kernels' library,
 ``_kernels.py``), named by a hash of the source and the flags, so an edit
-rebuilds and a rerun reuses; it never writes into ``native/``.  Every
-entry point has a pure-Python counterpart (``io/obj.py``, ``io/bmp.py``)
-that gives the same bits: ``get_lib`` returns None where the source or
-``g++`` is missing or the build fails.  This is host file I/O only; no
-device path goes through it.
+rebuilds and a rerun reuses; it never writes into ``native/``.  It binds
+the OBJ loader, whose pure-Python counterpart (``io/obj.py``) gives the
+same bits: ``get_lib`` returns None where the source or ``g++`` is
+missing or the build fails.  BMPs are written in numpy only
+(``io/bmp.py``).  This is host file I/O only; no device path goes
+through it.
 """
 
 from __future__ import annotations
@@ -83,9 +84,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"rtbvh_obj_{name}")
         fn.restype = c.c_char_p
         fn.argtypes = [c.c_void_p, c.c_int32]
-    lib.rtbvh_write_bmp.restype = c.c_int32
-    lib.rtbvh_write_bmp.argtypes = [c.c_char_p, c.c_int32, c.c_int32,
-                                    c.POINTER(c.c_uint8)]
     return lib
 
 
@@ -169,22 +167,4 @@ def load_obj_native(path: str, load_textures: bool = True) -> Optional[dict]:
         mat_index=mat_index, materials=mats,
         textures=tex_stack, tex_hw=tex_hw,
     )
-
-
-def write_bmp_native(path: str, rgb: np.ndarray) -> bool:
-    """24-bit BMP write (reference: SaveBMP.cpp:3-62). rgb: [h,w,3] uint8.
-    False if the native library is unavailable; raises if the write
-    fails."""
-    lib = get_lib()
-    if lib is None:
-        return False
-    rgb = np.ascontiguousarray(rgb, np.uint8)
-    h, w = rgb.shape[:2]
-    ok = lib.rtbvh_write_bmp(
-        path.encode(), w, h,
-        rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-    )
-    if not ok:
-        raise IOError(lib.rtbvh_last_error().decode())
-    return True
 

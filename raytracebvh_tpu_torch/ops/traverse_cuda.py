@@ -73,6 +73,24 @@ def as_float32(t: torch.Tensor, what: str, name: str) -> torch.Tensor:
     return t.to(torch.float32)
 
 
+def float32_walk(walk):
+    """The plain walk ``walk`` (``ops.traverse.traverse`` or
+    ``traverse_any``) given the casts the kernels' wrappers make: rays,
+    max_t and the tree's boxes and triangles in float32, as ``as_float32``
+    and ``pack_tables`` give them.  What a kernel's result on bfloat16
+    rays is held to."""
+    f32 = torch.float32
+
+    def run(bvh, rays, epsilon, *args, **kw):
+        bvh = bvh.replace(bbmin=bvh.bbmin.to(f32), bbmax=bvh.bbmax.to(f32),
+                          tri_verts=bvh.tri_verts.to(f32))
+        rays = Rays(rays.origin.to(f32), rays.direction.to(f32))
+        args = tuple(a.to(f32) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        return walk(bvh, rays, epsilon, *args, **kw)
+    return run
+
+
 def _prepare(bvh: BVH, rays: Rays, what: str, max_steps: int):
     """Check the rays and tables a launch reads; (float32 rays, bvh with
     its tables, per-ray step cap, truncation counter)."""

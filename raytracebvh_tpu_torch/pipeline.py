@@ -64,6 +64,17 @@ def build_bvh(scene: Scene, wvp, wv, cfg: RenderConfig) -> BVH:
     return assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax, cfg)
 
 
+def sort_codes(codes, sort_backend: str):
+    """The build's stable sort of the int32 codes -> (sorted codes, order):
+    K8 for ``bitonic``, the plain radix sort for ``radix``, else
+    ``torch.sort`` (``lax``)."""
+    if sort_backend == "bitonic":
+        return sort_cuda.bitonic_sort_by_code(codes)
+    if sort_backend == "radix":
+        return sort_ops.radix_sort_by_code(codes)
+    return sort_ops.sort_by_code(codes)
+
+
 def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
                  cfg: RenderConfig) -> BVH:
     """Sort + Karras + AABB fit + links + leaf-attribute pack from per-face
@@ -85,12 +96,7 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
     prim = torch.cat([torch.arange(nf, dtype=I32, device=dev),
                       torch.full((pad,), -1, dtype=I32, device=dev)])
 
-    if sort_backend == "bitonic":
-        sorted_codes, order = sort_cuda.bitonic_sort_by_code(codes)
-    elif sort_backend == "radix":
-        sorted_codes, order = sort_ops.radix_sort_by_code(codes)
-    else:
-        sorted_codes, order = sort_ops.sort_by_code(codes)
+    sorted_codes, order = sort_codes(codes, sort_backend)
     order = order.long()
     prim, lmin, lmax = prim[order], lmin[order], lmax[order]
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
 from typing import Dict
 
@@ -64,25 +65,37 @@ def trace(log_dir: str):
     prof.export_chrome_trace(path)
 
 
-def _timed(fn, *args, iters: int, device: torch.device) -> float:
-    """Seconds a call of ``fn(*args)`` takes, the mean of ``iters`` after
-    one warm-up: CUDA events around the calls on a CUDA device (they time
-    the stream from the first call's start to the last call's end, host
-    launch gaps included), the host clock on the CPU."""
-    fn(*args)  # warm-up
+def _call_seconds(fn, device: torch.device) -> float:
+    """Seconds of one call of ``fn()``: CUDA events around it on a CUDA
+    device (host launch gaps included), the host clock on the CPU."""
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn(*args)
+        fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
+        return start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _median_times(stages, iters: int,
+                  device: torch.device) -> Dict[str, float]:
+    """name -> seconds of one call of ``stages[name]()``: the median over
+    ``iters`` rounds after one warm-up call each, every round calling
+    every stage once in order.  The stages are host-bound, and the host's
+    speed moves by tens of percent from one call to the next and drifts
+    over seconds: in rounds the drift hits every stage alike, and the
+    median is not one lucky or unlucky call."""
+    for fn in stages.values():
+        fn()  # warm-up
+    times = {name: [] for name in stages}
     for _ in range(iters):
-        fn(*args)
-    return (time.perf_counter() - t0) / iters
+        for name, fn in stages.items():
+            times[name].append(_call_seconds(fn, device))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
@@ -92,59 +105,46 @@ def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
     The JAX function's stages and keys, in its order: morton, sort
     (``cfg.sort_backend``: ``bitonic`` times kernel K8 on CUDA tensors),
     topology, fit, links, build_total, trace_shade and the whole frame.
-    Each stage is timed alone, so the stages do not add up to the build
+    Each stage is timed alone, the median of ``iters`` rounds of all the
+    stages (``_median_times``), so the stages do not add up to the build
     exactly.
     """
     from ..camera import camera_matrices, transform_points
     from ..config import resolve_sort_backend
     from ..ops import bvh as bvh_ops
     from ..ops import morton as morton_ops
-    from ..ops import sort as sort_ops
-    from ..ops import sort_cuda
-    from ..pipeline import build_bvh, make_rays, render_frame, shade_rays
+    from ..pipeline import (build_bvh, make_rays, render_frame, shade_rays,
+                            sort_codes)
 
     dtype = cfg.torch_dtype
     device = scene.verts.device
     wvp, wv = camera_matrices(camera, cfg.width, cfg.height)
-    out: Dict[str, float] = {}
+    sort_backend = resolve_sort_backend(cfg, device)
 
-    def timed(fn, *args):
-        return _timed(fn, *args, iters=iters, device=device)
-
-    def f_morton(scene):
+    def f_morton():
         verts_t = transform_points(scene.verts.to(dtype), wvp.to(dtype))
         smin, smax = morton_ops.scene_aabb(verts_t)
         return morton_ops.triangle_leaves(verts_t, scene.indices, smin, smax)
 
-    sort_fn = {"bitonic": sort_cuda.bitonic_sort_by_code,
-               "radix": sort_ops.radix_sort_by_code,
-               "lax": sort_ops.sort_by_code}[resolve_sort_backend(cfg, device)]
-
     with torch.no_grad():
-        codes, lmin, lmax, _ = f_morton(scene)
-        out["morton"] = timed(f_morton, scene)
-
+        codes, lmin, lmax, _ = f_morton()
         codes = codes.to(torch.int32)
-        sorted_codes, _ = sort_fn(codes)
-        out["sort"] = timed(sort_fn, codes)
-
+        sorted_codes, _ = sort_codes(codes, sort_backend)
         topo = bvh_ops.build_topology(sorted_codes)
-        out["topology"] = timed(bvh_ops.build_topology, sorted_codes)
-
-        out["fit"] = timed(bvh_ops.fit_aabbs, topo.node_lo, topo.node_hi,
-                           lmin, lmax)
-
-        out["links"] = timed(bvh_ops.compute_links, topo, lmin.shape[0])
-
-        f_build = lambda s: build_bvh(s, wvp, wv, cfg)
-        bvh = f_build(scene)
-        out["build_total"] = timed(f_build, scene)
-
+        bvh = build_bvh(scene, wvp, wv, cfg)
         rays = make_rays(camera, cfg)
-        out["trace_shade"] = timed(lambda: shade_rays(scene, bvh, rays, cfg))
-
-        out["frame_total"] = timed(lambda: render_frame(scene, camera, cfg))
-    return out
+        stages = {
+            "morton": f_morton,
+            "sort": lambda: sort_codes(codes, sort_backend),
+            "topology": lambda: bvh_ops.build_topology(sorted_codes),
+            "fit": lambda: bvh_ops.fit_aabbs(topo.node_lo, topo.node_hi,
+                                             lmin, lmax),
+            "links": lambda: bvh_ops.compute_links(topo, lmin.shape[0]),
+            "build_total": lambda: build_bvh(scene, wvp, wv, cfg),
+            "trace_shade": lambda: shade_rays(scene, bvh, rays, cfg),
+            "frame_total": lambda: render_frame(scene, camera, cfg),
+        }
+        return _median_times(stages, iters, device)
 
 
 def print_stage_times(times: Dict[str, float], cfg, file=None) -> None:

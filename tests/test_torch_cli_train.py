@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from obj_scene import write_obj_scene
 from raytracebvh_tpu.cli import train as j_train
 from raytracebvh_tpu_torch.cli import train as t_train
+from raytracebvh_tpu_torch.io.obj import write_obj
 from raytracebvh_tpu_torch.models.procedural import random_triangles
 
 SIZE = ["--width", "32", "--height", "32"]
@@ -26,7 +26,7 @@ def obj(tmp_path):
     # ~40% of a 32x32 frame under the CLI's default camera is hit
     scene = random_triangles(40, seed=11, extent=8.0, tri_size=2.0,
                              with_texture=True, device="cpu")
-    return write_obj_scene(scene, str(tmp_path))
+    return write_obj(scene, str(tmp_path))
 
 
 def _leaves(path):

@@ -760,23 +760,6 @@ def test_onchip_backends_frame_equals_kernel_frame(dev):
     assert torch.equal(got, want)
 
 
-def float32_walk(walk):
-    """The plain walk ``walk`` given the kernels' casts: the rays, max_t
-    and the tree's boxes and triangles in float32."""
-    from raytracebvh_tpu_torch.core.types import Rays
-
-    f32 = torch.float32
-
-    def run(bvh, rays, epsilon, *args, **kw):
-        bvh = bvh.replace(bbmin=bvh.bbmin.to(f32), bbmax=bvh.bbmax.to(f32),
-                          tri_verts=bvh.tri_verts.to(f32))
-        rays = Rays(rays.origin.to(f32), rays.direction.to(f32))
-        args = tuple(a.to(f32) if isinstance(a, torch.Tensor) else a
-                     for a in args)
-        return walk(bvh, rays, epsilon, *args, **kw)
-    return run
-
-
 @pytest.mark.parametrize("backends", [
     {}, {"traversal_backend": "cuda"},
     {"traversal_backend": "shared", "shade_gather_backend": "shared"}])
@@ -791,6 +774,7 @@ def test_bfloat16_frame_through_the_kernels(dev, monkeypatch, backends):
     import raytracebvh_tpu_torch as T
     from raytracebvh_tpu_torch.models.procedural import random_triangles
     from raytracebvh_tpu_torch.ops import traverse as plain
+    from raytracebvh_tpu_torch.ops.traverse_cuda import float32_walk
 
     scene = random_triangles(300, seed=7, with_texture=True, device=dev)
     cam = T.Camera.default(dev)

@@ -1,18 +1,16 @@
 """The port's native asset runtime (``native.py``, its own build of
 ``native/rtbvh_native.cpp``) against the port's pure-Python routes, on a
-generated OBJ + MTL + BMP.  Tolerance: exact (bit-equal scenes, equal
-BMP bytes).  Skips where there is no g++."""
+generated OBJ + MTL + BMP.  Tolerance: exact (bit-equal scenes).  Skips
+where there is no g++."""
 
 import shutil
 
 import numpy as np
 import pytest
 
-from obj_scene import write_obj_scene
 from raytracebvh_tpu.io.obj import load_obj as j_load_obj
 from raytracebvh_tpu_torch import _kernels, native
-from raytracebvh_tpu_torch.io import bmp
-from raytracebvh_tpu_torch.io.obj import load_obj
+from raytracebvh_tpu_torch.io.obj import load_obj, write_obj
 from raytracebvh_tpu_torch.models.procedural import random_triangles
 
 SCENE_FIELDS = ("verts", "normals", "uv", "indices", "mat_index", "textures",
@@ -41,7 +39,7 @@ def _assert_scenes_equal(a, b):
 def test_native_loader_equals_python_loader(lib, tmp_path):
     scene = random_triangles(150, seed=9, with_texture=True, alpha=0.6,
                              optical_density=1.3, device="cpu")
-    path = write_obj_scene(scene, str(tmp_path))
+    path = write_obj(scene, str(tmp_path))
     got = load_obj(path, backend="native", device="cpu")
     want = load_obj(path, backend="python", device="cpu")
     _assert_scenes_equal(got, want)
@@ -52,17 +50,6 @@ def test_native_loader_equals_python_loader(lib, tmp_path):
     for f in SCENE_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(j, f)), f)
-
-
-def test_native_bmp_bytes_equal_python(lib, tmp_path):
-    rng = np.random.default_rng(0)
-    for shape in ((33, 47, 3), (8, 12, 4)):  # odd width: row padding
-        img = rng.uniform(0, 1, shape).astype(np.float32)
-        bmp.write_bmp(str(tmp_path / "n.bmp"), img)
-        bmp.write_bmp_python(str(tmp_path / "p.bmp"), img)
-        assert ((tmp_path / "n.bmp").read_bytes()
-                == (tmp_path / "p.bmp").read_bytes())
-        assert bmp.read_bmp(str(tmp_path / "n.bmp")).shape == shape[:2] + (3,)
 
 
 def test_load_obj_backends(lib, tmp_path):

@@ -13,13 +13,13 @@ import pytest
 import torch
 
 import raytracebvh_tpu as J
-from obj_scene import write_obj_scene
 from raytracebvh_tpu.core.types import scene_to_device
 from raytracebvh_tpu.models.procedural import random_triangles as j_random
 from raytracebvh_tpu.utils import logging as j_logging
 from raytracebvh_tpu.utils import profiling as j_profiling
 import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.cli import profile as t_profile_cli
+from raytracebvh_tpu_torch.io.obj import write_obj
 from raytracebvh_tpu_torch.models.procedural import random_triangles as t_random
 from raytracebvh_tpu_torch.utils import logging as t_logging
 from raytracebvh_tpu_torch.utils import profiling as t_profiling
@@ -43,6 +43,27 @@ def test_stage_times_keys_like_jax(jax_times, sort):
         "morton", "sort", "topology", "fit", "links", "build_total",
         "trace_shade", "frame_total"]
     assert all(math.isfinite(v) and v > 0 for v in times.values()), times
+
+
+def test_stage_timer_takes_the_median_in_rounds():
+    """A stage's time is the median of its calls after the warm-up, not
+    one fast call (calls of 30, 1 and 30 ms read 30 ms and a few ms of
+    sleep overrun), and every round calls every stage in order, so a
+    drift in the host's speed hits every stage alike."""
+    import time
+
+    calls = []
+    waits = iter([0.0, 0.03, 0.001, 0.03])  # warm-up, then three rounds
+
+    def slow():
+        calls.append("slow")
+        time.sleep(next(waits))
+
+    stages = {"slow": slow, "quick": lambda: calls.append("quick")}
+    t = t_profiling._median_times(stages, 3, torch.device("cpu"))
+    assert list(t) == ["slow", "quick"]
+    assert 0.03 <= t["slow"] < 0.045, t
+    assert calls == ["slow", "quick"] * 4
 
 
 def test_print_stage_times_like_jax(jax_times):
@@ -70,7 +91,7 @@ def test_fps_meter_counts_frames():
 
 
 def test_profile_cli_on_the_cpu(tmp_path, capsys):
-    obj = write_obj_scene(t_random(120, seed=3, with_texture=True,
+    obj = write_obj(t_random(120, seed=3, with_texture=True,
                                    device="cpu"), str(tmp_path))
     rc = t_profile_cli.main(["--obj", obj, "--width", "16", "--height", "16",
                              "--iters", "1", "--sort", "bitonic",
