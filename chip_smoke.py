@@ -4,9 +4,9 @@ NVIDIA GPU: builds the hand-written kernels K1-K8, holds each against its
 plain PyTorch version at the main path's shapes, renders nine 1920x1080
 frames through ``render_frame`` (forward, shadowed, refractive, the
 small-scene on-chip configuration and bfloat16), runs the
-inverse-rendering training step at 1920x1080 on three frames, and runs
+inverse-rendering training step at 1920x1080 on three frames, runs
 the render, train and profile CLIs, the depth reference image and the
-native asset loader.
+native asset loader, and the multi-device path (parallel/) over NCCL.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,7 @@ Phases (one line of output each, or more):
   8. profile cli: raytracebvh_tpu_torch.cli.profile at 1920x1080 on that
      OBJ and on an OBJ of the large scene (read by the native loader),
      with --sort lax and --sort bitonic (K8 in the sort stage), each
-     stage's median of 20 rounds: the stage tables, every stage finite and
+     stage's median of 40 rounds: the stage tables, every stage finite and
      positive, the build within the frame;
      a Chrome trace (--trace) that names K5, K2 and K8
   9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
@@ -72,8 +72,19 @@ Phases (one line of output each, or more):
      for byte against the plain walk's on the card; io.obj.load_obj's
      native loader bit for bit against the Python one on both OBJs, with
      their seconds
+ 10. multi-device: parallel.mesh.initialize_distributed (NCCL, world size
+     1 on one card) and make_mesh; render_sharded on the dense frame,
+     render_geo_sharded on the large and dense_shadows frames, each bit
+     for bit phase 4's image (K1 2 + K2 4; K1 1 + K2 2; K1 1 + K2 2 +
+     K4 1); train_step_sharded on sparse_train with grad_chunks 1 (loss
+     phase 5's bits, gradients within GRAD_TOL, K1 2 + K2 4 + K3 2) and 4
+     (within the same gates of 1, four times the launches); NCCL's set-up
+     ms, the sharded frames' and steps' ms beside the single-process
+     ones, the gradient all-reduce's and the frame all-gather's ms.
+     With two cards or more it also runs the same cases on 2 or 4 ranks
+     with geo=2 (this script with --sharded-rank, one process a card)
 
-The second-to-last line is {"kernels": [...]}; the last line is
+Launch counts include phase 10's.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -129,6 +140,15 @@ class SmokeFailure(Exception):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def fail(msg: str) -> int:
+    """Report a failed phase on standard output and on standard error
+    (where a caller that keeps only the errors still sees the cause);
+    returns the exit code 1."""
+    log(f"FAILED: {msg}")
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
 
 
 def check(ok: bool, msg: str) -> None:
@@ -430,7 +450,8 @@ def phase_kernels(frames):
         if tbl.dtype == torch.float32:
             tl = cuda_ms(lambda: torch.index_select(tbl, 0, idx))
             tl_dev = profiled(lambda: torch.index_select(tbl, 0, idx))[1]
-        kernels, t_dev = profiled(lambda: gather_cuda.gather_rows(tbl, idx))
+        kernels, t_dev = profiled(lambda: gather_cuda.gather_rows(tbl, idx),
+                                  expect=1)
         check(kernels == 1, f"K2 {what}: {kernels} CUDA kernels a call")
         nbytes = (tbl.numel() * tbl.element_size() + idx.numel() * 4
                   + idx.numel() * tbl.shape[1] * 4)
@@ -564,18 +585,20 @@ def kernel_durations(fn, reps: int):
             if e.get("cat") == "kernel"]
 
 
-def profiled(fn, reps: int = 10):
+def profiled(fn, reps: int = 10, expect=None):
     """(CUDA kernels a call of ``fn`` runs, their device time a call in
     ms): the kernels alone, without the host time between launches that
     CUDA events around a call also count (a memset is not a kernel).  A
     trace now and then drops kernel records (once, more than half of
-    K7's), and never adds one: while some name's records are not a multiple of
-    ``reps``, the trace is taken again (five traces at most), and each
-    name keeps its records from the trace that held the most of them.  It
-    counts round(records / reps) launches a call, each at the name's mean
-    duration: a dropped record changes neither the count nor, beyond the
-    spread of the name's durations, the time.  Callers that know how many
-    kernels a call runs check the count."""
+    K7's), and never adds one: while some name's records are not a
+    multiple of ``reps``, or the count is not ``expect`` (a trace that
+    dropped every record of one kernel name), the trace is taken again
+    (five traces at most), and each name keeps its records from the
+    trace that held the most of them.  It counts round(records / reps)
+    launches a call, each at the name's mean duration: a dropped record
+    changes neither the count nor, beyond the spread of the name's
+    durations, the time.  Callers that know how many kernels a call runs
+    pass ``expect`` and check the count."""
     per = {}
     for _ in range(5):
         trace = {}
@@ -584,7 +607,9 @@ def profiled(fn, reps: int = 10):
         for name, d in trace.items():
             if len(d) > len(per.get(name, ())):
                 per[name] = d
-        if per and all(len(d) % reps == 0 for d in per.values()):
+        whole = per and all(len(d) % reps == 0 for d in per.values())
+        if whole and expect in (None, sum(round(len(d) / reps)
+                                          for d in per.values())):
             break
     if not per:
         raise SmokeFailure("five profiler traces held no kernel")
@@ -787,14 +812,14 @@ def phase_onchip_kernels(frames):
     plain_ms = cuda_ms(lambda: gather_cols_cuda.gather_cols_torch(tbl, idx))
     lib_ms = cuda_ms(lambda: tbl.index_select(1, idx))
     kernels, dev_ms = profiled(
-        lambda: gather_cols_cuda.gather_cols(tbl, idx))
+        lambda: gather_cols_cuda.gather_cols(tbl, idx), expect=1)
     check(kernels == 1, f"K7: {kernels} CUDA kernels a call")
     lib_dev_ms = profiled(lambda: tbl.index_select(1, idx))[1]
     # diagnostic: K2 on the row-major copy of the same table, the same ids
     rows_tbl = tbl.t().contiguous()
     k2_ms = cuda_ms(lambda: gather_cuda.gather_rows(rows_tbl, idx))
     kernels, k2_dev_ms = profiled(
-        lambda: gather_cuda.gather_rows(rows_tbl, idx))
+        lambda: gather_cuda.gather_rows(rows_tbl, idx), expect=1)
     check(kernels == 1, f"K2 on K7's table: {kernels} CUDA kernels a call")
     nbytes = tbl.numel() * 4 + idx.numel() * 4 + got.numel() * 4
     b_ms, b_by = bound(nbytes, 0)
@@ -859,7 +884,8 @@ def phase_k8(codes_d, codes_l):
         k8_exact(what, codes)
         n = codes.shape[0]
         kernels, kernel_ms = profiled(
-            lambda: sort_cuda.bitonic_sort_by_code(codes), 10)
+            lambda: sort_cuda.bitonic_sort_by_code(codes), 10,
+            expect=sort_cuda.launches_per_call(n))
         check(kernels == sort_cuda.launches_per_call(n),
               f"K8 {what}: {kernels} CUDA kernels a call, not "
               f"{sort_cuda.launches_per_call(n)}")
@@ -970,7 +996,8 @@ def k3_case(what, g, idx, rows):
 
     ms = cuda_ms(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
     kernels, dev_ms = profiled(lambda: gather_cuda.scatter_add_rows(g, idx,
-                                                                    rows))
+                                                                    rows),
+                               expect=3)
     check(kernels == 3, f"K3 {what}: {kernels} CUDA kernels a call, not 3")
     split = kernel_split(lambda: gather_cuda.scatter_add_rows(g, idx, rows))
     plain_ms = cuda_ms(lambda: gather_cuda.scatter_add_rows_torch(g, idx,
@@ -1093,7 +1120,7 @@ def check_routes(name, n, builds=1):
 
 def phase_main_path(frames):
     """The frames through render_frame; returns the launch counts summed
-    over the frames."""
+    over the frames, and the images."""
     from raytracebvh_tpu_torch import render_frame
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.ops import traverse_cuda
@@ -1176,12 +1203,13 @@ def phase_main_path(frames):
             f"{float(diff.max()):.3g}, {frac:.6f} of pixels within 1e-4; "
             f"plain render {ms:.1f} ms/frame")
         check(frac >= MATCH_MIN, f"{name} image: only {frac} of pixels match")
-    return totals
+    return totals, images
 
 
 def phase_train(train):
     """loss_fn + backward() and train_step at 1080p on each training
-    frame; returns the launch counts summed over the frames."""
+    frame; returns the launch counts summed over the frames, and each
+    frame's (loss, gradients) of its first step."""
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.models.inverse import (InverseParams,
                                                       init_params,
@@ -1268,7 +1296,7 @@ def phase_train(train):
             f"{rays / max(ms, 1e-9) / 1e3:.2f} Mrays/s ({rays} rays), peak "
             f"device memory {peak / 2**30:.3f} GiB")
     log(f"  training launches: {totals}")
-    return totals
+    return totals, steps
 
 
 def phase_cli(obj, device):
@@ -1430,11 +1458,11 @@ def phase_profile_cli(objs, device):
     with tempfile.TemporaryDirectory() as tmp:
         for name, obj in objs.items():
             for sort in ("lax", "bitonic"):
-                # each stage's median over 20 rounds of all the stages:
+                # each stage's median over 40 rounds of all the stages:
                 # a host-bound stage's time moves by tens of percent from
                 # call to call, and the build must read within the frame
                 argv = ["--obj", obj, "--width", str(W), "--height", str(H),
-                        "--sort", sort, "--iters", "20", "--device", device]
+                        "--sort", sort, "--iters", "40", "--device", device]
                 traced = name == "small" and sort == "bitonic"
                 if traced:
                     argv += ["--trace", os.path.join(tmp, "trace")]
@@ -1518,6 +1546,233 @@ def phase_depth_and_loader(objs, small, device):
     return n
 
 
+# phase 10: the sharded entry points on the main path's configs, each held
+# to its single-process result
+SHARDED_FRAMES = (("render_sharded", "dense"), ("render_geo_sharded", "large"),
+                  ("render_geo_sharded", "dense_shadows"))
+SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4), "large": dict(K1=1, K2=2),
+                    "dense_shadows": dict(K1=1, K2=2, K4=1)}
+
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before it: its result
+    and the counts read just after."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def sharded_cases(frames, train, mesh, images, steps):
+    """render_sharded on the dense frame, render_geo_sharded on the large
+    and dense_shadows frames, train_step_sharded on sparse_train with
+    grad_chunks 1 and 4, on ``mesh``.  The frames must equal ``images``
+    (render_frame's) bit for bit; the one-chunk step's loss must equal
+    ``steps``' (loss_fn's) bit for bit at world size 1, within 1e-6
+    above, and its gradients be within GRAD_TOL of loss_fn's; the
+    four-chunk step within the same gates of the one-chunk step.  Returns
+    the launch counts summed over the cases."""
+    from raytracebvh_tpu_torch.models.inverse import (InverseParams,
+                                                      apply_params,
+                                                      init_params)
+    from raytracebvh_tpu_torch.parallel import render as prender
+
+    world = mesh.size()
+    totals = dict.fromkeys(KERNELS, 0)
+
+    def add(n):
+        for k in totals:
+            totals[k] += n[k]
+
+    for fn_name, name in SHARDED_FRAMES:
+        scene, cam, cfg = frames[name]
+        fn = getattr(prender, fn_name)
+        with torch.no_grad():
+            img, n = counted(lambda: fn(scene, cam, cfg, mesh))
+        ndiff = int((img != images[name]).any(-1).sum())
+        log(f"  {fn_name} {name} (world {world}): {ndiff} pixels differ "
+            f"from render_frame's, launches {n}")
+        check(ndiff == 0, f"{fn_name} {name}: {ndiff} pixels differ")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(SHARDED_LAUNCHES[name])
+        check(n == want, f"{fn_name} {name}: launches {n}, not {want}")
+        add(n)
+
+    scene, cam, cfg = train["sparse_train"]
+    target = torch.zeros((H, W, 4), device=scene.device)
+    ref = {0: steps["sparse_train"]}
+    for chunks in (1, 4):
+        (loss, grads), n = counted(lambda: prender.train_step_sharded(
+            init_params(scene), apply_params, scene, cam, target, cfg, mesh,
+            grad_chunks=chunks))
+        loss_r, grads_r = ref[0] if chunks == 1 else ref[1]
+        against = "loss_fn" if chunks == 1 else "grad_chunks=1"
+        rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
+        log(f"  train_step_sharded sparse_train grad_chunks={chunks} "
+            f"(world {world}): loss {float(loss)!r}, {against} "
+            f"{float(loss_r)!r}, launches {n}")
+        if chunks == 1 and world == 1:
+            check(torch.equal(loss, loss_r),
+                  f"grad_chunks=1: loss not {against}'s bits")
+        else:
+            check(rel <= 1e-6, f"grad_chunks={chunks}: loss {rel} off")
+        for field, g, gr in zip(InverseParams._fields, grads, grads_r):
+            err = float((g - gr).abs().max()) / max(float(gr.abs().max()),
+                                                    1e-30)
+            log(f"    d{field}: {err:.3g} of {against}'s largest |grad|")
+            check(bool(torch.isfinite(g).all()) and err <= GRAD_TOL,
+                  f"grad_chunks={chunks}: d{field} {err} off {against}")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(K1=2 * chunks, K2=4 * chunks, K3=2 * chunks)
+        check(n == want, f"grad_chunks={chunks}: launches {n}, not {want}")
+        ref[chunks] = (loss, grads)
+        add(n)
+    return totals
+
+
+def phase_sharded(frames, train, images, steps, smi):
+    """The multi-device path at world size 1 over NCCL (one card): the
+    cases of sharded_cases against phase 4's images and phase 5's step;
+    NCCL's set-up, the frames' and steps' times beside the single-process
+    ones, the collectives' times.  With two cards or more, the same cases at 2 or 4 ranks with
+    geo=2 (sharded_rank).  Returns the launch counts of the cases."""
+    import torch.distributed as dist
+
+    from raytracebvh_tpu_torch import render_frame
+    from raytracebvh_tpu_torch.models.inverse import apply_params, init_params
+    from raytracebvh_tpu_torch.parallel import mesh as pmesh
+    from raytracebvh_tpu_torch.parallel import render as prender
+
+    t0 = time.perf_counter()
+    pmesh.initialize_distributed()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = pmesh.make_mesh()
+        probe = torch.ones(1, device="cuda")
+        t0 = time.perf_counter()
+        dist.all_reduce(probe, group=mesh.get_group(pmesh.GEO_AXIS))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  NCCL world {dist.get_world_size()}, mesh {mesh}: "
+            f"init_process_group {init_ms:.3f} ms, first all_reduce "
+            f"(communicator set-up) {first_ms:.3f} ms; {smi}")
+        totals = sharded_cases(frames, train, mesh, images, steps)
+
+        for fn_name, name in SHARDED_FRAMES:
+            scene, cam, cfg = frames[name]
+            fn = getattr(prender, fn_name)
+            with torch.no_grad():
+                times = [wall_ms(lambda: render_frame(scene, cam, cfg)),
+                         wall_ms(lambda: fn(scene, cam, cfg, mesh)),
+                         wall_ms(lambda: fn(scene, cam, cfg, mesh)),
+                         wall_ms(lambda: render_frame(scene, cam, cfg))]
+            log(f"  {fn_name} {name}: {times[1]:.2f} / {times[2]:.2f} "
+                f"ms/frame, render_frame {times[0]:.2f} / {times[3]:.2f} "
+                f"ms/frame (median of 5 each, in turns); {smi}")
+        scene, cam, cfg = train["sparse_train"]
+        target = torch.zeros((H, W, 4), device=scene.device)
+
+        def sharded_step(chunks):
+            return lambda: prender.train_step_sharded(
+                init_params(scene), apply_params, scene, cam, target, cfg,
+                mesh, grad_chunks=chunks)
+
+        single = lambda: value_and_grad(init_params(scene), scene, cam,
+                                        target, cfg)
+        times = [wall_ms(single), wall_ms(sharded_step(1)),
+                 wall_ms(sharded_step(4)), wall_ms(single)]
+        log(f"  train_step_sharded sparse_train: grad_chunks=1 "
+            f"{times[1]:.2f} ms/step, grad_chunks=4 {times[2]:.2f} ms/step, "
+            f"loss_fn + backward {times[0]:.2f} / {times[3]:.2f} ms/step "
+            f"(median of 5 each); {smi}")
+
+        nparams = 1 + sum(p.numel() for p in init_params(scene))
+        buf = torch.zeros(nparams, device="cuda")
+        img = torch.zeros(H * W, 4, device="cuda")
+        out = torch.empty_like(img)
+        ar = cuda_ms(lambda: dist.all_reduce(
+            buf, group=mesh.get_group(pmesh.GEO_AXIS)), reps=20)
+        ag = cuda_ms(lambda: dist.all_gather_into_tensor(
+            out, img, group=mesh.get_group(pmesh.RAYS_AXIS)), reps=20)
+        log(f"  gradient all_reduce ({nparams} float32) {ar:.4f} ms, frame "
+            f"all_gather ({H * W} x 4 float32) {ag:.4f} ms (CUDA events, "
+            f"median of 20); {smi}")
+    finally:
+        dist.destroy_process_group()
+
+    cards = torch.cuda.device_count() // 2 * 2
+    if cards >= 2:
+        run_sharded_ranks(min(cards, 4))
+    else:
+        log(f"  {torch.cuda.device_count()} card: world size 1 was the "
+            "largest run")
+    return totals
+
+
+def run_sharded_ranks(world: int) -> None:
+    """Starts ``world`` ranks of this script (--sharded-rank), one card
+    each, and fails unless every rank passes."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-12:]:
+            log(f"  rank {r}: {line}")
+        check(p.returncode == 0, f"rank {r} of {world} failed")
+    log(f"  {world} ranks, geo=2: every case passed")
+
+
+def sharded_rank() -> int:
+    """One rank of run_sharded_ranks: the cases of sharded_cases on a
+    geo=2 mesh over all ranks, against this card's own render_frame and
+    loss_fn."""
+    import torch.distributed as dist
+
+    from raytracebvh_tpu_torch import _kernels, render_frame
+    from raytracebvh_tpu_torch.models.inverse import init_params
+    from raytracebvh_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.load()
+    pmesh.initialize_distributed()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        mesh = pmesh.make_mesh(geo=2)
+        frames = frames_on(dev)
+        train = train_frames(frames)
+        with torch.no_grad():
+            images = {name: render_frame(*frames[name])
+                      for _, name in SHARDED_FRAMES}
+        scene, cam, cfg = train["sparse_train"]
+        steps = {"sparse_train": value_and_grad(
+            init_params(scene), scene, cam,
+            torch.zeros((H, W, 4), device=dev), cfg)}
+        sharded_cases(frames, train, mesh, images, steps)
+    except SmokeFailure as e:
+        return fail(str(e))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1566,10 +1821,11 @@ def main() -> int:
         kern.update(phase_onchip_kernels(frames))
         phase_done(3)
         log("phase 4 main path:")
-        launches = phase_main_path(frames)
+        launches, images = phase_main_path(frames)
         phase_done(4)
         log("phase 5 training:")
-        for k, v in phase_train(train).items():
+        counts, steps = phase_train(train)
+        for k, v in counts.items():
             launches[k] += v
         phase_done(5)
         from raytracebvh_tpu_torch.io.obj import write_obj
@@ -1596,9 +1852,12 @@ def main() -> int:
                     objs, frames["dense"][0], dev.type).items():
                 launches[k] += v
             phase_done(9)
+        log("phase 10 multi-device:")
+        for k, v in phase_sharded(frames, train, images, steps, smi).items():
+            launches[k] += v
+        phase_done(10)
     except SmokeFailure as e:
-        log(f"FAILED: {e}")
-        return 1
+        return fail(str(e))
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",
                       "raytracebvh_tpu/ops/traverse_hbm.py:652"),
                "K2": ("raytracebvh_tpu_torch/csrc/gather.cu",
@@ -1617,8 +1876,7 @@ def main() -> int:
                       "raytracebvh_tpu/ops/sort_pallas.py:139")}
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
-        log(f"FAILED: {missing} never launched on the main path")
-        return 1
+        return fail(f"{missing} never launched on the main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k][0],
@@ -1630,4 +1888,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sharded-rank"]:
+        sys.exit(sharded_rank())
     sys.exit(main())

@@ -22,18 +22,23 @@ import numpy as np
 import torch
 
 
-def _to(obj, device):
-    """Copy of a dataclass with every tensor (and nested dataclass)
-    field moved to ``device``."""
+def map_tensors(fn, obj):
+    """Copy of a dataclass with ``fn`` applied to every tensor field (and
+    to those of nested dataclasses)."""
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
-            v = v.to(device)
+            v = fn(v)
         elif dataclasses.is_dataclass(v):
-            v = _to(v, device)
+            v = map_tensors(fn, v)
         kw[f.name] = v
     return dataclasses.replace(obj, **kw)
+
+
+def _to(obj, device):
+    """Copy of a dataclass with every tensor field moved to ``device``."""
+    return map_tensors(lambda t: t.to(device), obj)
 
 
 def _get(d, name):

@@ -494,6 +494,57 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
     return torch.cat(out)
 
 
+def build_transforms(camera: Camera, cfg: RenderConfig):
+    """(wvp, m, mv): the camera's world-view-projection, and the point and
+    normal transforms of the frame's build.  'reference' mode builds in
+    WVP-transformed space (m, mv = wvp, wv); 'perspective' mode traces in
+    world space (m = mv = identity)."""
+    wvp, wv = camera_matrices(camera, cfg.width, cfg.height)
+    if cfg.camera_mode == "reference":
+        return wvp, wvp, wv
+    if cfg.camera_mode == "perspective":
+        eye4 = torch.eye(4, dtype=cfg.torch_dtype, device=camera.eye.device)
+        return wvp, eye4, eye4
+    raise ValueError(f"unknown camera_mode {cfg.camera_mode!r}")
+
+
+def frame_inputs(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """(bvh, rays, light3) of one frame: the rebuilt LBVH, the primary
+    rays in row-major order, and the light in ray space (None without
+    shadows)."""
+    if cfg.ray_tile > 0:
+        check_tile_order(cfg.ray_tile_order)
+    wvp, m, mv = build_transforms(camera, cfg)
+    bvh = build_bvh(scene, m, mv, cfg)
+    light3 = None
+    if cfg.enable_shadows:
+        light3 = light_in_ray_space(cfg, wvp, cfg.torch_dtype)
+    return bvh, make_rays(camera, cfg), light3
+
+
+def shade_tiled(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
+                light3, width: int, height: int):
+    """``shade_rays`` over a ``width`` x ``height`` block of row-major
+    rays, traced in ``cfg.ray_tile`` order -> [height * width, 4]
+    row-major.  A ray's colour does not depend on its order, so the tile
+    order changes only the memory access pattern."""
+    w, h = width, height
+    st = structured_tile_shape(w, h, cfg.ray_tile) if cfg.ray_tile > 0 else None
+    if st is not None:
+        th, tw = st
+        rays = tile_rays(rays, w, h, th, tw, cfg.ray_tile_order)
+        color = shade_rays(scene, bvh, rays, cfg, light3)
+        return torch.stack(
+            [untile_flat(color[:, c], w, h, th, tw, cfg.ray_tile_order)
+             for c in range(4)], dim=-1)
+    if cfg.ray_tile > 0:
+        perm, inv = tile_order(w, h, cfg.ray_tile)
+        color = shade_rays(scene, bvh, permute_rays(rays, perm), cfg,
+                           light3)
+        return color[torch.as_tensor(inv, device=color.device)]
+    return shade_rays(scene, bvh, rays, cfg, light3)
+
+
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     """One full frame -> [height, width, 4] float image: rebuild the
     LBVH, launch primary rays (with shadow rays when
@@ -501,37 +552,6 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     refraction passes when ``cfg.enable_refraction``), present.
     ``scene`` and ``camera`` must be on the same device; the frame is
     rendered there."""
-    if cfg.ray_tile > 0:
-        check_tile_order(cfg.ray_tile_order)
-    wvp, wv = camera_matrices(camera, cfg.width, cfg.height)
-    if cfg.camera_mode == "reference":
-        bvh = build_bvh(scene, wvp, wv, cfg)
-    elif cfg.camera_mode == "perspective":
-        # world-space tracing: identity transform
-        eye4 = torch.eye(4, dtype=cfg.torch_dtype, device=scene.device)
-        bvh = build_bvh(scene, eye4, eye4, cfg)
-    else:
-        raise ValueError(f"unknown camera_mode {cfg.camera_mode!r}")
-    rays = make_rays(camera, cfg)
-    light3 = None
-    if cfg.enable_shadows:
-        light3 = light_in_ray_space(cfg, wvp, cfg.torch_dtype)
-
-    w, h = cfg.width, cfg.height
-    st = structured_tile_shape(w, h, cfg.ray_tile) if cfg.ray_tile > 0 else None
-    if st is not None:
-        th, tw = st
-        rays = tile_rays(rays, w, h, th, tw, cfg.ray_tile_order)
-        color = shade_rays(scene, bvh, rays, cfg, light3)
-        color = torch.stack(
-            [untile_flat(color[:, c], w, h, th, tw, cfg.ray_tile_order)
-             for c in range(4)], dim=-1)
-    elif cfg.ray_tile > 0:
-        perm, inv = tile_order(w, h, cfg.ray_tile)
-        color = shade_rays(scene, bvh, permute_rays(rays, perm), cfg,
-                           light3)
-        color = color[torch.as_tensor(inv, device=color.device)]
-    else:
-        color = shade_rays(scene, bvh, rays, cfg, light3)
-    return color.reshape(h, w, 4)
-
+    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
+    color = shade_tiled(scene, bvh, rays, cfg, light3, cfg.width, cfg.height)
+    return color.reshape(cfg.height, cfg.width, 4)

@@ -793,3 +793,28 @@ def test_bfloat16_frame_through_the_kernels(dev, monkeypatch, backends):
         texture_gather_backend="torch"))
     frac = float((got - want).abs().amax(-1).le(1e-4).float().mean())
     assert frac >= 0.9999, frac
+
+
+def test_sharded_frames_over_nccl_world_one(dev):
+    """render_geo_sharded and render_sharded over a world-1 NCCL group
+    equal render_frame at 64x64, bit for bit (shadows: K1, K2 and K4)."""
+    import torch.distributed as dist
+
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.parallel import mesh, render
+
+    scene = random_triangles(300, seed=7, with_texture=True, device=dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, enable_shadows=True,
+                         light_pos=(10.0, 80.0, -40.0), ortho_scale=2.0)
+    want = T.render_frame(scene, cam, cfg)
+    mesh.initialize_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        flat = mesh.make_mesh()
+        assert torch.equal(render.render_geo_sharded(scene, cam, cfg, flat),
+                           want)
+        assert torch.equal(render.render_sharded(scene, cam, cfg, flat), want)
+    finally:
+        dist.destroy_process_group()

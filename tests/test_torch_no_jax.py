@@ -2,8 +2,9 @@
 through the on-chip backends ``shared`` / ``shared`` / ``bitonic``),
 takes a training step, and imports and runs its tools (checkpoints, the
 train and profile CLIs, profiling, logging, the depth image, the native
-library's build) with JAX and flax blocked: it must run on a machine that
-has neither."""
+library's build), and imports the multi-device path and renders a
+geometry-sharded frame at world size 1 over Gloo, with JAX and flax
+blocked: it must run on a machine that has neither."""
 
 import os
 import re
@@ -63,6 +64,14 @@ assert list(profiling.stage_times(scene, T.Camera.default("cpu"),
                                   T.RenderConfig(width=8, height=8), 1)) == [
     "morton", "sort", "topology", "fit", "links", "build_total",
     "trace_shade", "frame_total"]
+from raytracebvh_tpu_torch.parallel import mesh, render as prender, scaling
+mesh.initialize_distributed(device="cpu")
+flat = mesh.make_mesh(device="cpu")
+sharded = prender.render_geo_sharded(scene, T.Camera.default("cpu"),
+                                     T.RenderConfig(width=8, height=8), flat)
+assert torch.equal(sharded, T.render_frame(scene, T.Camera.default("cpu"),
+                                           T.RenderConfig(width=8, height=8)))
+torch.distributed.destroy_process_group()
 assert not any(m in ("jax", "raytracebvh_tpu")
                or m.startswith(("jax.", "flax", "optax", "raytracebvh_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
