@@ -5,8 +5,10 @@ plain PyTorch version at the main path's shapes, renders nine 1920x1080
 frames through ``render_frame`` (forward, shadowed, refractive, the
 small-scene on-chip configuration and bfloat16), runs the
 inverse-rendering training step at 1920x1080 on three frames, runs
-the render, train and profile CLIs, the depth reference image and the
-native asset loader, and the multi-device path (parallel/) over NCCL.
+the render, train and profile CLIs (which replay CUDA graphs, as the JAX
+CLIs run jitted programs), the depth reference image and the native
+asset loader, the multi-device path (parallel/) over NCCL, and the
+frame and the step as CUDA graphs (render_frame_jit, train_step_jit).
 
     python3 chip_smoke.py
 
@@ -83,8 +85,28 @@ Phases (one line of output each, or more):
      ones, the gradient all-reduce's and the frame all-gather's ms.
      With two cards or more it also runs the same cases on 2 or 4 ranks
      with geo=2 (this script with --sharded-rank, one process a card)
+ 11. graphed: render_frame_jit on the dense, sparse, large,
+     dense_shadows, sparse_shadows, refract, dense_onchip and dense_bf16
+     frames (one capture each, freed before the next), each bit for bit
+     phase 4's eager image, and again at orbit(camera, 0.1, 0), bit for
+     bit the eager frame there (inputs are copied in, not baked in); the
+     hand-written kernels in the graphs counted twice, from the graphs'
+     own kernel nodes (CUDAGraph.debug_dump) and by torch.profiler over
+     replays, each equal to the frame's phase 4 launches (the sparse
+     frames: the front graph + hit chunks x the chunk graph); a dense
+     replay under torch.cuda.set_sync_debug_mode("error"); train_step_jit on
+     sparse_train and onchip_train, TRAIN_STEPS steps beside as many
+     eager train_steps from the same start (bit for bit the eager steps
+     with the same capturable Adam; with the default Adam the first loss
+     bit-equal, the rest within GRAPHED_STEP1_TOL / GRAPHED_PARAM_TOL /
+     GRAPHED_LOSS_RTOL; K3 twice a replayed step); graphed and eager ms
+     side by side (median of 5 after a warm-up), capture ms and
+     graph-pool bytes
 
-Launch counts include phase 10's.  The second-to-last line is {"kernels": [...]}; the last line is
+Launch counts include phases 10's and 11's.  The Python launch counters
+count a graph's capture (and its eager warm-up), not its replays: the
+CLIs of phases 6-8 replay graphs, so their counts are the captures'.
+The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -585,20 +607,16 @@ def kernel_durations(fn, reps: int):
             if e.get("cat") == "kernel"]
 
 
-def profiled(fn, reps: int = 10, expect=None):
-    """(CUDA kernels a call of ``fn`` runs, their device time a call in
-    ms): the kernels alone, without the host time between launches that
-    CUDA events around a call also count (a memset is not a kernel).  A
-    trace now and then drops kernel records (once, more than half of
-    K7's), and never adds one: while some name's records are not a
-    multiple of ``reps``, or the count is not ``expect`` (a trace that
-    dropped every record of one kernel name), the trace is taken again
-    (five traces at most), and each name keeps its records from the
-    trace that held the most of them.  It counts round(records / reps)
-    launches a call, each at the name's mean duration: a dropped record
-    changes neither the count nor, beyond the spread of the name's
-    durations, the time.  Callers that know how many kernels a call runs
-    pass ``expect`` and check the count."""
+def profile_counts(fn, reps: int = 10, expect=None, accept=None):
+    """(name -> kernels of that name a call of ``fn`` runs, name -> their
+    durations in us) from torch.profiler traces.  A trace now and then
+    drops kernel records (once, more than half of K7's), and never adds
+    one: while some name's records are not a multiple of ``reps``, or the
+    count is not ``expect`` (a trace that dropped every record of one
+    kernel name), or ``accept(counts)`` is false, the trace is taken again
+    (five traces at most), and each name keeps its records from the trace
+    that held the most of them.  It counts round(records / reps) launches
+    a call: a dropped record does not change the count."""
     per = {}
     for _ in range(5):
         trace = {}
@@ -607,13 +625,24 @@ def profiled(fn, reps: int = 10, expect=None):
         for name, d in trace.items():
             if len(d) > len(per.get(name, ())):
                 per[name] = d
+        counts = {k: round(len(v) / reps) for k, v in per.items()}
         whole = per and all(len(d) % reps == 0 for d in per.values())
-        if whole and expect in (None, sum(round(len(d) / reps)
-                                          for d in per.values())):
+        if (whole and expect in (None, sum(counts.values()))
+                and (accept is None or accept(counts))):
             break
     if not per:
         raise SmokeFailure("five profiler traces held no kernel")
-    counts = {k: round(len(v) / reps) for k, v in per.items()}
+    return {k: round(len(v) / reps) for k, v in per.items()}, per
+
+
+def profiled(fn, reps: int = 10, expect=None):
+    """(CUDA kernels a call of ``fn`` runs, their device time a call in
+    ms): the kernels alone, without the host time between launches that
+    CUDA events around a call also count (a memset is not a kernel), from
+    ``profile_counts``, each name's launches at its mean duration.
+    Callers that know how many kernels a call runs pass ``expect`` and
+    check the count."""
+    counts, per = profile_counts(fn, reps, expect)
     return (sum(counts.values()),
             sum(n * float(np.mean(per[k])) for k, n in counts.items()) / 1e3)
 
@@ -1120,16 +1149,16 @@ def check_routes(name, n, builds=1):
 
 def phase_main_path(frames):
     """The frames through render_frame; returns the launch counts summed
-    over the frames, and the images."""
+    over the frames, the images, and each frame's counts."""
     from raytracebvh_tpu_torch import render_frame
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.ops import traverse_cuda
 
-    images, totals = {}, dict.fromkeys(KERNELS, 0)
+    images, totals, per_frame = {}, dict.fromkeys(KERNELS, 0), {}
     traverse_cuda.reset_truncated()
     for name, (scene, cam, cfg) in frames.items():
         img, n, refr = render_counted(name, scene, cam, cfg)
-        images[name] = img
+        images[name], per_frame[name] = img, n
         hits = hit_mask(img, cfg)
         rate = float(hits.float().mean())
         log(f"  {name}: {tuple(img.shape)}, hit rate {rate:.4f}, "
@@ -1203,7 +1232,7 @@ def phase_main_path(frames):
             f"{float(diff.max()):.3g}, {frac:.6f} of pixels within 1e-4; "
             f"plain render {ms:.1f} ms/frame")
         check(frac >= MATCH_MIN, f"{name} image: only {frac} of pixels match")
-    return totals, images
+    return totals, images, per_frame
 
 
 def phase_train(train):
@@ -1226,13 +1255,7 @@ def phase_train(train):
         torch.cuda.synchronize()
         n = read_counts()
         log(f"  {name}: loss {float(loss)!r}, launches {n}")
-        # a walk and a leaf gather a pass (2), K2 for the texture quads
-        # (2), K3 twice (the two leaf gathers' backward), K8 once a build
-        want = dict.fromkeys(KERNELS, 0)
-        if name in ONCHIP_ALL:
-            want.update(K5=2, K7=2, K2=2, K3=2, K8=1)
-        else:
-            want.update(K1=2, K2=4, K3=2)
+        want = step_routes(name)
         check(n == want, f"{name}: launches {n}, not {want}")
         for k in totals:
             totals[k] += n[k]
@@ -1380,12 +1403,15 @@ def phase_train_cli(obj, device):
             log(f"  {what}: exit {rc} in {dt:.1f} s, launches {n}")
             check(rc == 0, f"{what} exited {rc}")
             # --backend auto on a 3 072-leaf tree: K5 (a walk a pass, two
-            # passes a render), K2, and K3 twice a step
+            # passes a render), K2, and K3 twice in the step's warm-up and
+            # twice in its capture: the counters do not see a graph's
+            # replays (phase 11 counts K3 in them, twice a step)
             check(n["K5"] > 0 and n["K1"] == n["K4"] == n["K6"] == 0,
                   f"{what}: launches {n}, not K5 alone among the walks")
             check(n["K2"] > 0, f"{what}: K2 was not launched")
-            check(n["K3"] == 2 * trained,
-                  f"{what}: {n['K3']} K3 launches for {trained} steps")
+            check(n["K3"] == 4,
+                  f"{what}: {n['K3']} K3 launches, not 2 in the step's "
+                  "warm-up and 2 in its capture")
             losses = [float(ln.split()[-1]) for ln in lines
                       if ln.startswith("step ")]
             check(len(losses) == trained and all(np.isfinite(losses)),
@@ -1710,6 +1736,297 @@ def phase_sharded(frames, train, images, steps, smi):
     return totals
 
 
+# phase 11: render_frame_jit and train_step_jit, the port's counterparts
+# of the JAX package's jitted frame and step (CUDA graphs, graphs.py)
+GRAPHED_FRAMES = ("dense", "sparse", "large", "dense_shadows",
+                  "sparse_shadows", "refract", "dense_onchip", "dense_bf16")
+GRAPHED_TRAIN = ("sparse_train", "onchip_train")
+# the graphed steps' parameters against the eager steps' with
+# make_optimizer's default Adam, largest |difference|.  The capturable Adam
+# takes its learning rate as a float32 tensor and computes its bias
+# corrections on the device in float32, where the default one uses Python
+# floats, so after one step (same gradient) an update (~lr = 1e-2) differs
+# by a few of its ulps (~1e-9) and a parameter (|p| <= ~1) by a few of its
+# own (<= 1.2e-7 each)
+GRAPHED_STEP1_TOL = 1e-6
+# after TRAIN_STEPS steps: from step 2 on the two runs' gradients differ
+# (those ulps move rays across triangle edges and change every float sum),
+# and Adam's update is at most 1.0036 lr for steps 1-3 (Cauchy-Schwarz over
+# m-hat and v-hat with b1 0.9, b2 0.999), so a parameter may part by up to
+# 2 x 1.0036 lr a step after the first
+GRAPHED_PARAM_TOL = 2 * 1.0036 * 1e-2 * (TRAIN_STEPS - 1)
+# the graphed steps' losses against the default Adam's eager steps':
+# whole-frame means, moved by the parted parameters only in their 7th
+# digit
+GRAPHED_LOSS_RTOL = 1e-5
+
+
+def kernel_of(name):
+    """The K of a hand-written kernel's name, demangled (the profiler's)
+    or mangled (a graph's dump), counting each wrapper's call once (K3 by
+    its last kernel, K8 by its tile kernel); None for any other kernel."""
+    false = "<false>" in name or "ILb0E" in name
+    if "traverse_shared_kernel" in name:
+        return "K5" if false else "K6"
+    if "traverse_kernel" in name:
+        return "K1" if false else "K4"
+    if "gather_cols_f32_kernel" in name:
+        return "K7"
+    if "gather_f32_kernel" in name or "gather_u8_kernel" in name:
+        return "K2"
+    if "scatter_finish_kernel" in name:
+        return "K3"
+    if "sort_tile_kernel" in name:
+        return "K8"
+    return None
+
+
+def routes(counts):
+    """K -> calls, from kernel name -> kernels of that name."""
+    out = dict.fromkeys(KERNELS, 0)
+    for name, n in counts.items():
+        k = kernel_of(name)
+        if k is not None:
+            out[k] += n
+    return out
+
+
+def dump_routes(graph):
+    """(K -> calls, kernel nodes in all) of a kept CUDA graph, from its
+    own kernel nodes: ``CUDAGraph.debug_dump``'s DOT gives each node as a
+    record ``"graph_G_node_N"[... label="{KERNEL | {ID | N | <mangled
+    name><<<grid, block, smem>>>} ...}"];`` over several lines.  A witness
+    of the graph's kernels that needs no profiler."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    nodes = re.findall(r'"graph_\d+_node_\d+"\[.*?\];', dot, re.DOTALL)
+    kernels = [n for n in nodes if 'label="{KERNEL' in n]
+    check(kernels, f"a graph's dump holds no kernel node: {dot[:300]!r}")
+    return routes({n: 1 for n in kernels}), len(kernels)
+
+
+def step_routes(name):
+    """K -> calls of one training step of ``name``: a walk and a leaf
+    gather a pass (2), K2 for the texture quads (2), K3 twice (the two
+    leaf gathers' backward), K8 once a build where the config sorts with
+    it."""
+    want = dict.fromkeys(KERNELS, 0)
+    if name in ONCHIP_ALL:
+        want.update(K5=2, K7=2, K2=2, K3=2, K8=1)
+    else:
+        want.update(K1=2, K2=4, K3=2)
+    return want
+
+
+def graphed_frame(name, frame_args, image, want):
+    """render_frame_jit on one frame: its image and an orbited one bit for
+    bit the eager frames', its kernels in the graphs and in the replays
+    equal to phase 4's routes ``want``; returns its row of the table and
+    the launch counts of its warm-up and capture."""
+    from raytracebvh_tpu_torch import pipeline, render_frame, render_frame_jit
+    from raytracebvh_tpu_torch.camera import orbit
+
+    scene, cam, cfg = frame_args
+    cache = pipeline.FRAME_GRAPHS
+    cache.clear()
+    torch.cuda.empty_cache()
+    reset_counts()
+    with torch.inference_mode():
+        img = render_frame_jit(scene, cam, cfg)
+        torch.cuda.synchronize()
+    n = read_counts()
+    (frame,) = cache.entries.values()
+    ndiff = int((img != image).any(-1).sum())
+    check(img.dtype == image.dtype and ndiff == 0,
+          f"graphed {name}: {ndiff} pixels off phase 4's eager image")
+    cam2 = orbit(cam, 0.1, 0.0)
+    with torch.inference_mode():
+        img2 = render_frame_jit(scene, cam2, cfg)
+        ref2 = render_frame(scene, cam2, cfg)
+        torch.cuda.synchronize()
+    ndiff2 = int((img2 != ref2).any(-1).sum())
+    check(ndiff2 == 0 and not torch.equal(img2, img)
+          and len(cache.entries) == 1,
+          f"graphed {name}: orbited frame {ndiff2} pixels off the eager one "
+          f"({len(cache.entries)} captures)")
+    with torch.inference_mode():
+        render_frame_jit(scene, cam, cfg)  # phase 4's camera again
+        torch.cuda.synchronize()
+
+    # the kernels in the graphs, from their own nodes
+    if frame.culled:
+        hit = int(frame.front.output[-1].sum())
+        (front, nf), (chunk, nc) = (dump_routes(c.graph)
+                                    for c in frame.captures)
+        nodes = {k: front[k] + hit * chunk[k] for k in KERNELS}
+        shape = f"front {nf} + {hit} x chunk {nc} kernel nodes"
+    else:
+        nodes, nk = dump_routes(frame.captures[0].graph)
+        shape = f"{nk} kernel nodes"
+    check(nodes == want,
+          f"graphed {name}: graph nodes {nodes}, phase 4 {want}")
+
+    # ... and from torch.profiler over replays
+    def call():
+        with torch.inference_mode():
+            render_frame_jit(scene, cam, cfg)
+
+    counts, per = profile_counts(call, reps=1,
+                                 accept=lambda c: routes(c) == want)
+    seen = routes(counts)
+    check(seen == want, f"graphed {name}: profiled {seen}, phase 4 {want}")
+    kernels = sum(counts.values())
+    device_ms = sum(k * float(np.mean(per[x]))
+                    for x, k in counts.items()) / 1e3
+
+    if not frame.culled and name == "dense":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        except RuntimeError as e:
+            raise SmokeFailure(f"graphed {name}: a host read in a replay: "
+                               f"{e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log(f"  graphed {name}: a replay under sync-debug mode 'error' "
+            "raised nothing")
+
+    with torch.inference_mode():
+        eager_ms = wall_ms(lambda: render_frame(scene, cam, cfg))
+        graphed_ms = wall_ms(lambda: render_frame_jit(scene, cam, cfg))
+    row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
+               capture_ms=frame.capture_ms, pool_bytes=frame.pool_bytes,
+               kernels=kernels, device_ms=device_ms)
+    log(f"  graphed {name}: bit for bit phase 4's image and the eager frame "
+        f"at an orbited camera; {shape}; routes {seen} in the graph and in "
+        f"a replay (phase 4's); eager {eager_ms:.2f} ms, graphed "
+        f"{graphed_ms:.2f} ms; capture {frame.capture_ms:.1f} ms, graph "
+        f"pool {frame.pool_bytes} bytes; a replay {kernels} kernels, "
+        f"{device_ms:.3f} ms of device time")
+    cache.clear()
+    return row, n
+
+
+def graphed_step(name, step_args):
+    """train_step_jit on ``name``, TRAIN_STEPS steps, against as many
+    eager train_steps from the same start: with the same capturable Adam,
+    every loss and parameter bit for bit (the graph replays the eager
+    step); with make_optimizer's default Adam, the first loss bit for bit,
+    the losses within GRAPHED_LOSS_RTOL, the parameters after one step
+    within GRAPHED_STEP1_TOL (the update's ulps) and after TRAIN_STEPS
+    steps within GRAPHED_PARAM_TOL; the step's kernels in a replay (K3
+    twice).  Returns its row and
+    the launch counts of its warm-up and capture."""
+    from raytracebvh_tpu_torch.models import inverse
+
+    scene, cam, cfg = step_args
+    target = torch.zeros((H, W, 4), device=scene.device)
+
+    def eager_run(capturable):
+        params = inverse.init_params(scene)
+        opt = inverse.make_optimizer(params, 1e-2, capturable)
+        snaps, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            losses.append(inverse.train_step(params, opt, scene, cam, target,
+                                             cfg))
+            snaps.append([p.detach().clone() for p in params])
+        return params, opt, losses, snaps
+
+    pe, oe, le, se = eager_run(False)
+    _, _, lc, sc = eager_run(True)
+    pg = inverse.init_params(scene)
+    og = inverse.make_optimizer(pg, 1e-2, capturable=True)
+    reset_counts()
+    lg, sg = [], []
+    for _ in range(TRAIN_STEPS):
+        lg.append(inverse.train_step_jit(pg, og, scene, cam, target, cfg,
+                                         lr=1e-2))
+        sg.append([p.detach().clone() for p in pg])
+    torch.cuda.synchronize()
+    n = read_counts()
+    start = [p.detach() for p in inverse.init_params(scene)]
+    moved = max(float((p - p0).abs().max()) for p, p0 in zip(se[-1], start))
+    same_c = all(torch.equal(a, b) for a, b in zip(lg, lc)) and all(
+        torch.equal(a, b) for x, y in zip(sg, sc) for a, b in zip(x, y))
+    off = [max(float((a - b).abs().max()) for a, b in zip(x, y))
+           for x, y in zip(sg, se)]
+    within = [sum(int((a - b).abs().le(GRAPHED_STEP1_TOL).sum())
+                  for a, b in zip(x, y)) / sum(a.numel() for a in x)
+              for x, y in zip(sg, se)]
+    log(f"  graphed {name}: {TRAIN_STEPS} steps, losses graphed "
+        f"{[float(x) for x in lg]}, eager {[float(x) for x in le]}; "
+        f"graphed vs eager with the capturable Adam: "
+        f"{'bit for bit' if same_c else 'DIFFERENT'}; vs the default Adam: "
+        f"parameters off by at most {off} after each step, share within "
+        f"{GRAPHED_STEP1_TOL} {within} (largest move {moved:.4g})")
+    check(same_c, f"graphed {name}: not the eager step's bits with the same "
+          "capturable Adam")
+    check(torch.equal(lg[0], le[0]),
+          f"graphed {name}: first loss off the default Adam's eager loss")
+    check(off[0] <= GRAPHED_STEP1_TOL and moved > 0,
+          f"graphed {name}: parameters {off[0]} off after one step")
+    check(off[-1] <= GRAPHED_PARAM_TOL,
+          f"graphed {name}: parameters {off[-1]} off after {TRAIN_STEPS} "
+          "steps")
+    check(all(abs(float(a) - float(b)) <= GRAPHED_LOSS_RTOL * abs(float(b))
+              for a, b in zip(lg, le)),
+          f"graphed {name}: losses off the default Adam's eager losses")
+    (entry,) = inverse._STEP_GRAPHS[og].entries.values()
+    want = step_routes(name)
+
+    def call():
+        inverse.train_step_jit(pg, og, scene, cam, target, cfg, lr=1e-2)
+
+    counts, per = profile_counts(call, reps=1,
+                                 accept=lambda c: routes(c) == want)
+    seen = routes(counts)
+    check(seen == want, f"graphed {name}: profiled {seen}, not {want}")
+    kernels = sum(counts.values())
+    device_ms = sum(k * float(np.mean(per[x]))
+                    for x, k in counts.items()) / 1e3
+    eager_ms = wall_ms(lambda: inverse.train_step(pe, oe, scene, cam, target,
+                                                  cfg))
+    graphed_ms = wall_ms(call)
+    cap = entry.captured
+    row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
+               capture_ms=cap.capture_ms, pool_bytes=cap.pool_bytes,
+               kernels=kernels, device_ms=device_ms, param_off=off)
+    log(f"  graphed {name}: routes {seen} a replay (K3 twice); eager "
+        f"train_step {eager_ms:.2f} ms, graphed {graphed_ms:.2f} ms; capture "
+        f"{cap.capture_ms:.1f} ms, graph pool {cap.pool_bytes} bytes; a "
+        f"replay {kernels} kernels, {device_ms:.3f} ms of device time")
+    return row, n
+
+
+def phase_graphed(frames, train, images, frame_counts):
+    """Phase 11: render_frame_jit on GRAPHED_FRAMES and train_step_jit on
+    GRAPHED_TRAIN, one capture each, freed before the next; returns the
+    launch counts of their warm-ups and captures (the counters do not see
+    replays)."""
+    from raytracebvh_tpu_torch import pipeline
+
+    totals, rows = dict.fromkeys(KERNELS, 0), {}
+    pipeline.FRAME_GRAPHS.debug = True
+    try:
+        for name in GRAPHED_FRAMES:
+            rows[name], n = graphed_frame(name, frames[name], images[name],
+                                          frame_counts[name])
+            for k in totals:
+                totals[k] += n[k]
+    finally:
+        pipeline.FRAME_GRAPHS.debug = False
+    for name in GRAPHED_TRAIN:
+        rows[name], n = graphed_step(name, train[name])
+        for k in totals:
+            totals[k] += n[k]
+    log("  graphed rows: " + json.dumps(rows))
+    log(f"  graphed launches (warm-ups and captures): {totals}")
+    return totals
+
+
 def run_sharded_ranks(world: int) -> None:
     """Starts ``world`` ranks of this script (--sharded-rank), one card
     each, and fails unless every rank passes."""
@@ -1821,7 +2138,7 @@ def main() -> int:
         kern.update(phase_onchip_kernels(frames))
         phase_done(3)
         log("phase 4 main path:")
-        launches, images = phase_main_path(frames)
+        launches, images, frame_counts = phase_main_path(frames)
         phase_done(4)
         log("phase 5 training:")
         counts, steps = phase_train(train)
@@ -1856,6 +2173,11 @@ def main() -> int:
         for k, v in phase_sharded(frames, train, images, steps, smi).items():
             launches[k] += v
         phase_done(10)
+        log("phase 11 graphed:")
+        for k, v in phase_graphed(frames, train, images,
+                                  frame_counts).items():
+            launches[k] += v
+        phase_done(11)
     except SmokeFailure as e:
         return fail(str(e))
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",

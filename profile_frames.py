@@ -12,9 +12,11 @@ synchronize, median of 5 after a warm-up), the BVH build alone (same
 clock), the profiled wall time per frame, the device busy time (the union
 of kernel intervals in the trace), the idle share 1 - busy / profiled
 wall, kernels per frame, the device time of each of K1-K8, and the
-``--top`` kernels by device time.  The profiler adds host time, so the idle share
-is an upper bound of the unprofiled frame's.  Exits non-zero without a
-CUDA device.
+``--top`` kernels by device time; then the same for the frame replayed
+as a CUDA graph (``render_frame_jit``) and for the graphed training step
+(``train_step_jit``: loss, backward and Adam, where the eager row has no
+Adam).  The profiler adds host time, so the idle share is an upper bound
+of the unprofiled frame's.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -71,33 +73,49 @@ def busy_us(kernels):
 
 def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
     """A forward frame under inference mode, or (``train``) a training
-    step: loss_fn + backward() with respect to init_params(scene)."""
-    from raytracebvh_tpu_torch import render_frame
+    step: loss_fn + backward() with respect to init_params(scene); then
+    the same frame replayed as a CUDA graph (``render_frame_jit``), or
+    the graphed step (``train_step_jit``: loss, backward and Adam)."""
+    from raytracebvh_tpu_torch import pipeline, render_frame, render_frame_jit
     from raytracebvh_tpu_torch.camera import camera_matrices
-    from raytracebvh_tpu_torch.models.inverse import init_params
+    from raytracebvh_tpu_torch.models import inverse
     from raytracebvh_tpu_torch.pipeline import build_bvh
 
     if train:
-        params = init_params(scene)
+        params = inverse.init_params(scene)
         target = torch.zeros((H, W, 4), device=scene.device)
         run = lambda: value_and_grad(params, scene, cam, target, cfg)
+        gparams = inverse.init_params(scene)
+        opt = inverse.make_optimizer(gparams, 1e-2, capturable=True)
+        graphed = lambda: inverse.train_step_jit(gparams, opt, scene, cam,
+                                                 target, cfg, lr=1e-2)
         mode = torch.enable_grad
     else:
         run = lambda: render_frame(scene, cam, cfg)
+        graphed = lambda: render_frame_jit(scene, cam, cfg)
         mode = torch.inference_mode
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     with mode():
-        frame_ms = wall_ms(run)
         wvp, wv = camera_matrices(cam, cfg.width, cfg.height)
         build_ms = wall_ms(lambda: build_bvh(scene, wvp, wv, cfg))
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(nframes):
-                run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / nframes
+        profile_run(name, run, nframes, top,
+                    f", build alone {build_ms:.2f} ms")
+        profile_run(f"{name} graphed", graphed, nframes, top)
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def profile_run(name, run, nframes, top, extra=""):
+    """One row: ``run``'s unprofiled time, then ``nframes`` calls under
+    torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    frame_ms = wall_ms(run)
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(nframes):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / nframes
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -113,11 +131,10 @@ def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
         launches = sum(v[1] for v in mine) // PASSES.get(k, 1) // nframes
         ours.append(f"{k} {sum(v[0] for v in mine):.3f} ms "
                     f"({launches} launches)")
-    print(f"== {name}: frame {frame_ms:.2f} ms unprofiled, build alone "
-          f"{build_ms:.2f} ms, profiled wall {wall:.2f} ms/frame, device busy "
-          f"{busy:.2f} ms -> idle share {1 - busy / wall:.3f}; "
-          f"{len(kernels) // nframes} kernels/frame; {', '.join(ours)}",
-          flush=True)
+    print(f"== {name}: frame {frame_ms:.2f} ms unprofiled{extra}, profiled "
+          f"wall {wall:.2f} ms/frame, device busy {busy:.2f} ms -> idle "
+          f"share {1 - busy / wall:.3f}; {len(kernels) // nframes} "
+          f"kernels/frame; {', '.join(ours)}", flush=True)
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])[:top]
     for kname, (ms, count) in ranked:
         print(f"  {ms:9.3f} ms {count // nframes:7d}x  {kname[:100]}")

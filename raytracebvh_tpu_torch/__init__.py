@@ -18,6 +18,10 @@ hand-written CUDA kernel (``csrc/``, built with nvcc at first use):
   K8     bitonic sort of the build's codes (``ops/sort_cuda``):
          ``sort_backend`` ``bitonic``, and ``auto`` on CUDA tensors
 
+``render_frame_jit`` (and ``models.inverse.train_step_jit``) replay the
+frame (and the training step) as CUDA graphs on the card, where the JAX
+package runs ``jax.jit``-compiled programs (``graphs``).
+
 On the CPU every step is plain PyTorch (``pytest tests/ -k torch``); on
 the GPU ``python3 chip_smoke.py`` and ``pytest --noconftest -m gpu
 tests/test_torch_cuda.py`` hold each kernel to its plain version.  It
@@ -26,7 +30,7 @@ imports neither JAX nor the JAX package.
 
 from .config import RenderConfig
 from .core.types import BVH, Camera, HitRecord, Materials, Rays, Scene
-from .pipeline import build_bvh, render_frame
+from .pipeline import build_bvh, render_frame, render_frame_jit
 
 __all__ = [
     "RenderConfig",
@@ -38,4 +42,5 @@ __all__ = [
     "Scene",
     "build_bvh",
     "render_frame",
+    "render_frame_jit",
 ]

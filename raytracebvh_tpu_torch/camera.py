@@ -8,6 +8,8 @@ rays), a world-space pinhole in 'perspective' mode.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -61,8 +63,7 @@ def camera_matrices(cam: Camera, width: int, height: int):
     """(wvp, wv) row-vector matrices, world = identity, in the camera's
     dtype and on its device."""
     view = look_at_lh(cam.eye, cam.at, cam.up)
-    aspect = div(torch.tensor(height, dtype=cam.eye.dtype,
-                              device=cam.eye.device), width)
+    aspect = div(cam.eye.new_full((), height), width)
     proj = perspective_fov_lh(cam.fov, aspect, cam.near, cam.far)
     return view @ proj, view
 
@@ -91,16 +92,16 @@ def reference_rays(width: int, height: int, ortho_scale: float,
     On the CUDA device unless asked for another (without one it raises)."""
     xs = torch.arange(width, dtype=dtype, device=device)
     ys = torch.arange(height, dtype=dtype, device=device)
-    hx = torch.tensor(width // 2, dtype=dtype, device=device)
-    hy = torch.tensor(height // 2, dtype=dtype, device=device)
+    hx = torch.full((), width // 2, dtype=dtype, device=device)
+    hy = torch.full((), height // 2, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # [h, w]
     origin = torch.stack(
         [div(gx - hx, ortho_scale), div(gy - hy, ortho_scale),
          torch.zeros_like(gx)], dim=-1)
-    direction = torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
-                             device=device).expand(origin.shape)
+    direction = torch.zeros_like(origin)
+    direction[..., 2].fill_(1.0)
     return Rays(origin=origin.reshape(-1, 3),
-                direction=direction.reshape(-1, 3).contiguous())
+                direction=direction.reshape(-1, 3))
 
 
 def perspective_rays(cam: Camera, width: int, height: int,
@@ -156,6 +157,18 @@ def tile_order(width: int, height: int, tile: int):
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size, dtype=np.int64)
     return perm, inv
+
+
+@functools.lru_cache(maxsize=8)
+def tile_permutation(width: int, height: int, tile: int,
+                     device: torch.device):
+    """``tile_order``'s (perm, inv) as int64 tensors on ``device``, made
+    once a frame size, tile and device: a frame then indexes with them
+    without a copy from the host, which a CUDA graph cannot replay."""
+    perm, inv = tile_order(width, height, tile)
+    with torch.inference_mode(False):
+        return (torch.as_tensor(perm, device=device),
+                torch.as_tensor(inv, device=device))
 
 
 def permute_rays(rays: Rays, perm) -> Rays:

@@ -11,7 +11,9 @@ It profiles on the CUDA device unless ``--device cpu`` asks for the CPU;
 without a CUDA device it exits 1.  ``--backend`` is the traversal
 backend (``cli.render``'s names); ``--sort bitonic`` times kernel K8 in
 the sort stage.  ``--trace DIR`` also writes a Chrome trace of one frame
-(``torch.profiler``) into DIR.
+(``torch.profiler``) into DIR: a replay of ``render_frame_jit``'s graph
+on the card (captured before the trace), as the JAX CLI traces its
+jitted frame; the stage table stays eager, each stage alone.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def main(argv=None):
 
     import torch
 
-    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame
+    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame_jit
     from raytracebvh_tpu_torch.io.obj import load_obj
     from raytracebvh_tpu_torch.utils.assets import find_asset
     from raytracebvh_tpu_torch.utils.profiling import (
@@ -73,8 +75,10 @@ def main(argv=None):
     times = stage_times(scene, cam, cfg, iters=args.iters)
     print_stage_times(times, cfg)
     if args.trace:
-        with torch.no_grad(), trace(args.trace) as trace_path:
-            render_frame(scene, cam, cfg)
+        with torch.no_grad():
+            render_frame_jit(scene, cam, cfg)  # the capture, untraced
+            with trace(args.trace) as trace_path:
+                render_frame_jit(scene, cam, cfg)
         print(f"trace written to {trace_path}")
     return 0
 

@@ -8,9 +8,12 @@ Usage:
         [--refract]
 
 It renders on the CUDA device unless ``--device cpu`` asks for the CPU;
-without a CUDA device it exits 1.  ``--backend auto`` takes the on-chip
-traversal K5/K6 for a tree that fits a block's shared memory (the CLI's
-small scenes) and K1/K4 above; ``shared`` names K5/K6 and the
+without a CUDA device it exits 1.  Every frame goes through
+``render_frame_jit``, as the JAX CLI's do: on the card the first frame
+captures a CUDA graph, and each later one (the ``--frames`` orbit
+included) replays it with the new camera.  ``--backend auto`` takes the
+on-chip traversal K5/K6 for a tree that fits a block's shared memory
+(the CLI's small scenes) and K1/K4 above; ``shared`` names K5/K6 and the
 channel-major leaf gather K7.
 """
 
@@ -82,7 +85,7 @@ def main(argv=None):
 
     import torch
 
-    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame
+    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame_jit
     from raytracebvh_tpu_torch.camera import orbit
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.io.bmp import write_bmp
@@ -133,7 +136,7 @@ def main(argv=None):
     frames = 0
     with MetricsWriter(args.metrics) as metrics, torch.inference_mode():
         for i in range(args.frames):
-            img = render_frame(scene, cam, cfg)
+            img = render_frame_jit(scene, cam, cfg)
             frames += 1
             if args.sync or args.frames == 1:
                 sync()

@@ -15,7 +15,11 @@ Usage:
 the start params (the JAX CLI's perturbation, from the same numpy seed) —
 a self-contained convergence demo needing no files.  It trains on the
 CUDA device unless ``--device cpu`` asks for the CPU; without a CUDA
-device it exits 1.
+device it exits 1.  The target and final renders go through
+``render_frame_jit`` and the steps through ``train_step_jit``, as the
+JAX CLI's go through ``jax.jit``: on the card each is a CUDA graph,
+captured once and replayed (Adam is made ``capturable`` there, and
+``--lr`` is written into its device learning rate).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame
+    from raytracebvh_tpu_torch import Camera, RenderConfig, render_frame_jit
     from raytracebvh_tpu_torch.io.obj import load_obj
     from raytracebvh_tpu_torch.models.inverse import (
         InverseParams,
@@ -59,7 +63,7 @@ def main(argv=None):
         make_optimizer,
         optimizer_from_numpy,
         params_from_numpy,
-        train_step,
+        train_step_jit,
     )
     from raytracebvh_tpu_torch.utils.assets import find_asset
     from raytracebvh_tpu_torch.utils.checkpoint import (
@@ -83,7 +87,7 @@ def main(argv=None):
 
     if args.self_target or args.target is None:
         with torch.no_grad():
-            target = render_frame(scene, cam, cfg)
+            target = render_frame_jit(scene, cam, cfg)
     else:
         from raytracebvh_tpu_torch.io.image import load_texture
 
@@ -107,7 +111,8 @@ def main(argv=None):
             diffuse=params.diffuse.detach().cpu().numpy() * 0.5,
             specular=params.specular.detach().cpu().numpy(),
         ), device)
-    opt = make_optimizer(params, args.lr)
+    capturable = device == "cuda"
+    opt = make_optimizer(params, args.lr, capturable)
 
     def sync():
         if device == "cuda":
@@ -121,14 +126,15 @@ def main(argv=None):
         if restored is not None:
             p_np, s_np, step0 = restored
             params = params_from_numpy(p_np, device)
-            opt = optimizer_from_numpy(params, s_np, args.lr, device)
+            opt = optimizer_from_numpy(params, s_np, args.lr, device,
+                                       capturable)
             print(f"resumed from {args.ckpt} at step {step0}")
 
     sync()
     t0 = time.perf_counter()
     loss = None
     for step in range(step0, args.steps):
-        loss = train_step(params, opt, scene, cam, target, cfg)
+        loss = train_step_jit(params, opt, scene, cam, target, cfg, args.lr)
         if (step + 1) % args.log_every == 0:
             print(f"step {step + 1}/{args.steps}  loss {float(loss):.6e}")
         if args.ckpt and (step + 1) % args.ckpt_every == 0:
@@ -149,7 +155,7 @@ def main(argv=None):
         from raytracebvh_tpu_torch.models.inverse import apply_params
 
         with torch.no_grad():
-            img = render_frame(apply_params(params, scene), cam, cfg)
+            img = render_frame_jit(apply_params(params, scene), cam, cfg)
         write_bmp(args.out, img.float().cpu().numpy())
         print(f"wrote {args.out}")
     return 0

@@ -11,18 +11,31 @@ the place of ``optax.adam``: it updates the parameters in place.
 ``adam_state`` and ``optimizer_from_numpy`` carry its state to and from
 optax's layout (``AdamState``), the one checkpoints hold
 (``utils/checkpoint.py``).
+
+``train_step_jit`` is the JAX package's jitted ``train_step``: on CUDA
+tensors the loss, its backward and the optimizer's update are one CUDA
+graph (``graphs.Captured``), replayed a step, with the learning rate a
+device tensor that each call sets.  It needs Adam with ``capturable=True``
+(``make_optimizer(..., capturable=True)``), whose bias corrections are
+computed on the device in float32 where the default Adam computes them
+in Python floats: after one step the graphed parameters differ from the
+default eager step's by a few ulps of the update, and they part further
+from there; with the same capturable Adam the eager ``train_step`` gives
+the graphed step's bits.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import RenderConfig
 from ..core.types import Camera, Scene
-from ..pipeline import render_frame
+from ..pipeline import culls_chunks, render_frame
 
 
 class InverseParams(NamedTuple):
@@ -78,16 +91,17 @@ def adam_state(optimizer, params: InverseParams):
 
 
 def optimizer_from_numpy(params: InverseParams, opt_state, lr: float = 1e-2,
-                         device="cuda"):
-    """``make_optimizer(params, lr)`` holding ``opt_state``, an
-    ``optax.adam`` state of host arrays (the JAX package's, or one
+                         device="cuda", capturable: bool = False):
+    """``make_optimizer(params, lr, capturable)`` holding ``opt_state``,
+    an ``optax.adam`` state of host arrays (the JAX package's, or one
     restored from a checkpoint): ``count`` becomes each parameter's
-    ``step``, ``mu`` its ``exp_avg`` and ``nu`` its ``exp_avg_sq``, made
-    on ``device`` (the CUDA device unless the caller asks for another;
-    without a card the default raises).  A fresh optimizer takes the
-    state through ``load_state_dict``."""
+    ``step`` (on the parameters' device for a capturable optimizer, as
+    ``load_state_dict`` puts it), ``mu`` its ``exp_avg`` and ``nu`` its
+    ``exp_avg_sq``, made on ``device`` (the CUDA device unless the caller
+    asks for another; without a card the default raises).  A fresh
+    optimizer takes the state through ``load_state_dict``."""
     adam = opt_state[0]
-    optimizer = make_optimizer(params, lr)
+    optimizer = make_optimizer(params, lr, capturable)
     step = float(np.asarray(adam.count))
     sd = optimizer.state_dict()
     sd["state"] = {i: {
@@ -115,11 +129,19 @@ def loss_fn(params: InverseParams, scene: Scene, camera: Camera, target,
     return torch.mean((img - target) ** 2)
 
 
-def make_optimizer(params: InverseParams, lr: float = 1e-2):
+def make_optimizer(params: InverseParams, lr: float = 1e-2,
+                   capturable: bool = False):
     """Adam over the three parameter tensors, with ``optax.adam``'s
-    defaults (b1 0.9, b2 0.999, eps 1e-8)."""
+    defaults (b1 0.9, b2 0.999, eps 1e-8).  ``capturable`` makes the one
+    ``train_step_jit`` captures on the card: its step count lives on the
+    parameters' device and its learning rate is a float32 device tensor
+    there (``torch.optim.Adam`` steps a capturable optimizer on CUDA
+    tensors only)."""
+    if capturable:
+        lr = torch.full((), lr, dtype=torch.float32,
+                        device=params[0].device)
     return torch.optim.Adam(list(params), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+                            eps=1e-8, capturable=capturable)
 
 
 def train_step(params: InverseParams, optimizer, scene: Scene,
@@ -131,3 +153,96 @@ def train_step(params: InverseParams, optimizer, scene: Scene,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+# train_step_jit's captures: per optimizer (dropped with it), by signature
+_STEP_GRAPHS = weakref.WeakKeyDictionary()
+
+
+class _GraphedStep:
+    """``train_step`` on one optimizer's parameters as a CUDA graph.
+
+    The warm-up is a real step (it makes the optimizer's state where
+    there is none), so the parameters and the state are put back to their
+    values before it; the gradients are set to None before the capture,
+    so that backward() writes them, in the graph's memory, rather than
+    adding to them.  The parameters and the state are the caller's own
+    tensors, updated in place by each replay."""
+
+    def __init__(self, params, optimizer, scene, camera, target,
+                 cfg: RenderConfig, stream):
+        self.lr = optimizer.param_groups[0]["lr"]
+        params = tuple(params)
+        state = [optimizer.state[p] for p in params]
+        saved = [(p.detach().clone(), {k: v.clone() for k, v in s.items()})
+                 for p, s in zip(params, state)]
+
+        def warmup(s, c, t):
+            train_step(InverseParams(*params), optimizer, s, c, t, cfg)
+
+        def step(s, c, t):
+            loss = loss_fn(InverseParams(*params), s, c, t, cfg)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        def restore():
+            with torch.no_grad():
+                for p, (p0, s0), s in zip(params, saved, state):
+                    p.copy_(p0)
+                    for k, v in s.items():
+                        if k in s0:
+                            v.copy_(s0[k])
+                        else:  # a fresh optimizer: the state Adam starts from
+                            v.zero_()
+
+        self.captured = graphs.Captured(
+            step, (scene, camera, target), stream, warmup=warmup,
+            prepare=lambda: (restore(),
+                             optimizer.zero_grad(set_to_none=True)))
+        self.grads = [p.grad for p in params]  # the graph writes them
+
+    def __call__(self, scene, camera, target, lr: float):
+        self.lr.fill_(lr)
+        return self.captured(scene, camera, target).clone()
+
+
+def train_step_jit(params: InverseParams, optimizer, scene: Scene,
+                   camera: Camera, target, cfg: RenderConfig,
+                   lr: float = 1e-2):
+    """``train_step`` compiled, the counterpart of the JAX package's
+    jitted ``train_step``: the loss (before the update, detached), with
+    ``params`` and the optimizer's state updated in place at learning
+    rate ``lr``.  On CUDA tensors the loss, its backward (K3 among its
+    kernels) and Adam's update are one CUDA graph, captured at the first
+    call of its optimizer and signature and replayed with ``scene``,
+    ``camera`` and ``target`` copied in and ``lr`` written into the
+    optimizer's device learning rate (no re-capture).  ``optimizer`` must
+    be ``make_optimizer(params, lr, capturable=True)`` (or
+    ``optimizer_from_numpy(..., capturable=True)``) over ``params``.  A
+    culled chunked frame (``pipeline.culls_chunks``) reads the host in
+    the middle of the step and raises.  On CPU tensors it is
+    ``train_step`` at learning rate ``lr``."""
+    if params.vert_offsets.device.type != "cuda":
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        return train_step(params, optimizer, scene, camera, target, cfg)
+    group = optimizer.param_groups[0]
+    if (len(optimizer.param_groups) != 1 or not group.get("capturable")
+            or not isinstance(group["lr"], torch.Tensor)
+            or [id(p) for p in group["params"]] != [id(p) for p in params]):
+        raise ValueError(
+            "train_step_jit: the optimizer must be make_optimizer(params, "
+            "lr, capturable=True) over these parameters")
+    if culls_chunks(cfg, cfg.width * cfg.height):
+        raise ValueError(
+            "train_step_jit: a frame with culled ray chunks reads the host "
+            "in the middle of the step; use ray_chunk=0 or "
+            "cull_empty_chunks=False")
+    key = graphs.signature(cfg, scene, camera, target,
+                           tuple(p.data_ptr() for p in params))
+    cache = _STEP_GRAPHS.setdefault(optimizer, graphs.Cache())
+    step = cache.get(key, lambda: _GraphedStep(
+        params, optimizer, scene, camera, target, cfg,
+        cache.stream(params.vert_offsets.device)))
+    return step(scene, camera, target, lr)

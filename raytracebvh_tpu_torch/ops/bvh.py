@@ -125,7 +125,7 @@ def build_topology(codes) -> Topology:
     parent = torch.full((2 * n,), -1, dtype=I32, device=dev)
     parent[cl.long()] = ids
     parent[cr.long()] = ids
-    parent[n] = -1
+    parent[n].fill_(-1)
     leaf_ids = torch.arange(n, dtype=I32, device=dev)
     zero = torch.zeros(1, dtype=I32, device=dev)
     node_lo = torch.cat([leaf_ids, lo, zero])

@@ -19,7 +19,9 @@ import torch
 from .. import _kernels
 from . import gather_cuda
 
-launches = 0  # K7 launches (chip_smoke.py checks the main path reaches it)
+# K7 launches (chip_smoke.py checks the main path reaches it); a CUDA
+# graph's capture counts, its replays do not (they skip this wrapper)
+launches = 0
 
 
 def gather_cols_torch(tbl, idx):

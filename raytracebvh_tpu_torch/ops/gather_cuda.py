@@ -30,11 +30,13 @@ import torch
 from .. import _kernels
 from .ieee import div
 
-launches = 0  # K2 launches (chip_smoke.py checks the main path reaches it)
+# K2 launches (chip_smoke.py checks the main path reaches it); a CUDA
+# graph's capture counts, its replays do not (they skip this wrapper)
+launches = 0
 # tables of these dtypes go through the float32 kernels, exactly, and the
 # result comes back in the table's dtype, as the JAX gathers return it
 HALF_FLOATS = (torch.bfloat16, torch.float16)
-scatter_launches = 0  # K3 launches
+scatter_launches = 0  # K3 launches (counted as K2's)
 
 
 def gather_rows_torch(tbl, idx):

@@ -26,7 +26,9 @@ SMALL_MAX = 16384  # the most codes K8 sorts in one block, one launch
 TILE = 4096  # above SMALL_MAX: the codes a block sorts before the merges
 INT_MAX = 0x7FFFFFFF
 
-launches = 0  # K8 launches (chip_smoke.py checks the main path reaches it)
+# K8 launches (chip_smoke.py checks the main path reaches it); a CUDA
+# graph's capture counts, its replays do not (they skip this wrapper)
+launches = 0
 
 
 def padded_size(n: int) -> int:

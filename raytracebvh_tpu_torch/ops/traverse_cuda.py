@@ -20,7 +20,8 @@ from .. import _kernels
 from ..core.types import BVH, HitRecord, Rays
 from . import traverse as traverse_plain
 
-# launches of K1 and K4 (chip_smoke.py checks the main path reaches them)
+# launches of K1 and K4 (chip_smoke.py checks the main path reaches them);
+# a CUDA graph's capture counts, its replays do not (they skip the wrappers)
 launches = 0
 any_launches = 0
 # per device: int32[1] count of rays that reached max_steps before the end

@@ -35,7 +35,8 @@ NODE_BYTES = 32  # one node record: bbmin, bbmax, entry, skip
 LINK_CAP = 0xFFFF  # the JAX kernel's u16 links: 2 * n_leaves < LINK_CAP
 BLOCK = 1024  # threads of a K5/K6 block, one an SM (csrc/traverse_shared.cu)
 
-# launches of K5 and K6 (chip_smoke.py checks the main path reaches them)
+# launches of K5 and K6 (chip_smoke.py checks the main path reaches them);
+# a CUDA graph's capture counts, its replays do not (they skip the wrappers)
 launches = 0
 any_launches = 0
 _smem: dict = {}  # device index -> opt-in shared memory a block may use

@@ -29,12 +29,13 @@ from .camera import (
     permute_rays,
     reference_rays,
     structured_tile_shape,
-    tile_order,
+    tile_permutation,
     tile_rays,
     transform_normals,
     transform_points,
     untile_flat,
 )
+from . import graphs
 from .config import RenderConfig, resolve_backend, resolve_sort_backend
 from .core.types import BVH, Camera, HitRecord, Rays, Scene
 from .ops import bvh as bvh_ops
@@ -197,7 +198,8 @@ def light_in_ray_space(cfg: RenderConfig, wvp, dtype):
     space: 'reference' mode traces WVP-transformed geometry with no
     w-divide, so the light rides the same transform; 'perspective' mode
     traces in world space.  On ``wvp``'s device."""
-    light = torch.tensor(cfg.light_pos, dtype=dtype, device=wvp.device)
+    light = torch.stack([wvp.new_full((), x, dtype=dtype)
+                         for x in cfg.light_pos])
     if cfg.camera_mode == "reference":
         light = transform_points(light[None], wvp.to(dtype))[0]
     return (light[0], light[1], light[2])
@@ -455,43 +457,82 @@ def _shade_rays_one(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
     return torch.stack(color, dim=-1)
 
 
+def shade_setup(scene: Scene, bvh: BVH, cfg: RenderConfig):
+    """(bvh with the walks' tables, the frame's texture quad table): what
+    every pass and every ray chunk of a frame shares."""
+    if resolve_backend(cfg, "traversal_backend") != "torch":
+        # pack K1's tables once per build: every traversal reuses them,
+        # K5/K6's too
+        bvh = traverse_cuda.with_tables(bvh)
+    return bvh, _frame_tex_quads(scene, cfg)
+
+
+def culls_chunks(cfg: RenderConfig, nrays: int) -> bool:
+    """Whether ``shade_rays`` runs ``nrays`` rays as ray chunks with empty
+    chunks culled, the one path whose work the host decides (it reads
+    which chunks hit); raises where ``cfg.ray_chunk`` does not divide
+    ``nrays``."""
+    chunk = cfg.ray_chunk
+    if not (chunk > 0 and nrays > chunk):
+        return False
+    if nrays % chunk:
+        raise ValueError(f"ray_chunk {chunk} must divide ray count {nrays}")
+    return cfg.cull_empty_chunks
+
+
+def chunk_rays(rays: Rays, i: int, chunk: int) -> Rays:
+    """The ``i``-th ray chunk of ``chunk`` rays."""
+    s = i * chunk
+    return Rays(rays.origin[s:s + chunk], rays.direction[s:s + chunk])
+
+
+def trace_chunks(bvh: BVH, rays: Rays, cfg: RenderConfig):
+    """Pass 1 of the culled chunk loop: every chunk's primary traversal
+    (a launch a chunk) -> (the chunks' hit records, [chunks] bool device
+    tensor: whether any of the chunk's rays hits)."""
+    recs = [_traverse_ids(bvh, chunk_rays(rays, i, cfg.ray_chunk), cfg)
+            for i in range(rays.origin.shape[0] // cfg.ray_chunk)]
+    return recs, torch.stack([rec.hit.any() for rec in recs])
+
+
+def chunk_background(cfg: RenderConfig, tex_quads, device) -> torch.Tensor:
+    """[ray_chunk, 4] background of a culled chunk, in the shaded chunks'
+    dtype: a float quad table promotes the colour
+    (ops/shade.sample_texture_quads)."""
+    dtype = cfg.torch_dtype
+    if tex_quads.dtype != torch.uint8:
+        dtype = torch.promote_types(dtype, tex_quads.dtype)
+    return torch.stack([torch.full((cfg.ray_chunk,), b, dtype=dtype,
+                                   device=device)
+                        for b in cfg.background], dim=-1)
+
+
 def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
                light3=None):
     """The whole per-ray pipeline, optionally in sequential chunks of
     ``cfg.ray_chunk`` rays.  With ``cull_empty_chunks`` a chunk whose
     primary rays all miss skips shading and its shadow rays: it is pure
     background (its spawns carry zero intensity), so the image is the
-    same.  ``light3`` (``light_in_ray_space``) is needed for shadows."""
-    if resolve_backend(cfg, "traversal_backend") != "torch":
-        # pack K1's tables once per build: every traversal reuses them,
-        # K5/K6's too
-        bvh = traverse_cuda.with_tables(bvh)
-    tex_quads = _frame_tex_quads(scene, cfg)
+    same.  The culled loop runs in two passes: every chunk's primary
+    traversal (``trace_chunks``), one read of the chunks' hit flags on the
+    host, then each hit chunk's shading from its record.  ``light3``
+    (``light_in_ray_space``) is needed for shadows."""
+    bvh, tex_quads = shade_setup(scene, bvh, cfg)
     nrays = rays.origin.shape[0]
     chunk = cfg.ray_chunk
-    if not (chunk > 0 and nrays > chunk):
-        return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
-    if nrays % chunk:
-        raise ValueError(f"ray_chunk {chunk} must divide ray count {nrays}")
-    # a culled chunk's background takes the shaded chunks' dtype: a float
-    # quad table promotes the colour (ops/shade.sample_texture_quads)
-    dtype = cfg.torch_dtype
-    if tex_quads.dtype != torch.uint8:
-        dtype = torch.promote_types(dtype, tex_quads.dtype)
-    bg = torch.tensor(cfg.background, dtype=dtype,
-                      device=rays.origin.device).expand(chunk, 4)
-    out = []
-    for s in range(0, nrays, chunk):
-        r = Rays(rays.origin[s:s + chunk], rays.direction[s:s + chunk])
-        rec = None
-        if cfg.cull_empty_chunks:
-            rec = _traverse_ids(bvh, r, cfg)
-            if not bool(rec.hit.any()):
-                out.append(bg)
-                continue
-        out.append(_shade_rays_one(scene, bvh, r, cfg, tex_quads, light3,
-                                   rec))
-    return torch.cat(out)
+    if not culls_chunks(cfg, nrays):
+        if not (chunk > 0 and nrays > chunk):
+            return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
+        return torch.cat([
+            _shade_rays_one(scene, bvh, chunk_rays(rays, i, chunk), cfg,
+                            tex_quads, light3)
+            for i in range(nrays // chunk)])
+    recs, any_hit = trace_chunks(bvh, rays, cfg)
+    bg = chunk_background(cfg, tex_quads, rays.origin.device)
+    return torch.cat([
+        _shade_rays_one(scene, bvh, chunk_rays(rays, i, chunk), cfg,
+                        tex_quads, light3, rec) if hit else bg
+        for i, (rec, hit) in enumerate(zip(recs, any_hit.tolist()))])
 
 
 def build_transforms(camera: Camera, cfg: RenderConfig):
@@ -522,27 +563,48 @@ def frame_inputs(scene: Scene, camera: Camera, cfg: RenderConfig):
     return bvh, make_rays(camera, cfg), light3
 
 
+def _tile_shape(cfg: RenderConfig, width: int, height: int):
+    if cfg.ray_tile > 0:
+        return structured_tile_shape(width, height, cfg.ray_tile)
+    return None
+
+
+def tile_frame_rays(rays: Rays, cfg: RenderConfig, width: int,
+                    height: int) -> Rays:
+    """A ``width`` x ``height`` block of row-major rays in
+    ``cfg.ray_tile`` order (as they are when ``cfg.ray_tile`` is 0)."""
+    st = _tile_shape(cfg, width, height)
+    if st is not None:
+        return tile_rays(rays, width, height, *st, cfg.ray_tile_order)
+    if cfg.ray_tile > 0:
+        perm, _ = tile_permutation(width, height, cfg.ray_tile,
+                                   rays.origin.device)
+        return permute_rays(rays, perm)
+    return rays
+
+
+def untile_frame_color(color, cfg: RenderConfig, width: int, height: int):
+    """``tile_frame_rays``' inverse on the [rays, 4] colours."""
+    st = _tile_shape(cfg, width, height)
+    if st is not None:
+        return torch.stack(
+            [untile_flat(color[:, c], width, height, *st, cfg.ray_tile_order)
+             for c in range(4)], dim=-1)
+    if cfg.ray_tile > 0:
+        _, inv = tile_permutation(width, height, cfg.ray_tile, color.device)
+        return color[inv]
+    return color
+
+
 def shade_tiled(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
                 light3, width: int, height: int):
     """``shade_rays`` over a ``width`` x ``height`` block of row-major
     rays, traced in ``cfg.ray_tile`` order -> [height * width, 4]
     row-major.  A ray's colour does not depend on its order, so the tile
     order changes only the memory access pattern."""
-    w, h = width, height
-    st = structured_tile_shape(w, h, cfg.ray_tile) if cfg.ray_tile > 0 else None
-    if st is not None:
-        th, tw = st
-        rays = tile_rays(rays, w, h, th, tw, cfg.ray_tile_order)
-        color = shade_rays(scene, bvh, rays, cfg, light3)
-        return torch.stack(
-            [untile_flat(color[:, c], w, h, th, tw, cfg.ray_tile_order)
-             for c in range(4)], dim=-1)
-    if cfg.ray_tile > 0:
-        perm, inv = tile_order(w, h, cfg.ray_tile)
-        color = shade_rays(scene, bvh, permute_rays(rays, perm), cfg,
-                           light3)
-        return color[torch.as_tensor(inv, device=color.device)]
-    return shade_rays(scene, bvh, rays, cfg, light3)
+    rays = tile_frame_rays(rays, cfg, width, height)
+    color = shade_rays(scene, bvh, rays, cfg, light3)
+    return untile_frame_color(color, cfg, width, height)
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
@@ -555,3 +617,107 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     bvh, rays, light3 = frame_inputs(scene, camera, cfg)
     color = shade_tiled(scene, bvh, rays, cfg, light3, cfg.width, cfg.height)
     return color.reshape(cfg.height, cfg.width, 4)
+
+
+# render_frame_jit's captures, by signature (graphs.Cache)
+FRAME_GRAPHS = graphs.Cache()
+
+
+def _culled_front(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Everything of a culled chunked frame up to its host read: the
+    build, the tiled rays, the shared tables, and pass 1 of the chunk loop
+    (``trace_chunks``)."""
+    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
+    rays = tile_frame_rays(rays, cfg, cfg.width, cfg.height)
+    bvh, tex_quads = shade_setup(scene, bvh, cfg)
+    recs, any_hit = trace_chunks(bvh, rays, cfg)
+    return bvh, rays, light3, tex_quads, recs, any_hit
+
+
+class _GraphedFrame:
+    """``render_frame`` for one signature as replayed CUDA graphs.
+
+    A frame whose work the device decides alone is one graph.  The culled
+    chunk loop (``culls_chunks``) reads on the host which chunks hit, so
+    it is two graphs sharing one memory pool: the front
+    (``_culled_front``) and one chunk's shading (``_shade_rays_one``),
+    captured on a static chunk slot and replayed for each hit chunk.  The
+    host reads the chunks' hit flags once a frame, between the two; miss
+    chunks get the background, and the frame's colours are untiled
+    eagerly (a view, or a few copies).  Every chunk's arithmetic is
+    ``shade_rays``'."""
+
+    def __init__(self, scene: Scene, camera: Camera, cfg: RenderConfig,
+                 cache: graphs.Cache):
+        self.cfg = cfg
+        stream = cache.stream(scene.device)
+        w, h = cfg.width, cfg.height
+        self.culled = culls_chunks(cfg, w * h)
+        if not self.culled:
+            self.frame = graphs.Captured(
+                lambda s, c: render_frame(s, c, cfg), (scene, camera), stream,
+                debug=cache.debug)
+            self.captures = (self.frame,)
+            return
+        self.front = graphs.Captured(
+            lambda s, c: _culled_front(s, c, cfg), (scene, camera), stream,
+            debug=cache.debug)
+        # a real frame in the front's outputs before the chunk's warm-up,
+        # which reads them
+        self.front(scene, camera)
+        bvh, rays, light3, tex_quads, recs, _ = self.front.output
+        static_scene = self.front.inputs[0]
+        pool = self.front.graph.pool()
+        self.chunk = graphs.Captured(
+            lambda r, rec: _shade_rays_one(static_scene, bvh, r, cfg,
+                                           tex_quads, light3, rec),
+            (chunk_rays(rays, 0, cfg.ray_chunk), recs[0]), stream, pool=pool,
+            debug=cache.debug)
+        self.background = chunk_background(cfg, tex_quads, scene.device)
+        self.color = torch.empty((w * h, 4), dtype=self.chunk.output.dtype,
+                                 device=scene.device)
+        self.captures = (self.front, self.chunk)
+
+    def __call__(self, scene: Scene, camera: Camera):
+        if not self.culled:
+            return self.frame(scene, camera).clone()
+        _, rays, _, _, recs, any_hit = self.front(scene, camera)
+        cfg = self.cfg
+        slots = self.color.view(-1, cfg.ray_chunk, 4)
+        slots.copy_(self.background.expand_as(slots))
+        for i, hit in enumerate(any_hit.tolist()):  # the frame's host read
+            if hit:
+                slots[i].copy_(self.chunk(chunk_rays(rays, i, cfg.ray_chunk),
+                                          recs[i]))
+        color = untile_frame_color(self.color, cfg, cfg.width, cfg.height)
+        return color.reshape(cfg.height, cfg.width, 4).clone()
+
+    @property
+    def capture_ms(self) -> float:
+        return sum(c.capture_ms for c in self.captures)
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(c.pool_bytes for c in self.captures)
+
+
+def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """``render_frame`` compiled once a signature, the counterpart of the
+    JAX package's ``render_frame_jit``: on CUDA tensors the whole frame
+    (build, sort, every traversal and gather, K1-K8 as the config routes
+    them) is a CUDA graph captured at the first call of its signature
+    (``graphs.signature``: cfg and the inputs' shapes, dtypes and device)
+    and replayed with the caller's scene and camera copied in; the culled
+    chunk loop reads its chunks' hit flags once a frame
+    (``_GraphedFrame``).  It returns a new image, the eager frame's bits.
+    On CPU tensors it is ``render_frame``.  It does not differentiate:
+    with grad mode on, an input that requires grad raises."""
+    graphs.check_no_grad((scene, camera), "render_frame_jit")
+    if scene.device.type != "cuda":
+        return render_frame(scene, camera, cfg)
+    with torch.inference_mode(False), torch.no_grad():
+        frame = FRAME_GRAPHS.get(
+            graphs.signature(cfg, scene, camera),
+            lambda: _GraphedFrame(scene, camera, cfg, FRAME_GRAPHS))
+    with torch.no_grad():
+        return frame(scene, camera)

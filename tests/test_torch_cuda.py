@@ -818,3 +818,168 @@ def test_sharded_frames_over_nccl_world_one(dev):
         assert torch.equal(render.render_sharded(scene, cam, cfg, flat), want)
     finally:
         dist.destroy_process_group()
+
+
+def _graph_frame_args(dev, **kw):
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+
+    scene = random_triangles(300, seed=7, with_texture=True, device=dev)
+    cfg = T.RenderConfig(**dict(dict(width=64, height=64, bounces=1,
+                                     ortho_scale=1.4), **kw))
+    return scene, T.Camera.default(dev), cfg
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ray_tile=16, texture_dtype="uint8", traversal_backend="cuda"),
+    dict(enable_shadows=True, light_pos=(10.0, 80.0, -40.0),
+         shade_gather_backend="shared", sort_backend="bitonic"),
+    dict(ray_chunk=512, enable_shadows=True, light_pos=(10.0, 80.0, -40.0)),
+    dict(enable_refraction=True, dtype="bfloat16", ray_tile=16),
+], ids=["k1_tiled_u8", "onchip_shadows", "culled_chunks", "refract_bf16"])
+def test_graphed_frame_equals_eager_and_follows_the_camera(dev, kw):
+    """render_frame_jit at 64x64 gives render_frame's bits; a replay with
+    an orbited camera gives the eager frame's bits there (inputs are
+    copied in, not baked in), without a second capture; the first image
+    is the caller's: later replays leave it as it was."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.camera import orbit
+
+    scene, cam, cfg = _graph_frame_args(dev, **kw)
+    pipeline.FRAME_GRAPHS.clear()
+    got = T.render_frame_jit(scene, cam, cfg)
+    want = T.render_frame(scene, cam, cfg)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    cam2 = orbit(cam, 0.3, 0.1)
+    got2 = T.render_frame_jit(scene, cam2, cfg)
+    assert torch.equal(got2, T.render_frame(scene, cam2, cfg))
+    assert not torch.equal(got2, got)
+    assert len(pipeline.FRAME_GRAPHS.entries) == 1
+    assert torch.equal(got, want)
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def test_graphed_frame_recaptures_on_a_new_size(dev):
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+
+    pipeline.FRAME_GRAPHS.clear()
+    for w, h in ((64, 64), (96, 48), (64, 64)):
+        scene, cam, cfg = _graph_frame_args(dev, width=w, height=h,
+                                            ray_tile=16)
+        got = T.render_frame_jit(scene, cam, cfg)
+        assert got.shape == (h, w, 4)
+        assert torch.equal(got, T.render_frame(scene, cam, cfg))
+    assert len(pipeline.FRAME_GRAPHS.entries) == 2
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A frame that reads a value back to the host cannot be captured:
+    render_frame_jit raises and caches nothing, rather than render the
+    frame eagerly."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+
+    scene, cam, cfg = _graph_frame_args(dev)
+    real = pipeline._shade_hit_soa
+
+    def reads_back(scene, bvh, o3, d3, rec, *a, **k):
+        int(rec.hit.sum())  # a host read: fine eagerly, not in a capture
+        return real(scene, bvh, o3, d3, rec, *a, **k)
+
+    pipeline.FRAME_GRAPHS.clear()
+    monkeypatch.setattr(pipeline, "_shade_hit_soa", reads_back)
+    with pytest.raises(RuntimeError):
+        T.render_frame_jit(scene, cam, cfg)
+    assert not pipeline.FRAME_GRAPHS.entries
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(T.render_frame_jit(scene, cam, cfg),
+                       T.render_frame(scene, cam, cfg))
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def test_graphed_steps_match_eager_steps(dev):
+    """Three train_step_jit calls at 64x64 equal three eager train_steps
+    with the same capturable Adam from the same start, bit for bit; with
+    make_optimizer's default Adam the first loss is bit-equal and the
+    parameters after one step are within 1e-6 (the capturable Adam's
+    float32 bias corrections: chip_smoke.py's GRAPHED_STEP1_TOL).  lr is
+    read at each call: a step at lr 0 moves nothing, without a second
+    capture.  A default (not capturable) Adam is refused."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models import inverse
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+
+    scene = random_triangles(40, seed=11, extent=8.0, tri_size=2.0,
+                             with_texture=True, device=dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.0)
+    target = T.render_frame(scene, cam, cfg) * 0.8
+
+    def run(step, capturable, n=3, **kw):
+        params = inverse.init_params(scene)
+        opt = inverse.make_optimizer(params, 1e-2, capturable)
+        losses = [step(params, opt, scene, cam, target, cfg, **kw)
+                  for _ in range(n)]
+        return params, opt, losses
+
+    pg, og, lg = run(inverse.train_step_jit, True, lr=1e-2)
+    pc, _, lc = run(inverse.train_step, True)
+    assert all(torch.equal(a, b) for a, b in zip(lg, lc))
+    assert all(torch.equal(a, b) for a, b in zip(pg, pc))
+    assert float(lg[2]) < float(lg[0])
+    p1, _, l1 = run(inverse.train_step_jit, True, n=1, lr=1e-2)
+    pe, oe, le = run(inverse.train_step, False, n=1)
+    assert torch.equal(l1[0], le[0])
+    for a, b in zip(p1, pe):
+        assert float((a.detach() - b.detach()).abs().max()) <= 1e-6
+    before = [p.detach().clone() for p in pg]
+    inverse.train_step_jit(pg, og, scene, cam, target, cfg, lr=0.0)
+    assert all(torch.equal(p.detach(), b) for p, b in zip(pg, before))
+    assert len(inverse._STEP_GRAPHS[og].entries) == 1
+    with pytest.raises(ValueError, match="capturable"):
+        inverse.train_step_jit(pe, oe, scene, cam, target, cfg)
+
+
+def test_graph_replays_after_an_eager_launch_lowers_the_smem_limit(dev):
+    """K5's and K8's C entries set their kernel's dynamic shared-memory
+    limit to each launch's need (cudaFuncSetAttribute, accepted inside a
+    capture): a graph captured with a large need still replays right
+    after an eager launch has set a smaller one (K5 on 6 912 then 256
+    leaves, K8 on 8 192 then 1 024 codes)."""
+    from raytracebvh_tpu_torch.camera import reference_rays
+    from raytracebvh_tpu_torch.ops import sort_cuda, traverse_cuda
+    from raytracebvh_tpu_torch.ops import traverse_shared_cuda
+
+    big = traverse_cuda.with_tables(_bvh(dev, num_tris=6912, seed=1))
+    small = traverse_cuda.with_tables(_bvh(dev, num_tris=200, seed=2))
+    rays = reference_rays(256, 128, 4.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c8k = torch.randint(0, 1 << 30, (8192,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    c1k = c8k[:1024].clone()
+    for run, lower in (
+            (lambda: traverse_shared_cuda.traverse(big, rays, 0.01),
+             lambda: traverse_shared_cuda.traverse(small, rays, 0.01)),
+            (lambda: sort_cuda.bitonic_sort_by_code(c8k),
+             lambda: sort_cuda.bitonic_sort_by_code(c1k))):
+        want = run()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            run()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = run()
+        lower()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want.hit, want.distance,
+                                                     want.leaf)
+        out = out if isinstance(out, tuple) else (out.hit, out.distance,
+                                                  out.leaf)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))

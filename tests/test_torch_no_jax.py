@@ -1,6 +1,8 @@
 """The port imports, renders (shadows and refraction included, and
 through the on-chip backends ``shared`` / ``shared`` / ``bitonic``),
-takes a training step, and imports and runs its tools (checkpoints, the
+takes a training step, runs its compiled entry points (``graphs``,
+``render_frame_jit``, ``train_step_jit``: eager on the CPU), and imports
+and runs its tools (checkpoints, the
 train and profile CLIs, profiling, logging, the depth image, the native
 library's build), and imports the multi-device path and renders a
 geometry-sharded frame at world size 1 over Gloo, with JAX and flax
@@ -51,6 +53,14 @@ loss = inverse.train_step(params, inverse.make_optimizer(params), scene,
                           T.RenderConfig(width=8, height=8, bounces=1,
                                          ortho_scale=1.0))
 assert bool(torch.isfinite(loss))
+from raytracebvh_tpu_torch import graphs
+opt = inverse.make_optimizer(params)
+assert bool(torch.isfinite(inverse.train_step_jit(
+    params, opt, scene, T.Camera.default("cpu"), torch.zeros(8, 8, 4),
+    T.RenderConfig(width=8, height=8, bounces=1, ortho_scale=1.0), lr=0.01)))
+jit_img = T.render_frame_jit(scene, T.Camera.default("cpu"),
+                             T.RenderConfig(width=8, height=8))
+assert graphs.tensors(jit_img) == [jit_img]
 from raytracebvh_tpu_torch import native
 from raytracebvh_tpu_torch.cli import profile, train
 from raytracebvh_tpu_torch.ref import refimage
