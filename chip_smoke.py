@@ -35,7 +35,10 @@ Phases (one line of output each, or more):
      K2, K3, K7 and K8, for K3 by kernel, for K7 beside K2 on the
      row-major copy of its table; for K5/K6 K1/K4's time on the same rays
      at three tree sizes and on a sparse chunk, also as device time, and
-     the staging alone (K1 beside it: launch and ray I/O)
+     the staging alone (K1 beside it: launch and ray I/O); the build's
+     topology (ops.bvh.build_topology, the range-min emit) on the dense
+     and large frames' sorted codes bit for bit the search
+     karras_children, with the kernels a call of each (torch.profiler)
   4. main path: the dense, sparse and large frames, then dense_shadows,
      sparse_shadows, large_shadows, refract, dense_onchip, dense_bf16
      and dense_bf16_onchip (the dense frame in bfloat16 through K1/K2 and
@@ -66,23 +69,30 @@ Phases (one line of output each, or more):
   8. profile cli: raytracebvh_tpu_torch.cli.profile at 1920x1080 on that
      OBJ and on an OBJ of the large scene (read by the native loader),
      with --sort lax and --sort bitonic (K8 in the sort stage), each
-     stage's median of 40 rounds: the stage tables, every stage finite and
-     positive, the build within the frame;
-     a Chrome trace (--trace) that names K5, K2 and K8
+     stage its own CUDA graph, each stage's replay the median of 40
+     rounds: the stage tables, every stage finite and positive, the
+     graphed build within the graphed frame; beside the lax tables the
+     same stages eager (median of 10 rounds); a Chrome trace (--trace)
+     that names K5, K2 and K8
   9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
-     the 3 072-triangle scene through the traversal dispatch (K5), byte
-     for byte against the plain walk's on the card; io.obj.load_obj's
+     the 3 072-triangle scene, a CUDA graph (K5 inside), its capture's
+     replay and a second replay byte for byte its eager body's and the
+     plain walk's on the card, the graphed and eager ms; io.obj.load_obj's
      native loader bit for bit against the Python one on both OBJs, with
      their seconds
  10. multi-device: parallel.mesh.initialize_distributed (NCCL, world size
      1 on one card) and make_mesh; render_sharded on the dense frame,
-     render_geo_sharded on the large and dense_shadows frames, each bit
-     for bit phase 4's image (K1 2 + K2 4; K1 1 + K2 2; K1 1 + K2 2 +
-     K4 1); train_step_sharded on sparse_train with grad_chunks 1 (loss
-     phase 5's bits, gradients within GRAD_TOL, K1 2 + K2 4 + K3 2) and 4
-     (within the same gates of 1, four times the launches); NCCL's set-up
-     ms, the sharded frames' and steps' ms beside the single-process
-     ones, the gradient all-reduce's and the frame all-gather's ms.
+     render_geo_sharded on the large and dense_shadows frames, each a CUDA
+     graph with its collectives inside, its capture's replay, a second
+     replay and its eager body each bit for bit phase 4's image (K1 2 +
+     K2 4; K1 1 + K2 2; K1 1 + K2 2 + K4 1, in the eager body, in the
+     graph's nodes and in a replay); train_step_sharded on sparse_train
+     with grad_chunks 1 (loss phase 5's bits, gradients within GRAD_TOL,
+     K1 2 + K2 4 + K3 2) and 4 (within the same gates of 1, four times
+     the launches), graphed and eager; NCCL's set-up ms, capture ms, the
+     sharded frames' and steps' ms graphed and eager beside the
+     single-process ones, the gradient all-reduce's and the frame
+     all-gather's ms.
      With two cards or more it also runs the same cases on 2 or 4 ranks
      with geo=2 (this script with --sharded-rank, one process a card)
  11. graphed: render_frame_jit on the dense, sparse, large,
@@ -954,6 +964,55 @@ def phase_k8(codes_d, codes_l):
     return out
 
 
+def phase_topology(frames):
+    """The build's topology (ops.bvh.build_topology, the range-min emit
+    karras_children_rmq) on the dense and large frames' sorted codes:
+    bit for bit the search karras_children, its parity oracle; the
+    kernels a call of each, counted exactly as the kernel nodes of a CUDA
+    graph of one call (a torch.profiler trace now and then drops records:
+    profile_frames.py's trace of the graphed large frame held 825 of its
+    985), and a replay's time (CUDA events), beside the eager call's (host
+    clock)."""
+    from raytracebvh_tpu_torch import graphs
+    from raytracebvh_tpu_torch.ops import bvh as bvh_ops
+    from raytracebvh_tpu_torch.pipeline import build_bvh, build_transforms
+
+    stream = torch.cuda.Stream()
+    rows = {}
+    for name in ("dense", "large"):
+        scene, cam, cfg = frames[name]
+        with torch.no_grad():
+            codes = build_bvh(scene, *build_transforms(cam, cfg)[1:],
+                              cfg).codes
+        rmq = bvh_ops.karras_children_rmq(codes)
+        search = bvh_ops.karras_children(codes)
+        same = all(torch.equal(a, b) for a, b in zip(rmq, search))
+        check(same, f"topology {name}: the rmq emit differs from the search")
+        row = dict(leaves=codes.shape[0])
+        for how, emit in (("rmq", bvh_ops.karras_children_rmq),
+                          ("search", bvh_ops.karras_children)):
+            with mock.patch.object(bvh_ops, "karras_children_rmq", emit):
+                call = lambda: bvh_ops.build_topology(codes)  # noqa: E731
+                graph = graphs.Captured(call, (), stream, debug=True)
+                _, nodes = dump_routes(graph.graph)
+                got = graph()
+                check(all(torch.equal(a, b) for a, b in zip(got, call())),
+                      f"topology {name} {how}: a replay differs")
+                row[how] = dict(kernels=nodes, replay_ms=cuda_ms(graph),
+                                eager_ms=wall_ms(call))
+            del graph
+        rows[name] = row
+        log(f"  topology {name}: {codes.shape[0]} sorted codes, "
+            f"karras_children_rmq bit for bit karras_children; "
+            f"build_topology " + "; ".join(
+                f"with the {how} {r['kernels']} kernel nodes in a graph of a "
+                f"call, {r['replay_ms']:.4f} ms a replay (CUDA events), "
+                f"{r['eager_ms']:.3f} ms eager (host clock)"
+                for how, r in ((h, row[h]) for h in ("rmq", "search"))))
+    log("  topology rows: " + json.dumps(rows))
+    return rows
+
+
 def row_rel_err(got, want):
     """max over rows of max |got - want| / max |want| (rows of want all 0
     count their largest |got|)."""
@@ -1524,34 +1583,80 @@ def phase_profile_cli(objs, device):
                           f"{what}: the trace lacks kernels: {found}")
                 for k in totals:
                     totals[k] += n[k]
+                if sort == "lax":
+                    eager = eager_stage_times(obj, device)
+                    log(f"  {what}: eager stages (the graphs' bodies, median "
+                        f"of 10 rounds) " + ", ".join(
+                            f"{k} {v * 1e3:.3f}" for k, v in eager.items())
+                        + " ms; graphed/eager " + ", ".join(
+                            f"{k} {ms[k] / (v * 1e3):.3f}"
+                            for k, v in eager.items()))
+                    check(list(eager) == STAGES
+                          and all(np.isfinite(v) and v > 0
+                                  for v in eager.values()),
+                          f"{what}: eager stage times {eager}")
     log(f"  profile cli launches: {totals}")
     return totals
 
 
+def eager_stage_times(obj, device):
+    """The stage table of cli.profile's default config on ``obj``, each
+    stage eager (utils.profiling's stages before their capture), seconds:
+    the table the graphed one replaced."""
+    from raytracebvh_tpu_torch import Camera, RenderConfig
+    from raytracebvh_tpu_torch.io.obj import load_obj
+    from raytracebvh_tpu_torch.utils import profiling
+
+    scene = load_obj(obj, device=device)
+    cfg = RenderConfig(width=W, height=H, bounces=1)
+    with torch.no_grad():
+        stages, _ = profiling._eager_stages(scene, Camera.default(device),
+                                            cfg)
+        return profiling._median_times(stages, 10, torch.device(device))
+
+
 def phase_depth_and_loader(objs, small, device):
-    """render_depth_bmp at 500x500 on the 3 072-triangle scene, through
-    the traversal dispatch and through the plain walk; the native loader
-    against the Python one on both OBJs.  Returns the depth image's
-    launch counts."""
+    """render_depth_bmp at 500x500 on the 3 072-triangle scene, a replayed
+    CUDA graph, against its eager body through the traversal dispatch and
+    through the plain walk; the native loader against the Python one on
+    both OBJs.  Returns the depth image's launch counts (its capture's)."""
     from raytracebvh_tpu_torch import pipeline
     from raytracebvh_tpu_torch.io.obj import load_obj
+    from raytracebvh_tpu_torch.ref import refimage
     from raytracebvh_tpu_torch.ref.refimage import MISS_RGB, render_depth_bmp
 
-    reset_counts()
-    img = render_depth_bmp(small, 500, 500, 1)
-    torch.cuda.synchronize()
-    n = read_counts()
+    def eager():
+        with torch.no_grad():
+            return refimage._depth_image(
+                *refimage._depth_walk(small, 500, 500, 1)(small), 500, 500, 1)
+
+    refimage.DEPTH_GRAPHS.clear()
+    t0 = time.perf_counter()
+    img, n = counted(lambda: render_depth_bmp(small, 500, 500, 1))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    img2, n2 = counted(lambda: render_depth_bmp(small, 500, 500, 1))
+    (graph,) = refimage.DEPTH_GRAPHS.entries.values()
+    ref_eager = eager()
     with mock.patch.object(pipeline, "resolve_traversal_backend",
                            lambda *a: "torch"):
-        ref = render_depth_bmp(small, 500, 500, 1)
+        ref = eager()
     hits = float((img != MISS_RGB).any(-1).mean())
-    ndiff = int((img != ref).any(-1).sum())
-    log(f"  depth image: {img.shape}, hit share {hits:.4f}, launches {n}, "
-        f"{ndiff} pixels differ from the plain walk's")
+    ndiff = [int((x != y).any(-1).sum())
+             for x, y in ((img, ref_eager), (img2, ref_eager), (img, ref))]
+    graphed_ms = wall_ms(lambda: render_depth_bmp(small, 500, 500, 1))
+    eager_ms = wall_ms(eager)
+    log(f"  depth image: {img.shape}, hit share {hits:.4f}; graphed (capture "
+        f"{graph.capture_ms:.1f} ms, first call {first_ms:.1f} ms, launches "
+        f"{n} in its warm-up and capture, {n2} in a replay): pixels off the "
+        f"eager image {ndiff[0]} (capture's replay), {ndiff[1]} (a second "
+        f"replay), off the plain walk's {ndiff[2]}; {graphed_ms:.2f} ms "
+        f"graphed, {eager_ms:.2f} ms eager (host clock, both with the "
+        f"host's byte conversion)")
     check(img.shape == (500, 500, 3) and hits > 0, "depth image: no hit")
-    check(n["K5"] + n["K1"] == 1 and n["K2"] == n["K3"] == 0,
-          f"depth image: launches {n}")
-    check(ndiff == 0, f"depth image: {ndiff} pixels off the plain walk's")
+    check(n["K5"] + n["K1"] == 2 and n["K2"] == n["K3"] == 0,
+          f"depth image: launches {n} in the warm-up and capture")
+    check(not any(n2.values()), f"depth image: a replay counted {n2}")
+    check(ndiff == [0, 0, 0], f"depth image: pixels off {ndiff}")
     for name, obj in objs.items():
         scenes, secs = {}, {}
         for backend in ("native", "python"):
@@ -1589,82 +1694,160 @@ def counted(fn):
     return out, read_counts()
 
 
+def graph_routes(entry, want, call):
+    """The hand-written kernels in a sharded call's graph: from its own
+    kernel nodes (CUDAGraph.debug_dump) and by torch.profiler over a
+    replay (``call``), each held to ``want``; returns the replay's kernels
+    in all."""
+    nodes, _ = dump_routes(entry.graph)
+    counts, _ = profile_counts(call, reps=1,
+                               accept=lambda c: routes(c) == want)
+    seen = routes(counts)
+    check(nodes == want and seen == want,
+          f"graph nodes {nodes}, a replay {seen}, not {want}")
+    return sum(counts.values())
+
+
 def sharded_cases(frames, train, mesh, images, steps):
     """render_sharded on the dense frame, render_geo_sharded on the large
     and dense_shadows frames, train_step_sharded on sparse_train with
-    grad_chunks 1 and 4, on ``mesh``.  The frames must equal ``images``
-    (render_frame's) bit for bit; the one-chunk step's loss must equal
-    ``steps``' (loss_fn's) bit for bit at world size 1, within 1e-6
-    above, and its gradients be within GRAD_TOL of loss_fn's; the
-    four-chunk step within the same gates of the one-chunk step.  Returns
-    the launch counts summed over the cases."""
+    grad_chunks 1 and 4, on ``mesh``: each a CUDA graph captured at its
+    first call and replayed at its second, beside its eager body.  Every
+    frame must equal ``images`` (render_frame's) bit for bit; the
+    one-chunk step's loss must equal ``steps``' (loss_fn's) bit for bit at
+    world size 1, within 1e-6 above, and its gradients be within GRAD_TOL
+    of loss_fn's; the four-chunk step within the same gates of the
+    one-chunk step; the replayed steps and the eager bodies' within the
+    same gates.  The launch counts: the eager body's the case's, the
+    capture's (warm-up and capture) twice that, a replay's none; the
+    kernels in the graph (its nodes, and a replay's under torch.profiler)
+    the case's.  Returns the launch counts summed over the cases and a row
+    of capture ms and replay kernels a case."""
     from raytracebvh_tpu_torch.models.inverse import (InverseParams,
                                                       apply_params,
                                                       init_params)
     from raytracebvh_tpu_torch.parallel import render as prender
+    from raytracebvh_tpu_torch.parallel.mesh import mesh_graphs
 
     world = mesh.size()
     totals = dict.fromkeys(KERNELS, 0)
+    rows = {}
+    cache = mesh_graphs(mesh)
 
     def add(n):
         for k in totals:
             totals[k] += n[k]
 
-    for fn_name, name in SHARDED_FRAMES:
-        scene, cam, cfg = frames[name]
-        fn = getattr(prender, fn_name)
-        with torch.no_grad():
-            img, n = counted(lambda: fn(scene, cam, cfg, mesh))
-        ndiff = int((img != images[name]).any(-1).sum())
-        log(f"  {fn_name} {name} (world {world}): {ndiff} pixels differ "
-            f"from render_frame's, launches {n}")
-        check(ndiff == 0, f"{fn_name} {name}: {ndiff} pixels differ")
-        want = dict.fromkeys(KERNELS, 0)
-        want.update(SHARDED_LAUNCHES[name])
-        check(n == want, f"{fn_name} {name}: launches {n}, not {want}")
-        add(n)
+    def captured(what, want, n, n_replay, n_eager):
+        """The case's one capture after its two calls, its counts held."""
+        (entry,) = cache.entries.values()
+        twice = {k: 2 * v for k, v in want.items()}
+        check(n_eager == want and n == twice and not any(n_replay.values()),
+              f"{what}: launches eager {n_eager}, capture {n}, replay "
+              f"{n_replay}; the case's {want}")
+        return entry
 
-    scene, cam, cfg = train["sparse_train"]
-    target = torch.zeros((H, W, 4), device=scene.device)
-    ref = {0: steps["sparse_train"]}
-    for chunks in (1, 4):
-        (loss, grads), n = counted(lambda: prender.train_step_sharded(
-            init_params(scene), apply_params, scene, cam, target, cfg, mesh,
-            grad_chunks=chunks))
-        loss_r, grads_r = ref[0] if chunks == 1 else ref[1]
-        against = "loss_fn" if chunks == 1 else "grad_chunks=1"
-        rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
-        log(f"  train_step_sharded sparse_train grad_chunks={chunks} "
-            f"(world {world}): loss {float(loss)!r}, {against} "
-            f"{float(loss_r)!r}, launches {n}")
-        if chunks == 1 and world == 1:
-            check(torch.equal(loss, loss_r),
-                  f"grad_chunks=1: loss not {against}'s bits")
-        else:
-            check(rel <= 1e-6, f"grad_chunks={chunks}: loss {rel} off")
-        for field, g, gr in zip(InverseParams._fields, grads, grads_r):
-            err = float((g - gr).abs().max()) / max(float(gr.abs().max()),
-                                                    1e-30)
-            log(f"    d{field}: {err:.3g} of {against}'s largest |grad|")
-            check(bool(torch.isfinite(g).all()) and err <= GRAD_TOL,
-                  f"grad_chunks={chunks}: d{field} {err} off {against}")
-        want = dict.fromkeys(KERNELS, 0)
-        want.update(K1=2 * chunks, K2=4 * chunks, K3=2 * chunks)
-        check(n == want, f"grad_chunks={chunks}: launches {n}, not {want}")
-        ref[chunks] = (loss, grads)
-        add(n)
-    return totals
+    cache.debug = True
+    try:
+        for fn_name, name in SHARDED_FRAMES:
+            scene, cam, cfg = frames[name]
+            fn = getattr(prender, fn_name)
+            body = getattr(prender, "_" + fn_name)
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(SHARDED_LAUNCHES[name])
+            cache.clear()
+            with torch.no_grad():
+                img, n = counted(lambda: fn(scene, cam, cfg, mesh))
+                img2, n2 = counted(lambda: fn(scene, cam, cfg, mesh))
+                img_e, ne = counted(lambda: body(scene, cam, cfg, mesh))
+            entry = captured(f"{fn_name} {name}", want, n, n2, ne)
+            ndiff = [int((x != images[name]).any(-1).sum())
+                     for x in (img, img2, img_e)]
+            check(not entry.culled, f"{fn_name} {name}: culled")
+
+            def replay():
+                with torch.no_grad():
+                    fn(scene, cam, cfg, mesh)
+
+            kernels = graph_routes(entry.captures[0], want, replay)
+            log(f"  {fn_name} {name} (world {world}): pixels off "
+                f"render_frame's {ndiff} (capture's replay, a replay, eager "
+                f"body); launches eager {ne}, capture {n}; graph: its nodes "
+                f"and a replay's kernels route as the eager body's, "
+                f"{kernels} kernels a replay, capture "
+                f"{entry.capture_ms:.1f} ms")
+            check(ndiff == [0, 0, 0], f"{fn_name} {name}: pixels off {ndiff}")
+            add(n)
+            add(ne)
+            rows[f"{fn_name} {name}"] = dict(capture_ms=entry.capture_ms,
+                                             kernels=kernels)
+
+        scene, cam, cfg = train["sparse_train"]
+        target = torch.zeros((H, W, 4), device=scene.device)
+        ref = {0: steps["sparse_train"]}
+        for chunks in (1, 4):
+            def step(fn=prender.train_step_sharded):
+                return fn(init_params(scene), apply_params, scene, cam,
+                          target, cfg, mesh, grad_chunks=chunks)
+
+            cache.clear()
+            (loss, grads), n = counted(step)
+            (loss2, grads2), n2 = counted(step)
+            (loss_e, grads_e), ne = counted(
+                lambda: step(prender._train_step_sharded))
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(K1=2 * chunks, K2=4 * chunks, K3=2 * chunks)
+            what = f"train_step_sharded grad_chunks={chunks}"
+            entry = captured(what, want, n, n2, ne)
+            loss_r, grads_r = ref[0] if chunks == 1 else ref[1]
+            against = "loss_fn" if chunks == 1 else "grad_chunks=1"
+            log(f"  {what} (world {world}): loss {float(loss)!r} (a replay "
+                f"{float(loss2)!r}, eager body {float(loss_e)!r}), {against} "
+                f"{float(loss_r)!r}; launches eager {ne}, capture {n}")
+            for lo, gr, how in ((loss2, grads2, "replay"),
+                                (loss_e, grads_e, "eager body")):
+                if chunks == 1 and world == 1:
+                    check(torch.equal(lo, loss_r),
+                          f"{what} {how}: loss not {against}'s bits")
+                else:
+                    rel = abs(float(lo) - float(loss_r)) / abs(float(loss_r))
+                    check(rel <= 1e-6, f"{what} {how}: loss {rel} off")
+                for field, g, g_r in zip(InverseParams._fields, gr, grads_r):
+                    err = float((g - g_r).abs().max()) / max(
+                        float(g_r.abs().max()), 1e-30)
+                    log(f"    {how} d{field}: {err:.3g} of {against}'s "
+                        f"largest |grad|")
+                    check(bool(torch.isfinite(g).all()) and err <= GRAD_TOL,
+                          f"{what} {how}: d{field} {err} off {against}")
+            same = torch.equal(loss2, loss_e) and all(
+                torch.equal(a, b) for a, b in zip(grads2, grads_e))
+            kernels = graph_routes(entry, want, step)
+            log(f"    replay vs eager body: "
+                f"{'bit for bit' if same else 'DIFFERENT bits'}; graph: its "
+                f"nodes and a replay's kernels route as the eager body's, "
+                f"{kernels} kernels a replay, capture {entry.capture_ms:.1f} "
+                f"ms")
+            ref[chunks] = (loss_e, grads_e)
+            add(n)
+            add(ne)
+            rows[what] = dict(capture_ms=entry.capture_ms, kernels=kernels,
+                              replay_equals_eager=same)
+    finally:
+        cache.debug = False
+        cache.clear()
+    return totals, rows
 
 
 def phase_sharded(frames, train, images, steps, smi):
     """The multi-device path at world size 1 over NCCL (one card): the
     cases of sharded_cases against phase 4's images and phase 5's step;
-    NCCL's set-up, the frames' and steps' times beside the single-process
-    ones, the collectives' times.  With two cards or more, the same cases at 2 or 4 ranks with
-    geo=2 (sharded_rank).  Returns the launch counts of the cases."""
+    NCCL's set-up, the frames' and steps' times graphed and eager beside
+    the single-process ones, the collectives' times.  With two cards or
+    more, the same cases at 2 or 4 ranks with geo=2 (sharded_rank).
+    Returns the launch counts of the cases."""
     import torch.distributed as dist
 
-    from raytracebvh_tpu_torch import render_frame
+    from raytracebvh_tpu_torch import pipeline, render_frame, render_frame_jit
     from raytracebvh_tpu_torch.models.inverse import apply_params, init_params
     from raytracebvh_tpu_torch.parallel import mesh as pmesh
     from raytracebvh_tpu_torch.parallel import render as prender
@@ -1683,35 +1866,54 @@ def phase_sharded(frames, train, images, steps, smi):
         log(f"  NCCL world {dist.get_world_size()}, mesh {mesh}: "
             f"init_process_group {init_ms:.3f} ms, first all_reduce "
             f"(communicator set-up) {first_ms:.3f} ms; {smi}")
-        totals = sharded_cases(frames, train, mesh, images, steps)
+        totals, rows = sharded_cases(frames, train, mesh, images, steps)
 
+        # eager body, graphed, then the single-process frame eager and
+        # graphed, in turns
         for fn_name, name in SHARDED_FRAMES:
             scene, cam, cfg = frames[name]
             fn = getattr(prender, fn_name)
+            body = getattr(prender, "_" + fn_name)
             with torch.no_grad():
-                times = [wall_ms(lambda: render_frame(scene, cam, cfg)),
+                times = [wall_ms(lambda: body(scene, cam, cfg, mesh)),
                          wall_ms(lambda: fn(scene, cam, cfg, mesh)),
+                         wall_ms(lambda: render_frame(scene, cam, cfg)),
+                         wall_ms(lambda: render_frame_jit(scene, cam, cfg)),
                          wall_ms(lambda: fn(scene, cam, cfg, mesh)),
-                         wall_ms(lambda: render_frame(scene, cam, cfg))]
-            log(f"  {fn_name} {name}: {times[1]:.2f} / {times[2]:.2f} "
-                f"ms/frame, render_frame {times[0]:.2f} / {times[3]:.2f} "
-                f"ms/frame (median of 5 each, in turns); {smi}")
+                         wall_ms(lambda: body(scene, cam, cfg, mesh))]
+            pmesh.mesh_graphs(mesh).clear()
+            pipeline.FRAME_GRAPHS.clear()
+            rows[f"{fn_name} {name}"].update(
+                eager_ms=[times[0], times[5]], graphed_ms=[times[1], times[4]],
+                frame_ms=times[2], frame_jit_ms=times[3])
+            log(f"  {fn_name} {name}: graphed {times[1]:.2f} / "
+                f"{times[4]:.2f} ms/frame, eager body {times[0]:.2f} / "
+                f"{times[5]:.2f}; render_frame_jit {times[3]:.2f}, "
+                f"render_frame {times[2]:.2f} ms/frame (median of 5 each, in "
+                f"turns); {smi}")
         scene, cam, cfg = train["sparse_train"]
         target = torch.zeros((H, W, 4), device=scene.device)
 
-        def sharded_step(chunks):
-            return lambda: prender.train_step_sharded(
-                init_params(scene), apply_params, scene, cam, target, cfg,
-                mesh, grad_chunks=chunks)
+        def sharded_step(chunks, fn=prender.train_step_sharded):
+            return lambda: fn(init_params(scene), apply_params, scene, cam,
+                              target, cfg, mesh, grad_chunks=chunks)
 
         single = lambda: value_and_grad(init_params(scene), scene, cam,
                                         target, cfg)
-        times = [wall_ms(single), wall_ms(sharded_step(1)),
-                 wall_ms(sharded_step(4)), wall_ms(single)]
-        log(f"  train_step_sharded sparse_train: grad_chunks=1 "
-            f"{times[1]:.2f} ms/step, grad_chunks=4 {times[2]:.2f} ms/step, "
-            f"loss_fn + backward {times[0]:.2f} / {times[3]:.2f} ms/step "
-            f"(median of 5 each); {smi}")
+        for chunks in (1, 4):
+            body = sharded_step(chunks, prender._train_step_sharded)
+            times = [wall_ms(body), wall_ms(sharded_step(chunks)),
+                     wall_ms(single), wall_ms(sharded_step(chunks)),
+                     wall_ms(body)]
+            pmesh.mesh_graphs(mesh).clear()
+            rows[f"train_step_sharded grad_chunks={chunks}"].update(
+                eager_ms=[times[0], times[4]], graphed_ms=[times[1], times[3]],
+                single_eager_ms=times[2])
+            log(f"  train_step_sharded sparse_train grad_chunks={chunks}: "
+                f"graphed {times[1]:.2f} / {times[3]:.2f} ms/step, eager body "
+                f"{times[0]:.2f} / {times[4]:.2f}; loss_fn + backward "
+                f"{times[2]:.2f} ms/step (median of 5 each, in turns); {smi}")
+        log("  sharded rows: " + json.dumps(rows))
 
         nparams = 1 + sum(p.numel() for p in init_params(scene))
         buf = torch.zeros(nparams, device="cuda")
@@ -1725,7 +1927,7 @@ def phase_sharded(frames, train, images, steps, smi):
             f"all_gather ({H * W} x 4 float32) {ag:.4f} ms (CUDA events, "
             f"median of 20); {smi}")
     finally:
-        dist.destroy_process_group()
+        pmesh.destroy_distributed()
 
     cards = torch.cuda.device_count() // 2 * 2
     if cards >= 2:
@@ -2086,7 +2288,7 @@ def sharded_rank() -> int:
     except SmokeFailure as e:
         return fail(str(e))
     finally:
-        dist.destroy_process_group()
+        pmesh.destroy_distributed()
     return 0
 
 
@@ -2136,6 +2338,7 @@ def main() -> int:
         kern = phase_kernels(frames)
         kern["K3"] = phase_k3(train)
         kern.update(phase_onchip_kernels(frames))
+        phase_topology(frames)
         phase_done(3)
         log("phase 4 main path:")
         launches, images, frame_counts = phase_main_path(frames)

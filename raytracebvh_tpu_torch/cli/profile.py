@@ -13,7 +13,9 @@ backend (``cli.render``'s names); ``--sort bitonic`` times kernel K8 in
 the sort stage.  ``--trace DIR`` also writes a Chrome trace of one frame
 (``torch.profiler``) into DIR: a replay of ``render_frame_jit``'s graph
 on the card (captured before the trace), as the JAX CLI traces its
-jitted frame; the stage table stays eager, each stage alone.
+jitted frame.  On the card each stage of the table is its own CUDA graph,
+timed over its replays, as the JAX CLI jits each stage alone
+(``utils.profiling.stage_times``); on the CPU the stages run eagerly.
 """
 
 from __future__ import annotations

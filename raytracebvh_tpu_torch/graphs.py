@@ -121,13 +121,18 @@ class Captured:
     were captured) or its own.  ``capture_ms`` is the capture's host time,
     ``pool_bytes`` the device memory the allocator reserved during it.
     ``debug`` keeps the graph for ``CUDAGraph.debug_dump`` (which prints
-    it once).  ``__call__`` copies its arguments into the static inputs,
-    replays, and returns the static output (the caller clones what it
-    hands out)."""
+    it once).  ``capture_error_mode`` is ``torch.cuda.graph``'s: the
+    collectives' captures take ``"thread_local"`` (``parallel/render.py``).
+    ``__call__`` copies its arguments into the static inputs, replays, and
+    returns the static output (the caller clones what it hands out)."""
 
     def __init__(self, fn, inputs: tuple, stream: torch.cuda.Stream,
-                 pool=None, debug: bool = False, warmup=None, prepare=None):
+                 pool=None, debug: bool = False, warmup=None, prepare=None,
+                 capture_error_mode: str = "global"):
         self.inputs = static_copy(inputs)
+        # the graph reads the tensors ``fn`` closes over (constants made
+        # outside the capture) at their addresses: they live as long as it
+        self.fn = fn
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             (warmup or fn)(*self.inputs)
@@ -143,7 +148,8 @@ class Captured:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode=capture_error_mode):
             self.output = fn(*self.inputs)
         if debug:
             self.graph.instantiate()
@@ -160,15 +166,22 @@ class Captured:
 class Cache:
     """Captured calls by key (``signature``), the least recently used
     dropped beyond ``max_entries`` (a 1080p frame's graph holds about its
-    eager peak memory, 1-1.4 GB on an H100).  ``debug`` is handed to the
-    captures it makes."""
+    eager peak memory, 1-1.4 GB on an H100).  ``debug`` and
+    ``capture_error_mode`` are handed to the captures it makes
+    (``options``)."""
 
     max_entries = 8
 
-    def __init__(self):
+    def __init__(self, capture_error_mode: str = "global"):
         self.debug = False
+        self.capture_error_mode = capture_error_mode
         self.entries = collections.OrderedDict()
         self._stream = {}
+
+    def options(self) -> dict:
+        """``Captured``'s keyword arguments for this cache's captures."""
+        return dict(debug=self.debug,
+                    capture_error_mode=self.capture_error_mode)
 
     def stream(self, device: torch.device) -> torch.cuda.Stream:
         """The side stream this cache warms up and captures on."""

@@ -1,12 +1,14 @@
 """LBVH construction: Karras-2012 hierarchy emit + AABB fit + skip links
 (the JAX package's ``ops/bvh.py`` in torch).
 
-The Karras emit is the plain exponential + binary search
-(``karras_children``), vectorized over all internal nodes; the JAX
-package's production ``karras_children_rmq`` gives bit-identical output.
-The AABB fit is a sparse-table range-min query over the contiguous leaf
-range each internal node covers, and the skip links have a closed form in
-range space (see ``compute_links``).
+The Karras emit is the range-min emit ``karras_children_rmq``, as in the
+JAX package's ``build_topology``: one pass of adjacent deltas, a sparse
+table of power-of-two block minima, one binary descent for the range end
+and one range-min query for the split.  The plain exponential + binary
+search (``karras_children``) stays as its parity oracle; both give the
+same bits.  The AABB fit is a sparse-table range-min query over the
+contiguous leaf range each internal node covers, and the skip links have
+a closed form in range space (see ``compute_links``).
 
 Node ids: leaf k in [0, n), internal node i at id n + i, root = n.
 """
@@ -17,9 +19,13 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 BIG = 1.0e30  # empty-box sentinel: bbmin = +BIG, bbmax = -BIG
 I32 = torch.int32
+# the index bits of karras_children_rmq's int32 table keys: it takes up to
+# 2^24 + 1 leaves, where its table holds 8.4 GB
+KEY_BITS = 24
 
 
 class Topology(NamedTuple):
@@ -34,16 +40,11 @@ class Topology(NamedTuple):
 
 def _clz32(x):
     """Count of leading zeros of the low 32 bits of an integer tensor
-    (32 for 0).  Integer bit-smearing + popcount: a float log2 rounds
-    wrongly next to powers of two."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    for s in (1, 2, 4, 8, 16):
-        x = x | (x >> s)  # every bit below the highest set bit is now set
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    bits = ((x * 0x01010101) & 0xFFFFFFFF) >> 24  # popcount = bit length
-    return (32 - bits).to(I32)
+    (32 for 0): 32 minus the binary exponent of the value as a float64,
+    which holds every 32-bit integer exactly (a rounded float log2 would
+    err next to powers of two)."""
+    x = (x.to(torch.int64) & 0xFFFFFFFF).to(torch.float64)
+    return (32 - torch.frexp(x).exponent).to(I32)
 
 
 def make_delta(codes):
@@ -111,11 +112,114 @@ def karras_children(codes):
     return child_l, child_r, lo, hi
 
 
+def karras_children_rmq(codes):
+    """``karras_children`` by range-min queries: the JAX package's
+    production emit, the same outputs bit for bit.
+
+    For sorted codes with the index tie-break, delta(i, j) is the least
+    adjacent delta ``a[k] = delta(k, k + 1)`` for k in [min(i, j),
+    max(i, j)), so each Karras search becomes a first or last "blocker"
+    query over ``a``:
+
+      * the range end: the first k >= i (d = +1), or the last k < i
+        (d = -1), with a[k] <= delta(i, i - d);
+      * the split: the first (d = +1) or last (d = -1) argmin of ``a``
+        over the node's range, which is also where delta(i, j) is taken.
+
+    Both read one sparse table of power-of-two blocks of ``a`` (padded
+    with -1 to P, a power of two), built with one shifted elementwise min
+    a level.  A block's entry is the int32 key ``a * 2^24 + p``
+    (``KEY_BITS``; a is at most 63): the min of the keys is the block's
+    min with its first argmin, and a second plane keyed by ``P - 1 - p``
+    gives the last argmin, so one ``minimum`` a level builds both planes.
+    A block that crosses P holds -2 (the JAX function's shifted-in fill),
+    which refuses every step into it; each row carries P cells of that
+    fill on its left and P / 2 on its right, so no probe needs a clamp or
+    a mask: 2 (log2 P + 1) rows of 2.5 P int32 cells in all (47 MB at
+    102 400 leaves).  So P is at most 2^24: more leaves raise
+    (``build_topology`` then takes the search).
+
+    The descent is one row gather a level (``index_select``) and four
+    elementwise ops, from the top level down: ~5 launches a level,
+    ~5 (log2 P + 1) in all, where the JAX function packs four levels into
+    one [2P, 16]-row gather for the TPU's per-row gather cost.  With the
+    adjacent deltas (two ``_clz32``), the table (one op a level) and the
+    two-gather query, the whole emit is ~7 log2 P + 40 ops, on the device
+    alone (no host read), so it captures into a CUDA graph.
+    """
+    n = codes.shape[0]
+    assert n >= 2, "karras_children_rmq needs at least 2 leaves"
+    if n - 1 > 1 << KEY_BITS:
+        raise ValueError(f"karras_children_rmq: {n} leaves; its int32 keys "
+                         f"hold at most 2^{KEY_BITS} + 1")
+    dev = codes.device
+
+    # adjacent deltas, the index tie-break folded in; length n - 1
+    k = torch.arange(n - 1, dtype=I32, device=dev)
+    x = codes[:-1] ^ codes[1:]
+    adelta = torch.where(x == 0, 32 + _clz32(k ^ (k + 1)), _clz32(x))
+
+    P = 1 << max(1, math.ceil(math.log2(max(n - 1, 2))))
+    levels = P.bit_length() - 1
+    width = P + P + P // 2  # left fill, the P cells, right fill
+    tab = torch.full((2, levels + 1, width), -2 << KEY_BITS, dtype=I32,
+                     device=dev)
+    body = tab[:, :, P:]
+    a_pad = torch.full((P,), -1, dtype=I32, device=dev)
+    a_pad[:n - 1] = adelta
+    p = torch.arange(P, dtype=I32, device=dev)
+    torch.add(a_pad << KEY_BITS, torch.stack([p, P - 1 - p]),
+              out=body[:, 0, :P])
+    for L in range(1, levels + 1):
+        s = 1 << (L - 1)
+        prev = body[:, L - 1]
+        torch.minimum(prev[:, :P], prev[:, s:P + s], out=body[:, L, :P])
+
+    i = k
+    dleft = F.pad(adelta[:-1], (1, 0), value=-1)
+    neg = adelta < dleft  # d = -1 iff delta(i, i+1) < delta(i, i-1)
+    pos_dir = ~neg
+    dneg = neg.to(I32)
+    d = 1 - 2 * dneg
+    # range end: walk away from i while the block's min exceeds
+    # delta(i, i - d); key > T * 2^24 + (2^24 - 1) iff key >= (T + 1) * 2^24
+    thresh = (torch.where(neg, adelta, dleft) + 1) << KEY_BITS
+    pos = i + P - dneg  # a padded row's index of i (d = +1) or i - 1
+    rows = tab[0].unbind(0)
+    for L in range(levels, -1, -1):
+        # the block [pos, pos + 2^L) for d = +1, (pos - 2^L, pos] for -1
+        probe = rows[L].index_select(
+            0, torch.add(pos, dneg, alpha=1 - (1 << L)))
+        pos = torch.add(pos, (probe >= thresh) * d, alpha=1 << L)
+    b = pos - P  # the blocker, or -1 / P where the walk left the array
+    j = torch.where(neg, torch.clamp(b, min=-1) + 1, torch.clamp(b, max=n - 1))
+    lo = torch.minimum(i, j)
+    hi = torch.maximum(i, j)
+
+    # the split: the direction-sided argmin of a[lo .. hi - 1], from the two
+    # blocks of 2^kl that cover it
+    kl = torch.frexp((hi - lo).to(torch.float64)).exponent - 1
+    row = kl * width + P
+    flat = tab.view(2, -1)
+    first = flat.index_select(1, row + lo)
+    second = flat.index_select(1, row + hi - (1 << kl))
+    arg = torch.minimum(first, second) & ((1 << KEY_BITS) - 1)
+    gamma = torch.where(pos_dir, arg[0], P - 1 - arg[1]).to(I32)
+    gamma = torch.clamp(gamma, lo, hi - 1)
+
+    child_l = torch.where(lo == gamma, gamma, gamma + n).to(I32)
+    child_r = torch.where(hi == gamma + 1, gamma + 1, gamma + 1 + n).to(I32)
+    return child_l, child_r, lo, hi
+
+
 def build_topology(codes) -> Topology:
-    """Full tree topology, arrays sized [2n]; parent[root] = -1."""
+    """Full tree topology, arrays sized [2n]; parent[root] = -1.  The
+    range-min emit, or the search past its 2^24 + 1 leaves."""
     n = codes.shape[0]
     dev = codes.device
-    cl, cr, lo, hi = karras_children(codes)
+    emit = (karras_children_rmq if n - 1 <= 1 << KEY_BITS
+            else karras_children)
+    cl, cr, lo, hi = emit(codes)
     ids = torch.arange(n - 1, dtype=I32, device=dev) + n
     child_l = torch.full((2 * n,), -1, dtype=I32, device=dev)
     child_r = torch.full((2 * n,), -1, dtype=I32, device=dev)

@@ -14,8 +14,9 @@ only the cross-host stage of the gradient average crosses.
 Start one process a card with ``torchrun --nproc_per_node=<cards>
 <script>`` and call ``initialize_distributed()`` in each (``make_mesh``
 calls it when no process group exists); a plain ``python <script>`` runs
-at world size 1.  The process group is NCCL's on the card and Gloo's on
-the CPU (``device="cpu"``, as the CPU tests run it).  Making a process
+at world size 1, and end with ``destroy_distributed()``.  The process
+group is NCCL's on the card and Gloo's on the CPU (``device="cpu"``, as
+the CPU tests run it).  Making a process
 group or a mesh is collective: every rank of the world makes the same
 calls in the same order, or they wait for each other until the group's
 timeout.
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -32,6 +34,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .. import graphs
 from ..core.types import map_tensors
 
 RAYS_AXIS = "rays"
@@ -124,6 +127,42 @@ def make_host_mesh(geo: int = 1, device="cuda") -> DeviceMesh:
     return DeviceMesh(torch.device(device).type,
                       torch.arange(world).reshape(shape),
                       mesh_dim_names=(DCN_AXIS, RAYS_AXIS, GEO_AXIS))
+
+
+# every mesh's graphs (mesh_graphs), which destroy_distributed drops
+_MESH_GRAPHS = weakref.WeakSet()
+
+
+def mesh_graphs(mesh: DeviceMesh) -> graphs.Cache:
+    """The CUDA graphs captured over ``mesh`` (``parallel.render``'s entry
+    points on the card), held by the mesh itself: a graph replays the
+    mesh's communicators, so the graphs go with the mesh (or with
+    ``destroy_distributed``), and another mesh captures its own.  They
+    capture in ``capture_error_mode="thread_local"``: the process group's
+    watchdog thread queries CUDA events, which the default "global" mode
+    forbids while any thread captures."""
+    cache = getattr(mesh, "_raytracebvh_graphs", None)
+    if cache is None:
+        cache = graphs.Cache(capture_error_mode="thread_local")
+        mesh._raytracebvh_graphs = cache
+        _MESH_GRAPHS.add(cache)
+    return cache
+
+
+def destroy_distributed() -> None:
+    """Ends this process's process group (no-op when there is none): drops
+    every mesh's CUDA graphs (``mesh_graphs``), then calls
+    ``destroy_process_group()``.  A graph that captured an NCCL collective
+    holds its communicator, and NCCL does not finalize a communicator
+    while such a graph lives, so ``destroy_process_group()`` with the
+    graphs alive does not return (seen at 2 ranks on H100s).  End with
+    this, not with ``destroy_process_group()``."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for cache in list(_MESH_GRAPHS):
+        cache.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def ray_axes(mesh: DeviceMesh):

@@ -26,6 +26,33 @@ K3 in the backward, K5-K8 where the config picks them) exactly as in
 ``pipeline.render_frame``.  The frames equal ``render_frame``'s bit for
 bit: the shards' sums are the same elementwise operations, min and max
 and gathers are exact, and a ray's colour does not depend on its order.
+
+On CUDA tensors the three are compiled, as the JAX functions always are:
+each captures its eager body (``_render_sharded``,
+``_render_geo_sharded``, ``_train_step_sharded``) into a CUDA graph once
+a signature and replays it.  The graphs are kept on the mesh
+(``mesh.mesh_graphs``): they replay its communicators, so they go with
+it, and another mesh captures its own.  NCCL does not finalize a
+communicator while a graph that captured it lives: end with
+``mesh.destroy_distributed()``, which drops the graphs first.  The signature is the
+entry point, the config, ``grad_chunks`` and ``scene_fn`` for the step,
+and the inputs' shapes, dtypes and devices.  The design: the collectives
+are inside the graph.
+torch captures NCCL's ``broadcast``, ``all_reduce`` and
+``all_gather_into_tensor`` (and the ``async_op`` handles waited on in
+the body) as graph nodes on the communicator's stream, joined to the
+capture stream.  The captures run in ``capture_error_mode=
+"thread_local"``, since the process group's watchdog thread queries CUDA
+events, which the default "global" mode forbids while any thread
+captures.  Each capture's eager warm-up (``graphs.Captured``) runs every
+collective of the body first, so the communicators' set-up falls outside
+the graph.  A frame whose
+rank culls ray chunks (``pipeline.culls_chunks`` on its rays) is
+``pipeline.GraphedShade``'s two graphs around one host read, its
+all-gather issued after the chunk graphs' replays; a step that would
+cull raises, as ``models.inverse.train_step_jit`` does.  Nothing catches
+a failed capture: it raises.  On CPU tensors (Gloo) they run the eager
+bodies.
 """
 
 from __future__ import annotations
@@ -33,6 +60,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .. import graphs
 from ..camera import transform_normals, transform_points
 from ..config import RenderConfig
 from ..core.types import Camera, Rays, Scene
@@ -42,14 +70,19 @@ from ..pipeline import (
     assemble_bvh,
     build_bvh,
     build_transforms,
+    culled_front,
+    culls_chunks,
     frame_inputs,
+    graphed_shade,
     light_in_ray_space,
     make_rays,
     shade_rays,
     shade_tiled,
+    tile_frame_rays,
+    untile_frame_color,
 )
-from .mesh import (GEO_AXIS, axis_size, geo_shard, ray_axes, ray_shard,
-                   replicated)
+from .mesh import (GEO_AXIS, axis_size, geo_shard, mesh_graphs, ray_axes,
+                   ray_shard, replicated)
 
 
 def _ray_axis_names(mesh):
@@ -92,44 +125,77 @@ def _local_rays(rays: Rays, mesh) -> Rays:
     return Rays(ray_shard(rays.origin, mesh), ray_shard(rays.direction, mesh))
 
 
+def signature(name: str, cfg: RenderConfig, inputs, *static):
+    """The key of a sharded call in its mesh's cache (``mesh_graphs``):
+    the entry point's name, the config, any other static arguments and
+    the inputs' structure (``graphs.signature``)."""
+    return graphs.signature((name, cfg) + static, *inputs)
+
+
+def _graphed_frame(name: str, fn, inputs, cfg: RenderConfig, mesh, front,
+                   finish):
+    """``fn(*inputs)`` replayed from the mesh's capture for ``signature``
+    (``pipeline.graphed_shade``: ``front`` and ``finish`` for a rank whose
+    rays cull chunks)."""
+    graphs.check_no_grad(inputs, name)
+    return graphed_shade(mesh_graphs(mesh), signature(name, cfg, inputs), fn,
+                         inputs, cfg, _ray_rows(cfg, mesh) * cfg.width,
+                         front, finish)
+
+
+def _ray_inputs(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
+    """(scene, bvh, this rank's rays in row order, light3) of
+    ``render_sharded``: the scene and camera broadcast from the mesh's
+    origin rank (``replicated``) and the whole build."""
+    scene, camera = replicated(scene, mesh), replicated(camera, mesh)
+    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
+    return scene, bvh, _local_rays(rays, mesh), light3
+
+
+def _render_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
+    """``render_sharded``'s eager body."""
+    rows = _ray_rows(cfg, mesh)
+    scene, bvh, rays, light3 = _ray_inputs(scene, camera, cfg, mesh)
+    color = shade_tiled(scene, bvh, rays, cfg, light3, cfg.width, rows)
+    return _gather_rays(color, mesh).reshape(cfg.height, cfg.width, 4)
+
+
 def render_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
     """The frame [height, width, 4] with rays sharded over the ray axes by
     whole image rows; the block is traced in ``cfg.ray_tile`` order as
     ``render_frame`` traces the frame.  The scene and camera are
     broadcast from the mesh's origin rank first (``replicated``), so every
-    rank traces the same scene."""
-    rows = _ray_rows(cfg, mesh)
-    scene, camera = replicated(scene, mesh), replicated(camera, mesh)
-    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
-    color = shade_tiled(scene, bvh, _local_rays(rays, mesh), cfg, light3,
-                        cfg.width, rows)
-    return _gather_rays(color, mesh).reshape(cfg.height, cfg.width, 4)
+    rank traces the same scene.  On CUDA tensors a replayed CUDA graph
+    (see the module docstring)."""
+    if scene.device.type != "cuda":
+        return _render_sharded(scene, camera, cfg, mesh)
+    rows, w = _ray_rows(cfg, mesh), cfg.width
+
+    def front(s, c):
+        s, bvh, rays, light3 = _ray_inputs(s, c, cfg, mesh)
+        return culled_front(s, bvh, tile_frame_rays(rays, cfg, w, rows), cfg,
+                            light3)
+
+    def finish(color):
+        color = untile_frame_color(color, cfg, w, rows)
+        return _gather_rays(color, mesh).reshape(cfg.height, w, 4)
+
+    return _graphed_frame(
+        "render_sharded", lambda s, c: _render_sharded(s, c, cfg, mesh),
+        (scene, camera), cfg, mesh, front, finish)
 
 
-def _trace_tile(scene: Scene, bvh, rays: Rays, cfg: RenderConfig, wvp):
-    """Launch + bounces (+ refraction + shadows) for a tile of rays, in
-    the rays' order.  The light takes ``cfg``'s dtype, as in
-    ``render_frame``."""
-    light3 = None
+def _light3(cfg: RenderConfig, wvp):
+    """The light in ray space where ``cfg`` shades shadows, else None; in
+    ``cfg``'s dtype, as in ``render_frame``."""
     if cfg.enable_shadows:
-        light3 = light_in_ray_space(cfg, wvp, cfg.torch_dtype)
-    return shade_rays(scene, bvh, rays, cfg, light3)
+        return light_in_ray_space(cfg, wvp, cfg.torch_dtype)
+    return None
 
 
-def render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
-                       mesh):
-    """The frame [height, width, 4] with the leaf stage sharded over 'geo'
-    and rays over the ray axes (forward only: the gathers carry no
-    gradient).  Unlike ``render_sharded`` the ray block is traced in row
-    order, as in the JAX package.
-
-    The vertex count and the face count must each divide over 'geo', so
-    that a rank's face share is whole faces: pad a scene that does not
-    with degenerate triangles (``parallel.mesh.pad_to_multiple``).  Face
-    indices are global; each face share indexes the gathered vertices.
-    Every rank holds the whole scene, so only the arrays derived from a
-    share are gathered: the transformed vertices and normals and the
-    leaf data."""
+def _check_geo(scene: Scene, cfg: RenderConfig, mesh) -> None:
+    """Raises where the scene's vertices or faces, or the image rows, do
+    not divide over the mesh."""
     geo = axis_size(mesh, GEO_AXIS)
     nv, nf = scene.num_verts, scene.num_faces
     if nv % geo or nf % geo or scene.indices.shape[0] != 3 * nf:
@@ -139,6 +205,11 @@ def render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
             f"geo={geo}; pad the scene with degenerate triangles "
             "(parallel.mesh.pad_to_multiple)")
     _ray_rows(cfg, mesh)
+
+
+def _geo_inputs(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
+    """(scene, bvh, this rank's rays in row order, light3) of
+    ``render_geo_sharded``: the sharded leaf stage and the tree."""
     group = mesh.get_group(GEO_AXIS)
     wvp, m, mv = build_transforms(camera, cfg)
     dtype = cfg.torch_dtype
@@ -158,8 +229,47 @@ def render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
                          for x in (codes_l, lmin_l, lmax_l))
     bvh = assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax, cfg)
     rays = _local_rays(make_rays(camera, cfg), mesh)
-    color = _trace_tile(scene, bvh, rays, cfg, wvp)
+    return scene, bvh, rays, _light3(cfg, wvp)
+
+
+def _render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
+                        mesh):
+    """``render_geo_sharded``'s eager body."""
+    _check_geo(scene, cfg, mesh)
+    scene, bvh, rays, light3 = _geo_inputs(scene, camera, cfg, mesh)
+    color = shade_rays(scene, bvh, rays, cfg, light3)
     return _gather_rays(color, mesh).reshape(cfg.height, cfg.width, 4)
+
+
+def render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
+                       mesh):
+    """The frame [height, width, 4] with the leaf stage sharded over 'geo'
+    and rays over the ray axes (forward only: the gathers carry no
+    gradient).  Unlike ``render_sharded`` the ray block is traced in row
+    order, as in the JAX package.
+
+    The vertex count and the face count must each divide over 'geo', so
+    that a rank's face share is whole faces: pad a scene that does not
+    with degenerate triangles (``parallel.mesh.pad_to_multiple``).  Face
+    indices are global; each face share indexes the gathered vertices.
+    Every rank holds the whole scene, so only the arrays derived from a
+    share are gathered: the transformed vertices and normals and the
+    leaf data.  On CUDA tensors a replayed CUDA graph (see the module
+    docstring)."""
+    if scene.device.type != "cuda":
+        return _render_geo_sharded(scene, camera, cfg, mesh)
+    _check_geo(scene, cfg, mesh)
+
+    def front(s, c):
+        s, bvh, rays, light3 = _geo_inputs(s, c, cfg, mesh)
+        return culled_front(s, bvh, rays, cfg, light3)
+
+    return _graphed_frame(
+        "render_geo_sharded",
+        lambda s, c: _render_geo_sharded(s, c, cfg, mesh), (scene, camera),
+        cfg, mesh, front,
+        lambda color: _gather_rays(color, mesh).reshape(cfg.height,
+                                                        cfg.width, 4))
 
 
 def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
@@ -181,13 +291,50 @@ def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
     asynchronously before the next chunk's build, so it overlaps that
     work; the handles are waited on after the last chunk, then the outer
     axes reduce all chunks at once (the same sums, elementwise).  The
-    chunks' means add up as ``acc + x / grad_chunks`` in chunk order."""
-    rows = _ray_rows(cfg, mesh)
-    nloc = rows * cfg.width
+    chunks' means add up as ``acc + x / grad_chunks`` in chunk order.
+
+    On CUDA tensors the step (the builds, the forward, the backward with
+    K3 and the all-reduces) is one replayed CUDA graph (see the module
+    docstring), and the returned tensors are new; a step whose rays would
+    cull chunks reads the host in the middle and raises."""
+    if params[0].device.type != "cuda":
+        return _train_step_sharded(params, scene_fn, scene, camera, target,
+                                   cfg, mesh, grad_chunks)
+    nloc = _check_chunks(cfg, mesh, grad_chunks)
+    if culls_chunks(cfg, nloc // grad_chunks):
+        raise ValueError(
+            "train_step_sharded: a frame with culled ray chunks reads the "
+            "host in the middle of the step; use ray_chunk=0 or "
+            "cull_empty_chunks=False")
+    inputs = (params, scene, camera, target)
+    cache = mesh_graphs(mesh)
+    with torch.inference_mode(False):
+        graph = cache.get(
+            signature("train_step_sharded", cfg, inputs, grad_chunks,
+                      scene_fn),
+            lambda: graphs.Captured(
+                lambda p, s, c, t: _train_step_sharded(
+                    p, scene_fn, s, c, t, cfg, mesh, grad_chunks),
+                inputs, cache.stream(params[0].device), **cache.options()))
+    with torch.no_grad():
+        loss, grads = graph(*inputs)
+        return loss.clone(), type(grads)(*(g.clone() for g in grads))
+
+
+def _check_chunks(cfg: RenderConfig, mesh, grad_chunks: int) -> int:
+    """The rank's ray count; raises where ``grad_chunks`` does not divide
+    it."""
+    nloc = _ray_rows(cfg, mesh) * cfg.width
     if grad_chunks < 1 or nloc % grad_chunks:
         raise ValueError(f"grad_chunks {grad_chunks} must divide the local "
                          f"ray count {nloc}")
-    csz = nloc // grad_chunks
+    return nloc
+
+
+def _train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
+                        target, cfg: RenderConfig, mesh, grad_chunks: int = 1):
+    """``train_step_sharded``'s eager body."""
+    csz = _check_chunks(cfg, mesh, grad_chunks) // grad_chunks
     wvp, m, mv = build_transforms(camera, cfg)
     rays = _local_rays(make_rays(camera, cfg), mesh)
     target = ray_shard(target.reshape(-1, 4), mesh)
@@ -199,8 +346,8 @@ def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
         sl = slice(c * csz, (c + 1) * csz)
         s = scene_fn(leaves, scene)
         bvh = build_bvh(s, m, mv, cfg)
-        color = _trace_tile(s, bvh, Rays(rays.origin[sl], rays.direction[sl]),
-                            cfg, wvp)
+        color = shade_rays(s, bvh, Rays(rays.origin[sl], rays.direction[sl]),
+                           cfg, _light3(cfg, wvp))
         loss = torch.mean((color - target[sl]) ** 2)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         buf = torch.cat([loss.detach().reshape(1)] + [

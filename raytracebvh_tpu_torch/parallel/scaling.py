@@ -34,7 +34,7 @@ from ..core.types import Camera, Scene
 from ..models.inverse import apply_params, init_params
 from ..models.procedural import random_triangles
 from ..utils.checkpoint import tree_leaves
-from .mesh import GEO_AXIS, make_mesh
+from .mesh import GEO_AXIS, make_mesh, mesh_graphs
 from .render import train_step_sharded
 
 ROOT = Path(__file__).resolve().parent.parent.parent
@@ -141,7 +141,10 @@ def weak_scaling_sweep(
     while it runs.  Rank 0 takes part in every mesh, so its list is the
     whole sweep; another rank's holds the meshes it was in.  Times are the
     least of ``iters`` host-clock runs after a warm-up, ended by a device
-    synchronize."""
+    synchronize.  On the card the step timed is the compiled one
+    (``train_step_sharded``'s replayed CUDA graph, captured in the
+    warm-up); on the CPU the eager step.  Each mesh's graphs are dropped
+    before the next mesh is made."""
     n = dist.get_world_size() if max_devices is None else max_devices
     sizes = []
     d = 1
@@ -186,6 +189,7 @@ def weak_scaling_sweep(
         # step_ms is the overlap's gain, or the recompute's cost where
         # the mesh has no communication to hide
         dt_ov = timeit(2) if d > 1 else dt
+        mesh_graphs(mesh).clear()
         rays = width * height * (1 + bounces)
         records.append({
             "devices": d,

@@ -623,74 +623,79 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
 FRAME_GRAPHS = graphs.Cache()
 
 
-def _culled_front(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """Everything of a culled chunked frame up to its host read: the
-    build, the tiled rays, the shared tables, and pass 1 of the chunk loop
-    (``trace_chunks``)."""
-    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
-    rays = tile_frame_rays(rays, cfg, cfg.width, cfg.height)
+def culled_front(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
+                 light3=None):
+    """``shade_rays``' culled chunk loop up to its host read: the shared
+    tables (``shade_setup``) and pass 1 (``trace_chunks``) -> (scene, bvh
+    with its tables, rays, light3, tex_quads, the chunks' records, their
+    hit flags), what ``GraphedShade`` shades the hit chunks from."""
     bvh, tex_quads = shade_setup(scene, bvh, cfg)
     recs, any_hit = trace_chunks(bvh, rays, cfg)
-    return bvh, rays, light3, tex_quads, recs, any_hit
+    return scene, bvh, rays, light3, tex_quads, recs, any_hit
 
 
-class _GraphedFrame:
-    """``render_frame`` for one signature as replayed CUDA graphs.
+def _frame_front(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Everything of a culled chunked frame up to its host read: the
+    build, the tiled rays and ``culled_front``."""
+    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
+    rays = tile_frame_rays(rays, cfg, cfg.width, cfg.height)
+    return culled_front(scene, bvh, rays, cfg, light3)
 
-    A frame whose work the device decides alone is one graph.  The culled
-    chunk loop (``culls_chunks``) reads on the host which chunks hit, so
-    it is two graphs sharing one memory pool: the front
-    (``_culled_front``) and one chunk's shading (``_shade_rays_one``),
-    captured on a static chunk slot and replayed for each hit chunk.  The
-    host reads the chunks' hit flags once a frame, between the two; miss
-    chunks get the background, and the frame's colours are untiled
-    eagerly (a view, or a few copies).  Every chunk's arithmetic is
-    ``shade_rays``'."""
 
-    def __init__(self, scene: Scene, camera: Camera, cfg: RenderConfig,
-                 cache: graphs.Cache):
+class GraphedShade:
+    """``fn(*inputs)`` for one signature as replayed CUDA graphs.
+
+    Where the device alone decides the work (``front`` None) it is one
+    graph.  The culled chunk loop (``culls_chunks``) reads on the host
+    which chunks hit, so it is two graphs sharing one memory pool: the
+    front (``front(*inputs)``, which ends in ``culled_front``) and one
+    chunk's shading (``_shade_rays_one``), captured on a static chunk slot
+    and replayed for each hit chunk.  The host reads the chunks' hit flags
+    once a call, between the two; miss chunks get the background, and
+    ``finish`` turns the colours in ray order into the result eagerly (a
+    view, a few copies, or a collective between the graphs).  Every
+    chunk's arithmetic is ``shade_rays``'.  ``capture`` is handed to each
+    ``graphs.Captured`` (``graphs.Cache.options``)."""
+
+    def __init__(self, fn, inputs: tuple, cfg: RenderConfig,
+                 stream: torch.cuda.Stream, front=None, finish=None,
+                 **capture):
         self.cfg = cfg
-        stream = cache.stream(scene.device)
-        w, h = cfg.width, cfg.height
-        self.culled = culls_chunks(cfg, w * h)
+        self.culled = front is not None
         if not self.culled:
-            self.frame = graphs.Captured(
-                lambda s, c: render_frame(s, c, cfg), (scene, camera), stream,
-                debug=cache.debug)
+            self.frame = graphs.Captured(fn, inputs, stream, **capture)
             self.captures = (self.frame,)
             return
-        self.front = graphs.Captured(
-            lambda s, c: _culled_front(s, c, cfg), (scene, camera), stream,
-            debug=cache.debug)
-        # a real frame in the front's outputs before the chunk's warm-up,
+        self.finish = finish
+        self.front = graphs.Captured(front, inputs, stream, **capture)
+        # a real call in the front's outputs before the chunk's warm-up,
         # which reads them
-        self.front(scene, camera)
-        bvh, rays, light3, tex_quads, recs, _ = self.front.output
-        static_scene = self.front.inputs[0]
+        self.front(*inputs)
+        scene, bvh, rays, light3, tex_quads, recs, _ = self.front.output
         pool = self.front.graph.pool()
         self.chunk = graphs.Captured(
-            lambda r, rec: _shade_rays_one(static_scene, bvh, r, cfg,
-                                           tex_quads, light3, rec),
+            lambda r, rec: _shade_rays_one(scene, bvh, r, cfg, tex_quads,
+                                           light3, rec),
             (chunk_rays(rays, 0, cfg.ray_chunk), recs[0]), stream, pool=pool,
-            debug=cache.debug)
-        self.background = chunk_background(cfg, tex_quads, scene.device)
-        self.color = torch.empty((w * h, 4), dtype=self.chunk.output.dtype,
-                                 device=scene.device)
+            **capture)
+        self.background = chunk_background(cfg, tex_quads, rays.origin.device)
+        self.color = torch.empty((rays.origin.shape[0], 4),
+                                 dtype=self.chunk.output.dtype,
+                                 device=rays.origin.device)
         self.captures = (self.front, self.chunk)
 
-    def __call__(self, scene: Scene, camera: Camera):
+    def __call__(self, *inputs):
         if not self.culled:
-            return self.frame(scene, camera).clone()
-        _, rays, _, _, recs, any_hit = self.front(scene, camera)
-        cfg = self.cfg
-        slots = self.color.view(-1, cfg.ray_chunk, 4)
+            return self.frame(*inputs).clone()
+        _, _, rays, _, _, recs, any_hit = self.front(*inputs)
+        chunk = self.cfg.ray_chunk
+        slots = self.color.view(-1, chunk, 4)
         slots.copy_(self.background.expand_as(slots))
-        for i, hit in enumerate(any_hit.tolist()):  # the frame's host read
+        for i, hit in enumerate(any_hit.tolist()):  # the call's host read
             if hit:
-                slots[i].copy_(self.chunk(chunk_rays(rays, i, cfg.ray_chunk),
+                slots[i].copy_(self.chunk(chunk_rays(rays, i, chunk),
                                           recs[i]))
-        color = untile_frame_color(self.color, cfg, cfg.width, cfg.height)
-        return color.reshape(cfg.height, cfg.width, 4).clone()
+        return self.finish(self.color).clone()
 
     @property
     def capture_ms(self) -> float:
@@ -701,6 +706,21 @@ class _GraphedFrame:
         return sum(c.pool_bytes for c in self.captures)
 
 
+def graphed_shade(cache: graphs.Cache, key, fn, inputs: tuple,
+                  cfg: RenderConfig, nrays: int, front, finish):
+    """``fn(*inputs)`` replayed from ``cache``'s ``GraphedShade`` for
+    ``key``, captured on a miss with the cache's options: the two-pass
+    scheme (``front``, then ``finish`` of the chunks' colours) where
+    ``cfg`` culls the chunks of ``nrays`` rays (``culls_chunks``), else
+    one graph of ``fn``.  Returns a new tensor."""
+    with torch.inference_mode(False), torch.no_grad():
+        shade = cache.get(key, lambda: GraphedShade(
+            fn, inputs, cfg, cache.stream(inputs[0].device),
+            front=front if culls_chunks(cfg, nrays) else None,
+            finish=finish, **cache.options()))
+    with torch.no_grad():
+        return shade(*inputs)
+
 def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
     """``render_frame`` compiled once a signature, the counterpart of the
     JAX package's ``render_frame_jit``: on CUDA tensors the whole frame
@@ -709,15 +729,15 @@ def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
     (``graphs.signature``: cfg and the inputs' shapes, dtypes and device)
     and replayed with the caller's scene and camera copied in; the culled
     chunk loop reads its chunks' hit flags once a frame
-    (``_GraphedFrame``).  It returns a new image, the eager frame's bits.
+    (``GraphedShade``).  It returns a new image, the eager frame's bits.
     On CPU tensors it is ``render_frame``.  It does not differentiate:
     with grad mode on, an input that requires grad raises."""
     graphs.check_no_grad((scene, camera), "render_frame_jit")
     if scene.device.type != "cuda":
         return render_frame(scene, camera, cfg)
-    with torch.inference_mode(False), torch.no_grad():
-        frame = FRAME_GRAPHS.get(
-            graphs.signature(cfg, scene, camera),
-            lambda: _GraphedFrame(scene, camera, cfg, FRAME_GRAPHS))
-    with torch.no_grad():
-        return frame(scene, camera)
+    w, h = cfg.width, cfg.height
+    return graphed_shade(
+        FRAME_GRAPHS, graphs.signature(cfg, scene, camera),
+        lambda s, c: render_frame(s, c, cfg), (scene, camera), cfg, w * h,
+        lambda s, c: _frame_front(s, c, cfg),
+        lambda color: untile_frame_color(color, cfg, w, h).reshape(h, w, 4))

@@ -3,9 +3,11 @@
 The same FPS meter, a per-stage breakdown of the frame pipeline with the
 JAX function's stages and keys, and a context manager around
 ``torch.profiler.profile`` that writes a Chrome trace (in place of
-``jax.profiler.trace``).  PyTorch runs eagerly, so each stage is the
-port's own op-by-op code, timed by CUDA events on CUDA tensors and by
-the host clock on the CPU.
+``jax.profiler.trace``).  The JAX function jits each stage on its own;
+on CUDA tensors each stage here is its own CUDA graph (``graphs.py``),
+replayed between CUDA events, so a stage's time is its kernels' without
+the host between them.  On the CPU the stages run eagerly, timed by the
+host clock.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import contextlib
 import os
 import statistics
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -67,7 +69,7 @@ def trace(log_dir: str):
 
 def _call_seconds(fn, device: torch.device) -> float:
     """Seconds of one call of ``fn()``: CUDA events around it on a CUDA
-    device (host launch gaps included), the host clock on the CPU."""
+    device, the host clock on the CPU."""
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -85,10 +87,11 @@ def _median_times(stages, iters: int,
                   device: torch.device) -> Dict[str, float]:
     """name -> seconds of one call of ``stages[name]()``: the median over
     ``iters`` rounds after one warm-up call each, every round calling
-    every stage once in order.  The stages are host-bound, and the host's
-    speed moves by tens of percent from one call to the next and drifts
-    over seconds: in rounds the drift hits every stage alike, and the
-    median is not one lucky or unlucky call."""
+    every stage once in order.  The host's speed moves by tens of percent
+    from one call to the next and drifts over seconds (eager stages are
+    host-bound, and a replay's launch is the host's too): in rounds the
+    drift hits every stage alike, and the median is not one lucky or
+    unlucky call."""
     for fn in stages.values():
         fn()  # warm-up
     times = {name: [] for name in stages}
@@ -98,17 +101,13 @@ def _median_times(stages, iters: int,
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
-    """Seconds per pipeline stage, each run on its own, on the scene's
-    device.
-
-    The JAX function's stages and keys, in its order: morton, sort
-    (``cfg.sort_backend``: ``bitonic`` times kernel K8 on CUDA tensors),
-    topology, fit, links, build_total, trace_shade and the whole frame.
-    Each stage is timed alone, the median of ``iters`` rounds of all the
-    stages (``_median_times``), so the stages do not add up to the build
-    exactly.
-    """
+def _eager_stages(scene, camera, cfg):
+    """(name -> call, (scene, bvh, rays)): the JAX function's stages, in
+    its order, as eager calls on the scene's device (morton, sort
+    (``cfg.sort_backend``: ``bitonic`` is kernel K8 on CUDA tensors),
+    topology, fit, links, build_total, trace_shade and the whole frame),
+    and the build and rays that trace_shade shades.  Each stage takes its
+    inputs from one eager build made here."""
     from ..camera import camera_matrices, transform_points
     from ..config import resolve_sort_backend
     from ..ops import bvh as bvh_ops
@@ -117,33 +116,83 @@ def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
                             sort_codes)
 
     dtype = cfg.torch_dtype
-    device = scene.verts.device
     wvp, wv = camera_matrices(camera, cfg.width, cfg.height)
-    sort_backend = resolve_sort_backend(cfg, device)
+    sort_backend = resolve_sort_backend(cfg, scene.verts.device)
 
     def f_morton():
         verts_t = transform_points(scene.verts.to(dtype), wvp.to(dtype))
         smin, smax = morton_ops.scene_aabb(verts_t)
         return morton_ops.triangle_leaves(verts_t, scene.indices, smin, smax)
 
+    codes, lmin, lmax, _ = f_morton()
+    codes = codes.to(torch.int32)
+    sorted_codes, _ = sort_codes(codes, sort_backend)
+    topo = bvh_ops.build_topology(sorted_codes)
+    bvh = build_bvh(scene, wvp, wv, cfg)
+    rays = make_rays(camera, cfg)
+    return {
+        "morton": f_morton,
+        "sort": lambda: sort_codes(codes, sort_backend),
+        "topology": lambda: bvh_ops.build_topology(sorted_codes),
+        "fit": lambda: bvh_ops.fit_aabbs(topo.node_lo, topo.node_hi,
+                                         lmin, lmax),
+        "links": lambda: bvh_ops.compute_links(topo, lmin.shape[0]),
+        "build_total": lambda: build_bvh(scene, wvp, wv, cfg),
+        "trace_shade": lambda: shade_rays(scene, bvh, rays, cfg),
+        "frame_total": lambda: render_frame(scene, camera, cfg),
+    }, (scene, bvh, rays)
+
+
+def _graphed_stages(scene, camera, cfg) -> Dict[str, Callable]:
+    """``_eager_stages`` with every stage captured alone into its own CUDA
+    graph (each with its own memory pool), as the JAX function jits each
+    stage alone: a replay a call.  ``trace_shade`` of a culled chunked
+    config is ``pipeline.GraphedShade``'s two graphs around one host read
+    of the chunks' hit flags; ``frame_total`` is ``render_frame_jit``'s
+    capture (its cache's).  A stage whose capture fails raises: none runs
+    eagerly in its place."""
+    from .. import graphs
+    from ..pipeline import (culled_front, graphed_shade, render_frame_jit,
+                            shade_rays)
+
+    eager, (scene, bvh, rays) = _eager_stages(scene, camera, cfg)
+    cache = graphs.Cache()
+    stream = cache.stream(scene.device)
+    stages = {name: graphs.Captured(eager[name], (), stream)
+              for name in ("morton", "sort", "topology", "fit", "links",
+                           "build_total")}
+
+    def trace_shade():
+        return graphed_shade(
+            cache, "trace_shade", lambda s, b, r: shade_rays(s, b, r, cfg),
+            (scene, bvh, rays), cfg, rays.origin.shape[0],
+            lambda s, b, r: culled_front(s, b, r, cfg), lambda color: color)
+
+    trace_shade()  # the capture
+    render_frame_jit(scene, camera, cfg)  # the capture, or a cached one
+    return {**stages, "trace_shade": trace_shade,
+            "frame_total": lambda: render_frame_jit(scene, camera, cfg)}
+
+
+def stage_times(scene, camera, cfg, iters: int = 5) -> Dict[str, float]:
+    """Seconds per pipeline stage, each run on its own, on the scene's
+    device.
+
+    The JAX function's stages and keys, in its order (``_eager_stages``).
+    On CUDA tensors each stage is its own CUDA graph, as the JAX function
+    jits each alone (``_graphed_stages``), timed by CUDA events around a
+    replay; on CPU tensors the stages run eagerly, timed by the host
+    clock.  Each stage is timed alone, the median of ``iters`` rounds of
+    all the stages (``_median_times``), so the stages do not add up to
+    the build exactly.
+    """
+    device = scene.verts.device
     with torch.no_grad():
-        codes, lmin, lmax, _ = f_morton()
-        codes = codes.to(torch.int32)
-        sorted_codes, _ = sort_codes(codes, sort_backend)
-        topo = bvh_ops.build_topology(sorted_codes)
-        bvh = build_bvh(scene, wvp, wv, cfg)
-        rays = make_rays(camera, cfg)
-        stages = {
-            "morton": f_morton,
-            "sort": lambda: sort_codes(codes, sort_backend),
-            "topology": lambda: bvh_ops.build_topology(sorted_codes),
-            "fit": lambda: bvh_ops.fit_aabbs(topo.node_lo, topo.node_hi,
-                                             lmin, lmax),
-            "links": lambda: bvh_ops.compute_links(topo, lmin.shape[0]),
-            "build_total": lambda: build_bvh(scene, wvp, wv, cfg),
-            "trace_shade": lambda: shade_rays(scene, bvh, rays, cfg),
-            "frame_total": lambda: render_frame(scene, camera, cfg),
-        }
+        if device.type == "cuda":
+            with torch.inference_mode(False):
+                stages = _graphed_stages(scene, camera, cfg)
+        else:
+            stages, _ = _eager_stages(scene, camera, cfg)
         return _median_times(stages, iters, device)
 
 

@@ -18,6 +18,8 @@ each row's largest |value|, and to its own bits on a second launch, on
 coherent and random ids and on every ray into one row.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -817,7 +819,7 @@ def test_sharded_frames_over_nccl_world_one(dev):
                            want)
         assert torch.equal(render.render_sharded(scene, cam, cfg, flat), want)
     finally:
-        dist.destroy_process_group()
+        mesh.destroy_distributed()
 
 
 def _graph_frame_args(dev, **kw):
@@ -983,3 +985,202 @@ def test_graph_replays_after_an_eager_launch_lowers_the_smem_limit(dev):
         out = out if isinstance(out, tuple) else (out.hit, out.distance,
                                                   out.leaf)
         assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("kw", [dict(ray_tile=16), dict(ray_chunk=1024)],
+                         ids=["one_graph", "culled_chunks"])
+def test_graphed_stage_times(dev, kw):
+    """stage_times on the card: the JAX function's keys, every stage a
+    replayed graph with a finite positive time; trace_shade's graphs (the
+    culled loop's two, around one host read) give shade_rays' bits."""
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.utils import profiling
+
+    scene, cam, cfg = _graph_frame_args(dev, **kw)
+    assert pipeline.culls_chunks(cfg, 64 * 64) == ("ray_chunk" in kw)
+    times = profiling.stage_times(scene, cam, cfg, iters=2)
+    assert list(times) == ["morton", "sort", "topology", "fit", "links",
+                           "build_total", "trace_shade", "frame_total"]
+    assert all(np.isfinite(v) and v > 0 for v in times.values()), times
+    with torch.no_grad():
+        stages = profiling._graphed_stages(scene, cam, cfg)
+        eager, (s, bvh, rays) = profiling._eager_stages(scene, cam, cfg)
+        got = stages["trace_shade"]().clone()
+        assert torch.equal(got, pipeline.shade_rays(s, bvh, rays, cfg))
+        topo = stages["topology"]()
+        assert all(torch.equal(a, b)
+                   for a, b in zip(topo, eager["topology"]()))
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def test_graphed_depth_image_equals_eager(dev):
+    """render_depth_bmp on the card replays one graph a signature: every
+    replay is the eager image's bytes, and a new stride captures anew."""
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.ref import refimage
+
+    scene = random_triangles(150, seed=4, device=dev)
+    refimage.DEPTH_GRAPHS.clear()
+    for stride in (4, 4, 2, 4):
+        got = refimage.render_depth_bmp(scene, 64, 64, stride)
+        with torch.no_grad():
+            want = refimage._depth_image(
+                *refimage._depth_walk(scene, 64, 64, stride)(scene), 64, 64,
+                stride)
+        assert got.shape == want.shape and (got == want).all()
+    assert len(refimage.DEPTH_GRAPHS.entries) == 2
+    refimage.DEPTH_GRAPHS.clear()
+
+
+def test_graphed_sharded_frames_and_step_world_one(dev):
+    """render_sharded, render_geo_sharded and train_step_sharded over a
+    world-1 NCCL group replay CUDA graphs with the collectives inside:
+    each call equals the eager body (frames bit for bit, also a culled
+    chunked frame; the step's loss bit for bit and its gradients within
+    1e-6 of the largest |grad|, with grad_chunks 1 and 2), a second call
+    replays without a new capture (the graphs are the mesh's), the
+    parameters stay as they were, and a step that would cull chunks
+    raises.  destroy_distributed drops the mesh's graphs and ends the
+    group."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.inverse import apply_params, init_params
+    from raytracebvh_tpu_torch.parallel import mesh, render
+
+    scene, cam, cfg = _graph_frame_args(
+        dev, enable_shadows=True, light_pos=(10.0, 80.0, -40.0))
+    mesh.initialize_distributed()
+    try:
+        flat = mesh.make_mesh()
+        cache = mesh.mesh_graphs(flat)
+        assert cache is mesh.mesh_graphs(flat)
+        assert cache is not mesh.mesh_graphs(mesh.make_mesh())
+        cases = ((render.render_sharded, render._render_sharded, cfg),
+                 (render.render_geo_sharded, render._render_geo_sharded, cfg),
+                 (render.render_sharded, render._render_sharded,
+                  cfg.replace(ray_chunk=512)))
+        for fn, body, c in cases:
+            want = T.render_frame(scene, cam, c)
+            assert torch.equal(body(scene, cam, c, flat), want)
+            for _ in range(2):
+                assert torch.equal(fn(scene, cam, c, flat), want)
+        assert len(cache.entries) == 3
+        cfg_bwd = cfg.replace(enable_shadows=False, ray_tile=16)
+        target = torch.zeros((64, 64, 4), device=dev)
+        params = init_params(scene)
+        before = [p.clone() for p in params]
+        for chunks in (1, 2):
+            loss_e, grads_e = render._train_step_sharded(
+                params, apply_params, scene, cam, target, cfg_bwd, flat,
+                chunks)
+            for _ in range(2):
+                loss, grads = render.train_step_sharded(
+                    params, apply_params, scene, cam, target, cfg_bwd, flat,
+                    chunks)
+                assert torch.equal(loss, loss_e)
+                for g, ge in zip(grads, grads_e):
+                    tol = 1e-6 * float(ge.abs().max())
+                    assert float((g - ge).abs().max()) <= tol
+        assert all(torch.equal(p, b) for p, b in zip(params, before))
+        assert len(cache.entries) == 5
+        with pytest.raises(ValueError, match="culled ray chunks"):
+            render.train_step_sharded(params, apply_params, scene, cam,
+                                      target, cfg_bwd.replace(ray_chunk=512),
+                                      flat)
+    finally:
+        mesh.destroy_distributed()
+    assert not cache.entries
+
+
+SHARDED_RANK = """
+import os
+import torch
+import raytracebvh_tpu_torch as T
+import torch.distributed as dist
+from raytracebvh_tpu_torch.models.inverse import apply_params, init_params
+from raytracebvh_tpu_torch.models.procedural import random_triangles
+from raytracebvh_tpu_torch.parallel import mesh, render
+
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh.initialize_distributed()
+dev = torch.device("cuda", torch.cuda.current_device())
+scene = random_triangles(300, seed=7, with_texture=True, device=dev)
+cam = T.Camera.default(dev)
+cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.4,
+                     enable_shadows=True, light_pos=(10.0, 80.0, -40.0))
+flat, geo = mesh.make_mesh(), mesh.make_mesh(geo=2)
+for fn, body, m, c in (
+        (render.render_sharded, render._render_sharded, flat, cfg),
+        (render.render_sharded, render._render_sharded, geo, cfg),
+        (render.render_geo_sharded, render._render_geo_sharded, geo, cfg),
+        (render.render_sharded, render._render_sharded, geo,
+         cfg.replace(ray_chunk=512))):
+    want = T.render_frame(scene, cam, c)
+    assert torch.equal(body(scene, cam, c, m), want)
+    for _ in range(2):
+        assert torch.equal(fn(scene, cam, c, m), want), (fn.__name__, c)
+assert len(mesh.mesh_graphs(flat).entries) == 1
+assert len(mesh.mesh_graphs(geo).entries) == 3
+cfg_bwd = cfg.replace(enable_shadows=False, ray_tile=16)
+target = torch.zeros((64, 64, 4), device=dev)
+params = init_params(scene)
+for chunks in (1, 2):
+    loss_e, grads_e = render._train_step_sharded(
+        params, apply_params, scene, cam, target, cfg_bwd, geo, chunks)
+    for _ in range(2):
+        loss, grads = render.train_step_sharded(
+            params, apply_params, scene, cam, target, cfg_bwd, geo, chunks)
+        assert abs(float(loss - loss_e)) <= 1e-6 * abs(float(loss_e))
+        for g, ge in zip(grads, grads_e):
+            assert float((g - ge).abs().max()) <= 1e-6 * float(ge.abs().max())
+assert len(mesh.mesh_graphs(geo).entries) == 5
+caches = mesh.mesh_graphs(flat), mesh.mesh_graphs(geo)
+mesh.destroy_distributed()  # with the meshes alive
+assert not dist.is_initialized()
+assert not any(c.entries for c in caches)
+print("rank", os.environ["RANK"], "passed")
+"""
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_graphed_sharded_frames_and_step_across_ranks(dev, world, tmp_path):
+    """The graphed sharded entry points at ``world`` ranks over NCCL, one
+    card each (skips with fewer cards): on the flat (world x 1) and geo=2
+    meshes, render_sharded (also a culled chunked frame) and
+    render_geo_sharded equal the eager bodies and render_frame bit for bit
+    on every call, and train_step_sharded (grad_chunks 1 and 2) its eager
+    body within 1e-6 of the loss and of each gradient's largest |grad|
+    (NCCL's sums across cards; the world-one test holds the bits).  Each
+    rank then ends with destroy_distributed, its meshes still alive: it
+    drops their graphs, which hold the communicators, before the group
+    (destroy_process_group alone waits for them forever), and the rank
+    exits cleanly within the timeout."""
+    import socket
+    import subprocess
+    import sys
+
+    from raytracebvh_tpu_torch import _kernels
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    _kernels.build()  # once, before the ranks load it
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    script = tmp_path / "rank.py"
+    script.write_text(SHARDED_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], cwd=root,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"rank {r} passed" in out, out[-4000:]

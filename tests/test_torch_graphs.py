@@ -269,6 +269,37 @@ def test_unchunked_frame_reads_nothing_back(monkeypatch, kw):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("stage", [
+    "morton", "sort", "topology", "fit", "links", "build_total",
+    "trace_shade", "depth_image"])
+def test_graphed_bodies_read_nothing_back(monkeypatch, stage):
+    """What utils.profiling.stage_times captures a stage at a time on the
+    card, and what ref.refimage.render_depth_bmp captures (the build, the
+    rays, the walk), make no host read and no tensor literal outside the
+    plain walks, so a CUDA graph can hold each.  The stages' inputs and the
+    depth image's camera are made before, outside the guard."""
+    from raytracebvh_tpu_torch.ref import refimage
+    from raytracebvh_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(t_traverse, "traverse",
+                        _unguarded(t_traverse.traverse))
+    scene = t_random(300, device="cpu", seed=6, with_texture=True)
+    cam = T.Camera.default("cpu")
+    cfg = T.RenderConfig(width=48, height=32, bounces=1, ortho_scale=2.0,
+                         ray_tile=16, sort_backend="bitonic")
+    if stage == "depth_image":
+        fn = refimage._depth_walk(scene, 48, 32, 2)
+        call = lambda: fn(scene)  # noqa: E731
+    else:
+        stages, _ = profiling._eager_stages(scene, cam, cfg)
+        call = stages[stage]
+    want = graphs.tensors(call())
+    with _NoHostReads():
+        got = graphs.tensors(call())
+    assert len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_guard_catches_host_reads():
     with pytest.raises(AssertionError, match="_local_scalar_dense"):
         with _NoHostReads():

@@ -61,6 +61,7 @@ import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models import inverse as ti
 from raytracebvh_tpu_torch.models.procedural import random_triangles as t_random
 from raytracebvh_tpu_torch.parallel import mesh as tm
+from raytracebvh_tpu_torch.parallel import render as t_render
 from raytracebvh_tpu_torch.parallel import scaling as ts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -458,3 +459,43 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tm.initialize_distributed()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.make_mesh()
+
+
+class _Mesh:
+    """A stand-in for a DeviceMesh: ``mesh_graphs`` keeps its cache on it."""
+
+
+def test_sharded_signatures_tell_meshes_and_chunks_apart():
+    """The sharded captures' caches and keys: every mesh holds its own
+    cache (``mesh_graphs``: the same mesh gives the same cache, another
+    mesh, also of the same shape, another; it goes with its mesh); in a
+    cache, the same entry point, config, static arguments and inputs give
+    one key, and another grad_chunks, scene_fn, entry point, config or
+    input shape another."""
+    import gc
+    import weakref
+
+    m1, m2 = _Mesh(), _Mesh()
+    c1 = tm.mesh_graphs(m1)
+    assert c1 is tm.mesh_graphs(m1) and c1 is not tm.mesh_graphs(m2)
+    assert c1.capture_error_mode == "thread_local"
+    gone = weakref.ref(c1)
+    del m1, c1
+    gc.collect()
+    assert gone() is None
+
+    scene = t_random(20, seed=1, device="cpu")
+    cam = T.Camera.default("cpu")
+    cfg = T.RenderConfig(width=8, height=8)
+
+    def key(*static, name="train_step_sharded", c=cfg, s=scene):
+        return t_render.signature(name, c, (s, cam), *static)
+
+    want = key(1, ti.apply_params)
+    assert want == key(1, ti.apply_params)
+    assert hash(want) == hash(key(1, ti.apply_params))
+    others = [key(4, ti.apply_params), key(1, lambda p, s: s),
+              key(1, ti.apply_params, name="render_sharded"),
+              key(1, ti.apply_params, c=cfg.replace(width=16)),
+              key(1, ti.apply_params, s=t_random(40, seed=1, device="cpu"))]
+    assert len(set(others + [want])) == len(others) + 1

@@ -154,3 +154,25 @@ def test_render_cli_metrics_through_the_writer(tmp_path):
         ["ts", "event", "frame", "ms", "mrays_per_sec"]] * 2
     assert [r["frame"] for r in recs] == [0, 1]
     assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in recs)
+
+
+def test_stage_times_on_the_cpu_stay_eager(monkeypatch):
+    """On CPU tensors stage_times runs the eager stages: no capture is
+    attempted (the CUDA graphs are the card's, tests/test_torch_cuda.py),
+    and the stages are the eager ones, in the JAX function's order."""
+    from raytracebvh_tpu_torch import graphs
+
+    def refuse(*a, **k):
+        raise AssertionError("stage_times captured on the CPU")
+
+    monkeypatch.setattr(graphs, "Captured", refuse)
+    scene = t_random(120, seed=3, device="cpu")
+    cfg = T.RenderConfig(**CFG)
+    times = t_profiling.stage_times(scene, T.Camera.default("cpu"), cfg,
+                                    iters=1)
+    stages, (s, bvh, rays) = t_profiling._eager_stages(
+        scene, T.Camera.default("cpu"), cfg)
+    assert list(times) == list(stages)
+    assert s is scene and rays.origin.shape == (16 * 16, 3)
+    assert torch.equal(stages["frame_total"](),
+                       T.render_frame(scene, T.Camera.default("cpu"), cfg))
