@@ -24,9 +24,10 @@ Phases (one line of output each, or more):
      hands them (the walks K1, K4, K5 and K6 exactly, every output and
      step count, with each launch's lane efficiency: K1 on the dense
      frame's primary and bounce launches and the large frame's, K4 on the
-     dense and large shadow launches; K3 on dense_train's two calls and
-     onchip_train's, also against a float64 sum, and against itself: two
-     launches, 0 differing bits; K7's backward against K3 through K2; K8
+     dense and large shadow launches; K3 on dense_train's two calls,
+     onchip_train's and the first of sparse_train_culled's (one shaded
+     chunk's 25 600 ids), also against a float64 sum, and against itself:
+     two launches, 0 differing bits; K7's backward against K3 through K2; K8
      also against torch.sort(stable=True), at the edges of its routes,
      with its kernels counted by torch.profiler); their times beside the
      plain versions' (CUDA events around the wrapper, median of 5), their
@@ -45,16 +46,20 @@ Phases (one line of output each, or more):
      through K5/K7/K8, held to the plain path given its kernels' float32
      casts); every
      kernel's launch count over each frame (counts set to 0 just before
-     it, read just after); frame ms and Mrays/s (median of 5 after one
+     it, read just after; a culled frame's a walk a chunk and a body a
+     shaded chunk); frame ms and Mrays/s (median of 5 after one
      warm-up); each image but sparse's and large's against the
      all-plain-PyTorch render, and dense_onchip's against the same config
      through K1/K4/K2/lax, bit for bit
   5. training: models.inverse.loss_fn + backward() and train_step on
-     sparse_train (bench.py:319-320's cfg_bwd), dense_train and
-     onchip_train; launch counts (K3 twice a step), loss bit-equal to the
-     all-plain step (and onchip_train's to dense_train's), gradients within
-     GRAD_TOL of it, 3 Adam steps; step ms (median of 5), Mrays/s and peak
-     device memory
+     sparse_train (bench.py:319-320's cfg_bwd), dense_train, onchip_train
+     and sparse_train_culled (the sparse frame's config: ray chunks culled
+     under graphs.cond, each shaded chunk's VJP under the same predicate);
+     launch counts (K3 twice a step, twice a shaded chunk), loss bit-equal
+     to the all-plain step (and onchip_train's to dense_train's,
+     sparse_train_culled's to the unculled chunked step's), gradients
+     within GRAD_TOL of it (and of the unculled step's), 3 Adam steps;
+     step ms (median of 5), Mrays/s and peak device memory
   6. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
      the 3 072-triangle scene, plain and with --shadows --refract; its
      default backend runs K5 (and K6) there
@@ -73,7 +78,10 @@ Phases (one line of output each, or more):
      rounds: the stage tables, every stage finite and positive, the
      graphed build within the graphed frame; beside the lax tables the
      same stages eager (median of 10 rounds); a Chrome trace (--trace)
-     that names K5, K2 and K8
+     that names K5, K2 and K8; the stages of the sparse frame (culled
+     chunks): trace_shade one graph, a replay under sync-debug mode
+     "error" shade_rays' bits, its eager launches phase 4's sparse
+     walks and bodies (a replay's: phase 12)
   9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
      the 3 072-triangle scene, a CUDA graph (K5 inside), its capture's
      replay and a second replay byte for byte its eager body's and the
@@ -81,15 +89,19 @@ Phases (one line of output each, or more):
      native loader bit for bit against the Python one on both OBJs, with
      their seconds
  10. multi-device: parallel.mesh.initialize_distributed (NCCL, world size
-     1 on one card) and make_mesh; render_sharded on the dense frame,
-     render_geo_sharded on the large and dense_shadows frames, each a CUDA
-     graph with its collectives inside, its capture's replay, a second
-     replay and its eager body each bit for bit phase 4's image (K1 2 +
-     K2 4; K1 1 + K2 2; K1 1 + K2 2 + K4 1, in the eager body, in the
-     graph's nodes and in a replay); train_step_sharded on sparse_train
-     with grad_chunks 1 (loss phase 5's bits, gradients within GRAD_TOL,
-     K1 2 + K2 4 + K3 2) and 4 (within the same gates of 1, four times
-     the launches), graphed and eager; NCCL's set-up ms, capture ms, the
+     1 on one card) and make_mesh; render_sharded on the dense and sparse
+     frames, render_geo_sharded on the large, dense_shadows and
+     sparse_shadows frames, each one CUDA graph with its collectives
+     inside (a culled frame's chunks under IF nodes), its capture's
+     replay, a second replay (under sync-debug mode "error") and its
+     eager body each bit for bit phase 4's image (K1 2 + K2 4; K1 1 + K2
+     2; K1 1 + K2 2 + K4 1; the sparse frames phase 4's in the eager body,
+     every chunk's body in the graph's nodes, a replay's in phase 12);
+     train_step_sharded on sparse_train with grad_chunks 1 (loss phase 5's
+     bits, gradients within GRAD_TOL, K1 2 + K2 4 + K3 2) and 4 (within
+     the same gates of 1, four times the launches), and on
+     sparse_train_culled (loss phase 5's bits), graphed and eager; NCCL's
+     set-up ms, capture ms, the
      sharded frames' and steps' ms graphed and eager beside the
      single-process ones, the gradient all-reduce's and the frame
      all-gather's ms.
@@ -97,25 +109,36 @@ Phases (one line of output each, or more):
      with geo=2 (this script with --sharded-rank, one process a card)
  11. graphed: render_frame_jit on the dense, sparse, large,
      dense_shadows, sparse_shadows, refract, dense_onchip and dense_bf16
-     frames (one capture each, freed before the next), each bit for bit
-     phase 4's eager image, and again at orbit(camera, 0.1, 0), bit for
-     bit the eager frame there (inputs are copied in, not baked in); the
-     hand-written kernels in the graphs counted twice, from the graphs'
-     own kernel nodes (CUDAGraph.debug_dump) and by torch.profiler over
-     replays, each equal to the frame's phase 4 launches (the sparse
-     frames: the front graph + hit chunks x the chunk graph); a dense
-     replay under torch.cuda.set_sync_debug_mode("error"); train_step_jit on
-     sparse_train and onchip_train, TRAIN_STEPS steps beside as many
-     eager train_steps from the same start (bit for bit the eager steps
-     with the same capturable Adam; with the default Adam the first loss
+     frames (one capture each, freed before the next; the sparse frames'
+     culled chunks under the graph's IF nodes), each bit for bit phase 4's
+     eager image, and again at orbit(camera, 0.1, 0), bit for bit the
+     eager frame there (inputs are copied in, not baked in), the replays
+     under torch.cuda.set_sync_debug_mode("error"); the hand-written
+     kernels counted from the graph's own kernel nodes
+     (CUDAGraph.debug_dump: phase 4's launches, for a culled frame every
+     chunk's body) and by torch.profiler over a replay (phase 4's
+     launches; a culled frame's in phase 12); train_step_jit on sparse_train, onchip_train and
+     sparse_train_culled, TRAIN_STEPS steps beside as many eager
+     train_steps from the same start (bit for bit the eager steps with the
+     same capturable Adam; with the default Adam the first loss
      bit-equal, the rest within GRAPHED_STEP1_TOL / GRAPHED_PARAM_TOL /
-     GRAPHED_LOSS_RTOL; K3 twice a replayed step); graphed and eager ms
-     side by side (median of 5 after a warm-up), capture ms and
-     graph-pool bytes
+     GRAPHED_LOSS_RTOL; K3 twice a replayed step, twice a shaded chunk);
+     graphed and eager ms side by side (median of 5 after a warm-up),
+     capture ms, graph-pool bytes and peak device memory
+ 12. culled replays: the seven culled graphs of phases 8, 10 and 11
+     (render_frame_jit, render_sharded and render_geo_sharded on the
+     sparse frames, train_step_jit and train_step_sharded on
+     sparse_train_culled, trace_shade), each captured again in a fresh
+     process of this script (--replay-kernels), all started together,
+     and one replay of each traced by torch.profiler: its hand-written
+     kernels the eager call's launches (the shaded chunks' bodies only;
+     K3 twice a shaded chunk in the steps)
 
-Launch counts include phases 10's and 11's.  The Python launch counters
-count a graph's capture (and its eager warm-up), not its replays: the
-CLIs of phases 6-8 replay graphs, so their counts are the captures'.
+Launch counts include phases 10's and 11's (not phase 12's, whose
+processes count their own).  The Python launch counters
+count a graph's capture (and its eager warm-up, which runs every culled
+chunk's body too), not its replays: the CLIs of phases 6-8 replay
+graphs, so their counts are the captures'.
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, printing no result, without a CUDA device.
@@ -153,6 +176,7 @@ K3_PLAIN_TOL = 1e-3
 # largest |grad| (above the float32 sums' 4.5e-4)
 GRAD_TOL = 1e-3
 TRAIN_STEPS = 3
+SPARSE_CHUNK = 25600  # bench.py:76-77's ray_chunk, 81 chunks at 1080p
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations of one node step of a walk: the slab test (6 sub,
@@ -230,7 +254,7 @@ def frames_on(device):
                         at=torch.tensor([12.5, 0.0, 0.0], device=device))
     dense = base.replace(ortho_scale=27.0, ray_chunk=0, ray_tile=16,
                          texture_dtype="uint8", traversal_backend="cuda")
-    sparse = base.replace(ray_chunk=25600)
+    sparse = base.replace(ray_chunk=SPARSE_CHUNK)
     large_cfg = base.replace(bounces=0, ray_tile=16, ray_chunk=0)
     return {
         "dense": (small, aimed, dense),
@@ -263,7 +287,10 @@ def train_frames(frames):
     'hbm' names the TPU's K1, the port's 'cuda') on the sparse frame's
     scene and camera; dense_train is the same config on the dense frame,
     aimed with ortho_scale=27 (frames_on says why); onchip_train is
-    dense_train through the on-chip kernels K5, K7 and K8."""
+    dense_train through the on-chip kernels K5, K7 and K8;
+    sparse_train_culled is the step on the sparse frame itself
+    (bench.py:76-77: ray_chunk=25600, culling on, default backends: K5 a
+    chunk, K2 and K3 on the shaded chunks, under graphs.cond)."""
     small, cam, sparse = frames["sparse"]
     _, aimed, dense = frames["dense"]
     cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8",
@@ -272,7 +299,8 @@ def train_frames(frames):
           "dense_train is not cfg_bwd with ortho_scale=27")
     return {"sparse_train": (small, cam, cfg_bwd),
             "dense_train": (small, aimed, dense),
-            "onchip_train": (small, aimed, onchip(dense))}
+            "onchip_train": (small, aimed, onchip(dense)),
+            "sparse_train_culled": (small, cam, sparse)}
 
 
 def plain(cfg):
@@ -617,15 +645,15 @@ def kernel_durations(fn, reps: int):
             if e.get("cat") == "kernel"]
 
 
-def profile_counts(fn, reps: int = 10, expect=None, accept=None):
+def profile_counts(fn, reps: int = 10, expect=None):
     """(name -> kernels of that name a call of ``fn`` runs, name -> their
     durations in us) from torch.profiler traces.  A trace now and then
     drops kernel records (once, more than half of K7's), and never adds
     one: while some name's records are not a multiple of ``reps``, or the
     count is not ``expect`` (a trace that dropped every record of one
-    kernel name), or ``accept(counts)`` is false, the trace is taken again
-    (five traces at most), and each name keeps its records from the trace
-    that held the most of them.  It counts round(records / reps) launches
+    kernel name), the trace is taken again (five traces at most), and
+    each name keeps its records from the trace that held the most of
+    them.  It counts round(records / reps) launches
     a call: a dropped record does not change the count."""
     per = {}
     for _ in range(5):
@@ -637,8 +665,7 @@ def profile_counts(fn, reps: int = 10, expect=None, accept=None):
                 per[name] = d
         counts = {k: round(len(v) / reps) for k, v in per.items()}
         whole = per and all(len(d) % reps == 0 for d in per.values())
-        if (whole and expect in (None, sum(counts.values()))
-                and (accept is None or accept(counts))):
+        if whole and expect in (None, sum(counts.values())):
             break
     if not per:
         raise SmokeFailure("five profiler traces held no kernel")
@@ -655,6 +682,38 @@ def profiled(fn, reps: int = 10, expect=None):
     counts, per = profile_counts(fn, reps, expect)
     return (sum(counts.values()),
             sum(n * float(np.mean(per[k])) for k, n in counts.items()) / 1e3)
+
+
+def replay_routes(call, want, tries: int = 5):
+    """(K -> calls, kernels in all, their device ms) of one replay of a
+    graph (``call``) by torch.profiler, a trace a replay, the hand-written
+    kernels held to ``want``; a trace that disagrees (one that dropped
+    records) is logged and taken again, ``tries`` at most.  A graph with
+    IF nodes is profiled in a process of its own (phase 12): in a process
+    that had traced such graphs before, the profiler named kernels in
+    their bodies after others (K6 as K5 or K2) and a profiled replay of
+    the culled step came out short before the card faulted (PERF.md, open
+    questions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for t in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"
+                  and not e.key.startswith(("Memcpy", "Memset"))]
+        seen = routes({e.key: e.count for e in events})
+        total = sum(e.count for e in events)
+        if seen == want:
+            return seen, total, sum(e.self_device_time_total
+                                    for e in events) / 1e3
+        log(f"    profiler trace {t}: {total} kernels, routes {seen}, not "
+            f"{want}")
+    raise SmokeFailure(f"no trace of {tries} saw a replay's kernels {want}")
 
 
 def kernel_split(fn, reps: int = 10) -> dict:
@@ -994,7 +1053,7 @@ def phase_topology(frames):
             with mock.patch.object(bvh_ops, "karras_children_rmq", emit):
                 call = lambda: bvh_ops.build_topology(codes)  # noqa: E731
                 graph = graphs.Captured(call, (), stream, debug=True)
-                _, nodes = dump_routes(graph.graph)
+                _, nodes, _ = dump_routes(graph.graph)
                 got = graph()
                 check(all(torch.equal(a, b) for a, b in zip(got, call())),
                       f"topology {name} {how}: a replay differs")
@@ -1110,20 +1169,28 @@ def k3_case(what, g, idx, rows):
 def phase_k3(train):
     """K3 on the (g, idx) that the training steps' backward hands it:
     dense_train's two calls (K2's backward) and onchip_train's (K7's), each
-    2 073 600 ids into the 3 072-row leaf-attribute table."""
+    2 073 600 ids into the 3 072-row leaf-attribute table, and the first
+    of sparse_train_culled's (a shaded chunk's primary pass, 25 600 ids,
+    under graphs.cond's backward)."""
     from raytracebvh_tpu_torch.models.inverse import init_params
     from raytracebvh_tpu_torch.ops import gather_cuda
 
     cases = {}
-    for name in ("dense_train", "onchip_train"):
+    for name in ("dense_train", "onchip_train", "sparse_train_culled"):
         scene, cam, cfg = train[name]
         target = torch.zeros((H, W, 4), device=scene.device)
         with Recorder(gather_cuda, "scatter_add_rows") as k3:
             value_and_grad(init_params(scene), scene, cam, target, cfg)
         torch.cuda.synchronize()
-        check(len(k3.calls) == 2,
-              f"the {name} step made {len(k3.calls)} K3 calls")
-        for n, ((g, idx, rows), _) in enumerate(k3.calls, 1):
+        calls = k3.calls
+        if name in CHUNK_BODY:  # two a shaded chunk
+            check(len(calls) > 0 and len(calls) % 2 == 0,
+                  f"the {name} step made {len(calls)} K3 calls")
+            calls = calls[:1]
+        else:
+            check(len(calls) == 2,
+                  f"the {name} step made {len(calls)} K3 calls")
+        for n, ((g, idx, rows), _) in enumerate(calls, 1):
             cases[f"{name} call {n}"] = k3_case(f"{name} call {n}", g, idx,
                                                 rows)
     out = dict(cases["dense_train call 2"])
@@ -1160,7 +1227,34 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # the configs whose walks are K5/K6 (a 3 072-leaf tree through 'auto' or
 # 'shared'), and those that also gather with K7 and sort with K8
 ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
-                "dense_bf16_onchip", "onchip_train")
+                "dense_bf16_onchip", "onchip_train", "sparse_train_culled")
+# the culled chunk loop's kernels: K5 a chunk (its primary walk,
+# pipeline.trace_chunks) and a body a shaded chunk; a step's body is its
+# forward and, under the same predicate, its recomputed forward and the
+# backward (graphs.cond)
+CHUNK_BODY = {"sparse": dict(K5=1, K2=4), "sparse_shadows": dict(K6=1, K2=2),
+              "sparse_train_culled": dict(K5=2, K2=8, K3=2)}
+
+
+def culled_routes(name, nchunks, shaded):
+    """K -> launches of the culled config ``name`` over ``nchunks`` chunks
+    of which ``shaded`` are shaded."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["K5"] = nchunks
+    for k, v in CHUNK_BODY[name].items():
+        want[k] += shaded * v
+    return want
+
+
+def shaded_chunks(name, n, nchunks):
+    """The shaded chunks that the launch counts ``n`` of the culled config
+    ``name`` show; fails unless ``n`` is ``culled_routes`` of them."""
+    shaded = n["K2"] // CHUNK_BODY[name]["K2"]
+    want = culled_routes(name, nchunks, shaded)
+    check(n == want and 0 < shaded < nchunks,
+          f"{name}: launches {n}, not {shaded} shaded of {nchunks} chunks' "
+          f"{want}")
+    return shaded
 ONCHIP_ALL = ("dense_onchip", "dense_bf16_onchip", "onchip_train")
 
 
@@ -1241,6 +1335,13 @@ def phase_main_path(frames):
                   "chunks")
         else:
             check(n[anyk] == 1, f"{name}: {n[anyk]} {anyk} launches, not 1")
+        if cfg.ray_chunk:
+            # a primary walk a chunk, a body a shaded chunk
+            nchunks = W * H // cfg.ray_chunk
+            shaded = int(hits.reshape(-1, cfg.ray_chunk).any(-1).sum())
+            want = culled_routes(name, nchunks, shaded)
+            check(n == want, f"{name}: launches {n}, {shaded} shaded "
+                  f"chunks' {want}")
         if cfg.enable_refraction:
             check(n[near] == traversal_passes(cfg),
                   f"{name}: {n[near]} {near} launches")
@@ -1294,9 +1395,10 @@ def phase_main_path(frames):
     return totals, images, per_frame
 
 
-def phase_train(train):
+def phase_train(train, shaded):
     """loss_fn + backward() and train_step at 1080p on each training
-    frame; returns the launch counts summed over the frames, and each
+    frame (``shaded``: the culled step's shaded chunks, the sparse
+    frame's); returns the launch counts summed over the frames, and each
     frame's (loss, gradients) of its first step."""
     from raytracebvh_tpu_torch.config import traversal_passes
     from raytracebvh_tpu_torch.models.inverse import (InverseParams,
@@ -1314,8 +1416,23 @@ def phase_train(train):
         torch.cuda.synchronize()
         n = read_counts()
         log(f"  {name}: loss {float(loss)!r}, launches {n}")
-        want = step_routes(name)
+        want = step_routes(name, shaded)
         check(n == want, f"{name}: launches {n}, not {want}")
+        if name in CHUNK_BODY:
+            # the same step with every chunk shaded and differentiated
+            loss_u, grads_u = value_and_grad(
+                init_params(scene), scene, cam, target,
+                cfg.replace(cull_empty_chunks=False))
+            check(torch.equal(loss, loss_u),
+                  f"{name}: loss {float(loss)!r}, unculled "
+                  f"{float(loss_u)!r}")
+            for field, g, gu in zip(InverseParams._fields, grads, grads_u):
+                rel = float((g - gu).abs().max()) / max(
+                    float(gu.abs().max()), 1e-30)
+                log(f"  {name} d{field} against the unculled chunked step: "
+                    f"{rel:.3g} of its largest |grad|")
+                check(rel <= GRAD_TOL, f"{name}: d{field} {rel} off the "
+                      "unculled step's")
         for k in totals:
             totals[k] += n[k]
         steps[name] = (loss, grads)
@@ -1363,7 +1480,8 @@ def phase_train(train):
             f"parameter moves {moved}, launches {n}")
         check(all(np.isfinite(losses)), f"{name}: train_step losses {losses}")
         check(all(m > 0 for m in moved), f"{name}: a parameter did not move")
-        check(n["K3"] == 2 * TRAIN_STEPS, f"{name}: {n['K3']} K3 launches")
+        check(n["K3"] == want["K3"] * TRAIN_STEPS,
+              f"{name}: {n['K3']} K3 launches")
         check_routes(name, n, builds=TRAIN_STEPS)
         for k in totals:
             totals[k] += n[k]
@@ -1615,6 +1733,58 @@ def eager_stage_times(obj, device):
         return profiling._median_times(stages, 10, torch.device(device))
 
 
+def phase_culled_stage(frames):
+    """utils.profiling's graphed stages on the sparse frame (culled ray
+    chunks): trace_shade is one CUDA graph (a graphs.Captured), whose
+    capture launched every chunk's body and whose replay under sync-debug
+    mode "error" is shade_rays' bits; its replay ms (CUDA events) beside
+    the eager stage's; its eager launches, which phase 12 holds a
+    profiled replay to.  Returns the launch counts of its captures."""
+    from raytracebvh_tpu_torch import graphs, pipeline
+    from raytracebvh_tpu_torch.utils import profiling
+
+    scene, cam, cfg = frames["sparse"]
+    nchunks = W * H // cfg.ray_chunk
+    reset_counts()
+    with torch.no_grad():
+        stages = profiling._graphed_stages(scene, cam, cfg)
+        torch.cuda.synchronize()
+        n = read_counts()
+        eager, (s, bvh, rays) = profiling._eager_stages(scene, cam, cfg)
+        ref = pipeline.shade_rays(s, bvh, rays, cfg)
+    torch.cuda.synchronize()
+    # trace_shade's and frame_total's warm-ups and captures: every chunk's
+    # body, four times
+    every = culled_routes("sparse", nchunks, nchunks)
+    check(n == {k: 4 * v for k, v in every.items()},
+          f"trace_shade and frame_total: captures' launches {n}, not four "
+          f"times {every}")
+    trace_shade = stages["trace_shade"]
+    check(isinstance(trace_shade, graphs.Captured),
+          f"trace_shade is a {type(trace_shade).__name__}, not one graph")
+    with no_host_reads("trace_shade"):
+        got = trace_shade().clone()
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "trace_shade: a replay off shade_rays' bits")
+    with torch.no_grad():
+        _, ne = counted(eager["trace_shade"])
+    check(ne["K5"] == nchunks + ne["K2"] // CHUNK_BODY["sparse"]["K2"],
+          f"trace_shade: eager launches {ne}")
+    CULLED_WANT["trace_shade sparse"] = ne
+    times = profiling._median_times(
+        {"graphed": trace_shade, "eager": eager["trace_shade"]}, 10,
+        scene.device)
+    log(f"  trace_shade on the sparse frame (culled chunks): one graph "
+        f"(its and frame_total's captures launched every chunk's body: "
+        f"{n}), a replay under sync-debug mode 'error' shade_rays' bits; "
+        f"{times['graphed'] * 1e3:.3f} ms a replay, "
+        f"eager {times['eager'] * 1e3:.3f} ms (CUDA events, median of 10 "
+        f"rounds); capture {trace_shade.capture_ms:.1f} ms, pool "
+        f"{trace_shade.pool_bytes} bytes; eager launches {ne}")
+    pipeline.FRAME_GRAPHS.clear()
+    return n
+
+
 def phase_depth_and_loader(objs, small, device):
     """render_depth_bmp at 500x500 on the 3 072-triangle scene, a replayed
     CUDA graph, against its eager body through the traversal dispatch and
@@ -1680,9 +1850,14 @@ def phase_depth_and_loader(objs, small, device):
 # phase 10: the sharded entry points on the main path's configs, each held
 # to its single-process result
 SHARDED_FRAMES = (("render_sharded", "dense"), ("render_geo_sharded", "large"),
-                  ("render_geo_sharded", "dense_shadows"))
+                  ("render_geo_sharded", "dense_shadows"),
+                  ("render_sharded", "sparse"),
+                  ("render_geo_sharded", "sparse_shadows"))
 SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4), "large": dict(K1=1, K2=2),
                     "dense_shadows": dict(K1=1, K2=2, K4=1)}
+# the sharded steps: (config, grad_chunks)
+SHARDED_STEPS = (("sparse_train", 1), ("sparse_train", 4),
+                 ("sparse_train_culled", 1))
 
 
 def counted(fn):
@@ -1694,35 +1869,70 @@ def counted(fn):
     return out, read_counts()
 
 
-def graph_routes(entry, want, call):
-    """The hand-written kernels in a sharded call's graph: from its own
-    kernel nodes (CUDAGraph.debug_dump) and by torch.profiler over a
-    replay (``call``), each held to ``want``; returns the replay's kernels
-    in all."""
-    nodes, _ = dump_routes(entry.graph)
-    counts, _ = profile_counts(call, reps=1,
-                               accept=lambda c: routes(c) == want)
-    seen = routes(counts)
-    check(nodes == want and seen == want,
-          f"graph nodes {nodes}, a replay {seen}, not {want}")
-    return sum(counts.values())
+@contextlib.contextmanager
+def no_host_reads(what):
+    """The block under torch.cuda.set_sync_debug_mode("error"): a read on
+    the host (a synchronizing call) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        raise SmokeFailure(f"{what}: a host read in a replay: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def graph_routes(entry, case, name, want, call, nodes_want, nrays):
+    """The hand-written kernels in the graph of ``case`` on the config
+    ``name`` over ``nrays`` rays: from its own kernel nodes
+    (CUDAGraph.debug_dump), held to ``nodes_want`` (a culled chunk loop's
+    graph holds every chunk's body: ``check_culled_nodes``), and by
+    torch.profiler over a replay (``call``), held to ``want``
+    (``replay_routes``; a culled case's in phase 12, ``CULLED_WANT``);
+    returns the replay's kernels in all (None for a culled case) and the
+    graph's kernel nodes."""
+    nodes, nk, per = dump_routes(entry.graph)
+    check(nodes == nodes_want, f"graph nodes {nodes}, not {nodes_want}")
+    if name not in CHUNK_BODY:
+        return replay_routes(call, want)[1], nk
+    check_culled_nodes(case, name, per, nrays // SPARSE_CHUNK)
+    CULLED_WANT[case] = want
+    return None, nk
+
+
+def case_routes(name, n_eager, nrays, builds=1):
+    """(the kernels a call of the case ``name`` launches, those its graph
+    holds): ``SHARDED_LAUNCHES`` or ``step_routes`` ``builds`` times, or
+    for a culled chunk loop over ``nrays`` rays its eager body's, held to
+    ``culled_routes`` (a rank's shaded chunks are its own), and in the
+    graph every chunk's body."""
+    if name not in CHUNK_BODY:
+        want = dict.fromkeys(KERNELS, 0)
+        for k, v in (SHARDED_LAUNCHES.get(name) or step_routes(name)).items():
+            want[k] = v * builds
+        return want, want
+    nchunks = nrays // SPARSE_CHUNK
+    check(n_eager == culled_routes(
+        name, nchunks, n_eager["K2"] // CHUNK_BODY[name]["K2"]),
+        f"{name}: eager launches {n_eager}")
+    return n_eager, culled_routes(name, nchunks, nchunks)
 
 
 def sharded_cases(frames, train, mesh, images, steps):
-    """render_sharded on the dense frame, render_geo_sharded on the large
-    and dense_shadows frames, train_step_sharded on sparse_train with
-    grad_chunks 1 and 4, on ``mesh``: each a CUDA graph captured at its
-    first call and replayed at its second, beside its eager body.  Every
-    frame must equal ``images`` (render_frame's) bit for bit; the
-    one-chunk step's loss must equal ``steps``' (loss_fn's) bit for bit at
-    world size 1, within 1e-6 above, and its gradients be within GRAD_TOL
-    of loss_fn's; the four-chunk step within the same gates of the
-    one-chunk step; the replayed steps and the eager bodies' within the
-    same gates.  The launch counts: the eager body's the case's, the
-    capture's (warm-up and capture) twice that, a replay's none; the
-    kernels in the graph (its nodes, and a replay's under torch.profiler)
-    the case's.  Returns the launch counts summed over the cases and a row
-    of capture ms and replay kernels a case."""
+    """SHARDED_FRAMES and SHARDED_STEPS on ``mesh``: each a CUDA graph
+    captured at its first call and replayed at its second, beside its
+    eager body.  Every frame must equal ``images`` (render_frame's) bit
+    for bit; a one-chunk step's loss must equal ``steps``' (loss_fn's) bit
+    for bit at world size 1, within 1e-6 above, and its gradients be
+    within GRAD_TOL of loss_fn's; the four-chunk step within the same
+    gates of the one-chunk step; the replayed steps and the eager bodies'
+    within the same gates.  The launch counts: the eager body's the
+    case's, the capture's (warm-up and capture) twice what its graph
+    holds, a replay's none; the kernels in the graph (its nodes) and in a
+    replay (torch.profiler) the case's (``case_routes``; a culled case's
+    replay runs only its shaded chunks' bodies).  Returns the launch
+    counts summed over the cases and a row of capture ms, pool bytes and
+    replay kernels a case."""
     from raytracebvh_tpu_torch.models.inverse import (InverseParams,
                                                       apply_params,
                                                       init_params)
@@ -1738,14 +1948,17 @@ def sharded_cases(frames, train, mesh, images, steps):
         for k in totals:
             totals[k] += n[k]
 
-    def captured(what, want, n, n_replay, n_eager):
-        """The case's one capture after its two calls, its counts held."""
+    def captured(what, name, n, n_replay, n_eager, cfg, builds=1):
+        """The case's one capture after its two calls, its counts held;
+        returns it, the case's (want, nodes_want) and its rays."""
         (entry,) = cache.entries.values()
-        twice = {k: 2 * v for k, v in want.items()}
+        nrays = prender._ray_rows(cfg, mesh) * W
+        want, in_graph = case_routes(name, n_eager, nrays, builds)
+        twice = {k: 2 * v for k, v in in_graph.items()}
         check(n_eager == want and n == twice and not any(n_replay.values()),
               f"{what}: launches eager {n_eager}, capture {n}, replay "
-              f"{n_replay}; the case's {want}")
-        return entry
+              f"{n_replay}; the case's {want}, its graph's {in_graph}")
+        return entry, want, in_graph, nrays
 
     cache.debug = True
     try:
@@ -1753,39 +1966,43 @@ def sharded_cases(frames, train, mesh, images, steps):
             scene, cam, cfg = frames[name]
             fn = getattr(prender, fn_name)
             body = getattr(prender, "_" + fn_name)
-            want = dict.fromkeys(KERNELS, 0)
-            want.update(SHARDED_LAUNCHES[name])
             cache.clear()
             with torch.no_grad():
                 img, n = counted(lambda: fn(scene, cam, cfg, mesh))
                 img2, n2 = counted(lambda: fn(scene, cam, cfg, mesh))
                 img_e, ne = counted(lambda: body(scene, cam, cfg, mesh))
-            entry = captured(f"{fn_name} {name}", want, n, n2, ne)
+            entry, want, in_graph, nrays = captured(f"{fn_name} {name}", name,
+                                                    n, n2, ne, cfg)
             ndiff = [int((x != images[name]).any(-1).sum())
                      for x in (img, img2, img_e)]
-            check(not entry.culled, f"{fn_name} {name}: culled")
 
             def replay():
                 with torch.no_grad():
                     fn(scene, cam, cfg, mesh)
 
-            kernels = graph_routes(entry.captures[0], want, replay)
+            with no_host_reads(f"{fn_name} {name}"):
+                replay()
+            kernels, nodes = graph_routes(entry, f"{fn_name} {name}", name,
+                                          want, replay, in_graph, nrays)
             log(f"  {fn_name} {name} (world {world}): pixels off "
                 f"render_frame's {ndiff} (capture's replay, a replay, eager "
-                f"body); launches eager {ne}, capture {n}; graph: its nodes "
-                f"and a replay's kernels route as the eager body's, "
-                f"{kernels} kernels a replay, capture "
-                f"{entry.capture_ms:.1f} ms")
+                f"body); launches eager {ne}, capture {n}; one graph, "
+                f"{nodes} kernel nodes ({in_graph}), a replay under "
+                f"sync-debug mode 'error' {kernels} kernels ({want}), "
+                f"capture {entry.capture_ms:.1f} ms, pool "
+                f"{entry.pool_bytes} bytes")
             check(ndiff == [0, 0, 0], f"{fn_name} {name}: pixels off {ndiff}")
             add(n)
             add(ne)
-            rows[f"{fn_name} {name}"] = dict(capture_ms=entry.capture_ms,
-                                             kernels=kernels)
+            rows[f"{fn_name} {name}"] = dict(
+                capture_ms=entry.capture_ms, pool_bytes=entry.pool_bytes,
+                kernels=kernels)
 
-        scene, cam, cfg = train["sparse_train"]
-        target = torch.zeros((H, W, 4), device=scene.device)
-        ref = {0: steps["sparse_train"]}
-        for chunks in (1, 4):
+        ref = {}
+        for name, chunks in SHARDED_STEPS:
+            scene, cam, cfg = train[name]
+            target = torch.zeros((H, W, 4), device=scene.device)
+
             def step(fn=prender.train_step_sharded):
                 return fn(init_params(scene), apply_params, scene, cam,
                           target, cfg, mesh, grad_chunks=chunks)
@@ -1795,11 +2012,10 @@ def sharded_cases(frames, train, mesh, images, steps):
             (loss2, grads2), n2 = counted(step)
             (loss_e, grads_e), ne = counted(
                 lambda: step(prender._train_step_sharded))
-            want = dict.fromkeys(KERNELS, 0)
-            want.update(K1=2 * chunks, K2=4 * chunks, K3=2 * chunks)
-            what = f"train_step_sharded grad_chunks={chunks}"
-            entry = captured(what, want, n, n2, ne)
-            loss_r, grads_r = ref[0] if chunks == 1 else ref[1]
+            what = f"train_step_sharded {name} grad_chunks={chunks}"
+            entry, want, in_graph, nrays = captured(what, name, n, n2, ne,
+                                                    cfg, chunks)
+            loss_r, grads_r = steps[name] if chunks == 1 else ref[name]
             against = "loss_fn" if chunks == 1 else "grad_chunks=1"
             log(f"  {what} (world {world}): loss {float(loss)!r} (a replay "
                 f"{float(loss2)!r}, eager body {float(loss_e)!r}), {against} "
@@ -1821,16 +2037,23 @@ def sharded_cases(frames, train, mesh, images, steps):
                           f"{what} {how}: d{field} {err} off {against}")
             same = torch.equal(loss2, loss_e) and all(
                 torch.equal(a, b) for a, b in zip(grads2, grads_e))
-            kernels = graph_routes(entry, want, step)
+            with no_host_reads(what):
+                step()
+            kernels, nodes = graph_routes(entry, f"train_step_sharded {name}",
+                                          name, want, step, in_graph, nrays)
+            check(torch.equal(step()[0], loss2),
+                  f"{what}: a later replay's loss off the first replays'")
             log(f"    replay vs eager body: "
-                f"{'bit for bit' if same else 'DIFFERENT bits'}; graph: its "
-                f"nodes and a replay's kernels route as the eager body's, "
-                f"{kernels} kernels a replay, capture {entry.capture_ms:.1f} "
-                f"ms")
-            ref[chunks] = (loss_e, grads_e)
+                f"{'bit for bit' if same else 'DIFFERENT bits'}; one graph, "
+                f"{nodes} kernel nodes ({in_graph}), a replay {kernels} "
+                f"kernels ({want}), capture {entry.capture_ms:.1f} ms, pool "
+                f"{entry.pool_bytes} bytes")
+            if chunks == 1:
+                ref[name] = (loss_e, grads_e)
             add(n)
             add(ne)
-            rows[what] = dict(capture_ms=entry.capture_ms, kernels=kernels,
+            rows[what] = dict(capture_ms=entry.capture_ms,
+                              pool_bytes=entry.pool_bytes, kernels=kernels,
                               replay_equals_eager=same)
     finally:
         cache.debug = False
@@ -1891,28 +2114,29 @@ def phase_sharded(frames, train, images, steps, smi):
                 f"{times[5]:.2f}; render_frame_jit {times[3]:.2f}, "
                 f"render_frame {times[2]:.2f} ms/frame (median of 5 each, in "
                 f"turns); {smi}")
-        scene, cam, cfg = train["sparse_train"]
-        target = torch.zeros((H, W, 4), device=scene.device)
+        for name, chunks in SHARDED_STEPS:
+            scene, cam, cfg = train[name]
+            target = torch.zeros((H, W, 4), device=scene.device)
 
-        def sharded_step(chunks, fn=prender.train_step_sharded):
-            return lambda: fn(init_params(scene), apply_params, scene, cam,
-                              target, cfg, mesh, grad_chunks=chunks)
+            def sharded_step(fn=prender.train_step_sharded):
+                return lambda: fn(init_params(scene), apply_params, scene,
+                                  cam, target, cfg, mesh, grad_chunks=chunks)
 
-        single = lambda: value_and_grad(init_params(scene), scene, cam,
-                                        target, cfg)
-        for chunks in (1, 4):
-            body = sharded_step(chunks, prender._train_step_sharded)
-            times = [wall_ms(body), wall_ms(sharded_step(chunks)),
-                     wall_ms(single), wall_ms(sharded_step(chunks)),
-                     wall_ms(body)]
+            single = lambda: value_and_grad(init_params(scene), scene, cam,
+                                            target, cfg)
+            body, graphed = (sharded_step(prender._train_step_sharded),
+                             sharded_step())
+            times = [wall_ms(body), wall_ms(graphed), wall_ms(single),
+                     wall_ms(graphed), wall_ms(body)]
             pmesh.mesh_graphs(mesh).clear()
-            rows[f"train_step_sharded grad_chunks={chunks}"].update(
+            what = f"train_step_sharded {name} grad_chunks={chunks}"
+            rows[what].update(
                 eager_ms=[times[0], times[4]], graphed_ms=[times[1], times[3]],
                 single_eager_ms=times[2])
-            log(f"  train_step_sharded sparse_train grad_chunks={chunks}: "
-                f"graphed {times[1]:.2f} / {times[3]:.2f} ms/step, eager body "
-                f"{times[0]:.2f} / {times[4]:.2f}; loss_fn + backward "
-                f"{times[2]:.2f} ms/step (median of 5 each, in turns); {smi}")
+            log(f"  {what}: graphed {times[1]:.2f} / {times[3]:.2f} ms/step, "
+                f"eager body {times[0]:.2f} / {times[4]:.2f}; loss_fn + "
+                f"backward {times[2]:.2f} ms/step (median of 5 each, in "
+                f"turns); {smi}")
         log("  sharded rows: " + json.dumps(rows))
 
         nparams = 1 + sum(p.numel() for p in init_params(scene))
@@ -1942,7 +2166,7 @@ def phase_sharded(frames, train, images, steps, smi):
 # of the JAX package's jitted frame and step (CUDA graphs, graphs.py)
 GRAPHED_FRAMES = ("dense", "sparse", "large", "dense_shadows",
                   "sparse_shadows", "refract", "dense_onchip", "dense_bf16")
-GRAPHED_TRAIN = ("sparse_train", "onchip_train")
+GRAPHED_TRAIN = ("sparse_train", "onchip_train", "sparse_train_culled")
 # the graphed steps' parameters against the eager steps' with
 # make_optimizer's default Adam, largest |difference|.  The capturable Adam
 # takes its learning rate as a float32 tensor and computes its bias
@@ -1994,11 +2218,12 @@ def routes(counts):
 
 
 def dump_routes(graph):
-    """(K -> calls, kernel nodes in all) of a kept CUDA graph, from its
-    own kernel nodes: ``CUDAGraph.debug_dump``'s DOT gives each node as a
-    record ``"graph_G_node_N"[... label="{KERNEL | {ID | N | <mangled
-    name><<<grid, block, smem>>>} ...}"];`` over several lines.  A witness
-    of the graph's kernels that needs no profiler."""
+    """(K -> calls, kernel nodes in all, graph -> K -> calls) of a kept CUDA
+    graph, from its own kernel nodes: ``CUDAGraph.debug_dump``'s DOT gives
+    each node as a record ``"graph_G_node_N"[... label="{KERNEL | {ID | N
+    | <mangled name><<<grid, block, smem>>>} ...}"];`` over several lines,
+    an IF node's body as a graph G of its own.  A witness of the graph's
+    kernels that needs no profiler."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "graph.dot")
         graph.debug_dump(path)
@@ -2007,14 +2232,44 @@ def dump_routes(graph):
     nodes = re.findall(r'"graph_\d+_node_\d+"\[.*?\];', dot, re.DOTALL)
     kernels = [n for n in nodes if 'label="{KERNEL' in n]
     check(kernels, f"a graph's dump holds no kernel node: {dot[:300]!r}")
-    return routes({n: 1 for n in kernels}), len(kernels)
+    per = {}
+    for n in kernels:
+        counts = per.setdefault(int(re.match(r'"graph_(\d+)_', n).group(1)),
+                                dict.fromkeys(KERNELS, 0))
+        k = kernel_of(n)
+        if k is not None:
+            counts[k] += 1
+    return routes({n: 1 for n in kernels}), len(kernels), per
 
 
-def step_routes(name):
+def check_culled_nodes(what, name, per_graph, nchunks):
+    """The graph of the culled config ``name`` from its own nodes
+    (``dump_routes``): the captured graph holds the primary walks alone,
+    its IF bodies every chunk's body (a step's: the forward and the VJP in
+    two bodies).  What a replay runs of them, torch.profiler counts in
+    phase 12."""
+    top = min(per_graph)
+    bodies = dict.fromkeys(KERNELS, 0)
+    for g, r in per_graph.items():
+        if g != top:
+            for k in KERNELS:
+                bodies[k] += r[k]
+    front = culled_routes(name, nchunks, 0)
+    every = {k: v - front[k] for k, v in
+             culled_routes(name, nchunks, nchunks).items()}
+    check(per_graph[top] == front and bodies == every,
+          f"{what}: graph {per_graph[top]} and IF bodies {bodies}, not "
+          f"{front} and {every}")
+
+
+def step_routes(name, shaded=None):
     """K -> calls of one training step of ``name``: a walk and a leaf
     gather a pass (2), K2 for the texture quads (2), K3 twice (the two
     leaf gathers' backward), K8 once a build where the config sorts with
-    it."""
+    it; for the culled step, ``culled_routes`` with ``shaded`` of its
+    chunks shaded."""
+    if name in CHUNK_BODY:
+        return culled_routes(name, W * H // SPARSE_CHUNK, shaded)
     want = dict.fromkeys(KERNELS, 0)
     if name in ONCHIP_ALL:
         want.update(K5=2, K7=2, K2=2, K3=2, K8=1)
@@ -2046,7 +2301,8 @@ def graphed_frame(name, frame_args, image, want):
           f"graphed {name}: {ndiff} pixels off phase 4's eager image")
     cam2 = orbit(cam, 0.1, 0.0)
     with torch.inference_mode():
-        img2 = render_frame_jit(scene, cam2, cfg)
+        with no_host_reads(f"graphed {name}"):
+            img2 = render_frame_jit(scene, cam2, cfg)
         ref2 = render_frame(scene, cam2, cfg)
         torch.cuda.synchronize()
     ndiff2 = int((img2 != ref2).any(-1).sum())
@@ -2054,65 +2310,52 @@ def graphed_frame(name, frame_args, image, want):
           and len(cache.entries) == 1,
           f"graphed {name}: orbited frame {ndiff2} pixels off the eager one "
           f"({len(cache.entries)} captures)")
-    with torch.inference_mode():
-        render_frame_jit(scene, cam, cfg)  # phase 4's camera again
-        torch.cuda.synchronize()
+    with torch.inference_mode(), no_host_reads(f"graphed {name}"):
+        img3 = render_frame_jit(scene, cam, cfg)  # phase 4's camera again
+    torch.cuda.synchronize()
+    check(torch.equal(img3, image),
+          f"graphed {name}: a replay off phase 4's eager image")
 
-    # the kernels in the graphs, from their own nodes
-    if frame.culled:
-        hit = int(frame.front.output[-1].sum())
-        (front, nf), (chunk, nc) = (dump_routes(c.graph)
-                                    for c in frame.captures)
-        nodes = {k: front[k] + hit * chunk[k] for k in KERNELS}
-        shape = f"front {nf} + {hit} x chunk {nc} kernel nodes"
-    else:
-        nodes, nk = dump_routes(frame.captures[0].graph)
-        shape = f"{nk} kernel nodes"
-    check(nodes == want,
-          f"graphed {name}: graph nodes {nodes}, phase 4 {want}")
+    # the kernels in the graph, from its own nodes (a culled frame's
+    # graph holds every chunk's body), and from torch.profiler over a
+    # replay (the shaded chunks' bodies: phase 4's launches)
+    in_graph = want
+    if cfg.ray_chunk:
+        nchunks = W * H // cfg.ray_chunk
+        in_graph = culled_routes(name, nchunks, nchunks)
 
-    # ... and from torch.profiler over replays
     def call():
         with torch.inference_mode():
             render_frame_jit(scene, cam, cfg)
 
-    counts, per = profile_counts(call, reps=1,
-                                 accept=lambda c: routes(c) == want)
-    seen = routes(counts)
-    check(seen == want, f"graphed {name}: profiled {seen}, phase 4 {want}")
-    kernels = sum(counts.values())
-    device_ms = sum(k * float(np.mean(per[x]))
-                    for x, k in counts.items()) / 1e3
-
-    if not frame.culled and name == "dense":
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            call()
-        except RuntimeError as e:
-            raise SmokeFailure(f"graphed {name}: a host read in a replay: "
-                               f"{e}") from e
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        log(f"  graphed {name}: a replay under sync-debug mode 'error' "
-            "raised nothing")
+    nodes, nk, per = dump_routes(frame.graph)
+    check(nodes == in_graph,
+          f"graphed {name}: graph nodes {nodes}, not {in_graph}")
+    if cfg.ray_chunk:
+        check_culled_nodes(f"graphed {name}", name, per, nchunks)
+        CULLED_WANT[f"render_frame_jit {name}"] = want
+        seen, kernels, device_ms = "in phase 12", None, cuda_ms(call)
+    else:
+        seen, kernels, device_ms = replay_routes(call, want)
 
     with torch.inference_mode():
         eager_ms = wall_ms(lambda: render_frame(scene, cam, cfg))
         graphed_ms = wall_ms(lambda: render_frame_jit(scene, cam, cfg))
     row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
                capture_ms=frame.capture_ms, pool_bytes=frame.pool_bytes,
-               kernels=kernels, device_ms=device_ms)
-    log(f"  graphed {name}: bit for bit phase 4's image and the eager frame "
-        f"at an orbited camera; {shape}; routes {seen} in the graph and in "
-        f"a replay (phase 4's); eager {eager_ms:.2f} ms, graphed "
+               kernels=kernels, device_ms=device_ms, kernel_nodes=nk)
+    log(f"  graphed {name}: one graph, bit for bit phase 4's image and the "
+        f"eager frame at an orbited camera; {nk} kernel nodes, routes "
+        f"{nodes}; a replay under sync-debug mode 'error' raised nothing, "
+        f"{kernels} kernels, routes {seen} (phase 4's), {device_ms:.3f} ms "
+        f"of device time; eager {eager_ms:.2f} ms, graphed "
         f"{graphed_ms:.2f} ms; capture {frame.capture_ms:.1f} ms, graph "
-        f"pool {frame.pool_bytes} bytes; a replay {kernels} kernels, "
-        f"{device_ms:.3f} ms of device time")
+        f"pool {frame.pool_bytes} bytes")
     cache.clear()
     return row, n
 
 
-def graphed_step(name, step_args):
+def graphed_step(name, step_args, shaded):
     """train_step_jit on ``name``, TRAIN_STEPS steps, against as many
     eager train_steps from the same start: with the same capturable Adam,
     every loss and parameter bit for bit (the graph replays the eager
@@ -2120,8 +2363,11 @@ def graphed_step(name, step_args):
     the losses within GRAPHED_LOSS_RTOL, the parameters after one step
     within GRAPHED_STEP1_TOL (the update's ulps) and after TRAIN_STEPS
     steps within GRAPHED_PARAM_TOL; the step's kernels in a replay (K3
-    twice).  Returns its row and
+    twice; the culled step's, ``shaded`` chunks' bodies, and every
+    chunk's in the graph), a replay under sync-debug mode "error"; peak
+    device memory of a graphed and an eager step.  Returns its row and
     the launch counts of its warm-up and capture."""
+    from raytracebvh_tpu_torch import graphs
     from raytracebvh_tpu_torch.models import inverse
 
     scene, cam, cfg = step_args
@@ -2141,6 +2387,8 @@ def graphed_step(name, step_args):
     _, _, lc, sc = eager_run(True)
     pg = inverse.init_params(scene)
     og = inverse.make_optimizer(pg, 1e-2, capturable=True)
+    # keep the step's graph for its dump (CUDAGraph.debug_dump)
+    inverse._STEP_GRAPHS.setdefault(og, graphs.Cache()).debug = True
     reset_counts()
     lg, sg = [], []
     for _ in range(TRAIN_STEPS):
@@ -2177,33 +2425,58 @@ def graphed_step(name, step_args):
               for a, b in zip(lg, le)),
           f"graphed {name}: losses off the default Adam's eager losses")
     (entry,) = inverse._STEP_GRAPHS[og].entries.values()
-    want = step_routes(name)
+    want = step_routes(name, shaded)
+    in_graph = want
+    if name in CHUNK_BODY:
+        nchunks = W * H // cfg.ray_chunk
+        in_graph = culled_routes(name, nchunks, nchunks)
+    check(n == {k: 2 * v for k, v in in_graph.items()},
+          f"graphed {name}: warm-up and capture launches {n}, not twice "
+          f"{in_graph}")
+    nodes, nk, per = dump_routes(entry.captured.graph)
+    check(nodes == in_graph,
+          f"graphed {name}: graph nodes {nodes}, not {in_graph}")
+    if name in CHUNK_BODY:
+        check_culled_nodes(f"graphed {name}", name, per, nchunks)
+        CULLED_WANT[f"train_step_jit {name}"] = want
+        seen = "in phase 12"
 
     def call():
         inverse.train_step_jit(pg, og, scene, cam, target, cfg, lr=1e-2)
 
-    counts, per = profile_counts(call, reps=1,
-                                 accept=lambda c: routes(c) == want)
-    seen = routes(counts)
-    check(seen == want, f"graphed {name}: profiled {seen}, not {want}")
-    kernels = sum(counts.values())
-    device_ms = sum(k * float(np.mean(per[x]))
-                    for x, k in counts.items()) / 1e3
+    with no_host_reads(f"graphed {name}"):
+        call()
+    if name in CHUNK_BODY:
+        kernels, device_ms = None, cuda_ms(call)
+    else:
+        seen, kernels, device_ms = replay_routes(call, want)
     eager_ms = wall_ms(lambda: inverse.train_step(pe, oe, scene, cam, target,
                                                   cfg))
     graphed_ms = wall_ms(call)
+    peak = {}
+    for how, fn in (("eager", lambda: inverse.train_step(
+            pe, oe, scene, cam, target, cfg)), ("graphed", call)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[how] = torch.cuda.max_memory_allocated()
     cap = entry.captured
     row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
                capture_ms=cap.capture_ms, pool_bytes=cap.pool_bytes,
-               kernels=kernels, device_ms=device_ms, param_off=off)
-    log(f"  graphed {name}: routes {seen} a replay (K3 twice); eager "
-        f"train_step {eager_ms:.2f} ms, graphed {graphed_ms:.2f} ms; capture "
-        f"{cap.capture_ms:.1f} ms, graph pool {cap.pool_bytes} bytes; a "
-        f"replay {kernels} kernels, {device_ms:.3f} ms of device time")
+               kernels=kernels, device_ms=device_ms, param_off=off,
+               peak_bytes=peak)
+    log(f"  graphed {name}: one graph; routes {seen} a replay under "
+        f"sync-debug mode 'error' (K3 {want['K3']}); eager train_step "
+        f"{eager_ms:.2f} ms, graphed {graphed_ms:.2f} ms; capture "
+        f"{cap.capture_ms:.1f} ms, graph pool {cap.pool_bytes} bytes; peak "
+        f"device memory eager {peak['eager']} bytes, graphed "
+        f"{peak['graphed']}; a replay {kernels} kernels, {device_ms:.3f} ms "
+        f"of device time")
     return row, n
 
 
-def phase_graphed(frames, train, images, frame_counts):
+def phase_graphed(frames, train, images, frame_counts, shaded):
     """Phase 11: render_frame_jit on GRAPHED_FRAMES and train_step_jit on
     GRAPHED_TRAIN, one capture each, freed before the next; returns the
     launch counts of their warm-ups and captures (the counters do not see
@@ -2221,12 +2494,116 @@ def phase_graphed(frames, train, images, frame_counts):
     finally:
         pipeline.FRAME_GRAPHS.debug = False
     for name in GRAPHED_TRAIN:
-        rows[name], n = graphed_step(name, train[name])
+        rows[name], n = graphed_step(name, train[name], shaded)
         for k in totals:
             totals[k] += n[k]
     log("  graphed rows: " + json.dumps(rows))
     log(f"  graphed launches (warm-ups and captures): {totals}")
     return totals
+
+
+# phase 12: each culled graph of phases 8, 10 and 11 (case "<entry point>
+# <config>") -> the launches of its eager call, which a replay must run
+CULLED_WANT: dict = {}
+
+
+def culled_call(case: str, dev):
+    """A call that replays the graph of the culled ``case`` of
+    ``CULLED_WANT``, captured here at its first call."""
+    from raytracebvh_tpu_torch import render_frame_jit
+    from raytracebvh_tpu_torch.models import inverse
+    from raytracebvh_tpu_torch.parallel import mesh as pmesh
+    from raytracebvh_tpu_torch.parallel import render as prender
+    from raytracebvh_tpu_torch.utils import profiling
+
+    fn_name, name = case.split()
+    frames = frames_on(dev)
+    scene, cam, cfg = {**frames, **train_frames(frames)}[name]
+    target = torch.zeros((H, W, 4), device=dev)
+    if fn_name == "render_frame_jit":
+        def call():
+            with torch.inference_mode():
+                render_frame_jit(scene, cam, cfg)
+    elif fn_name == "train_step_jit":
+        params = inverse.init_params(scene)
+        opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+
+        def call():
+            inverse.train_step_jit(params, opt, scene, cam, target, cfg,
+                                   lr=1e-2)
+    elif fn_name == "trace_shade":
+        with torch.no_grad():
+            call = profiling._graphed_stages(scene, cam, cfg)[fn_name]
+    else:
+        pmesh.initialize_distributed()
+        mesh = pmesh.make_mesh()
+        fn = getattr(prender, fn_name)
+        if fn_name == "train_step_sharded":
+            def call():
+                fn(inverse.init_params(scene), inverse.apply_params, scene,
+                   cam, target, cfg, mesh)
+        else:
+            def call():
+                with torch.no_grad():
+                    fn(scene, cam, cfg, mesh)
+    call()
+    return call
+
+
+def replay_kernels(case: str, want: dict) -> int:
+    """One case of phase 12 in a process of its own: the culled graph of
+    ``case`` captured, then torch.profiler over one replay, its
+    hand-written kernels held to ``want`` (``replay_routes``); the last
+    line is {"routes", "kernels", "device_ms"}."""
+    import torch.distributed as dist
+
+    from raytracebvh_tpu_torch import _kernels
+    from raytracebvh_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.load()
+    try:
+        seen, kernels, ms = replay_routes(
+            culled_call(case, torch.device("cuda", 0)), want)
+    except SmokeFailure as e:
+        return fail(str(e))
+    finally:
+        if dist.is_initialized():
+            pmesh.destroy_distributed()
+    print(json.dumps(dict(routes=seen, kernels=kernels, device_ms=ms)))
+    return 0
+
+
+def phase_culled_replays(wants: dict) -> None:
+    """Phase 12: torch.profiler over one replay of each culled graph of
+    phases 8, 10 and 11, each graph captured and traced in a fresh process
+    of this script (--replay-kernels), all started together: a replay's
+    hand-written kernels must be the launches of the eager call that its
+    phase held it to (the shaded chunks' bodies, K3 in the steps')."""
+    procs = {case: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--replay-kernels", case,
+         json.dumps(want)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for case, want in wants.items()}
+    try:
+        outs = {case: p.communicate(timeout=600)[0]
+                for case, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    for case, out in outs.items():
+        lines = out.strip().splitlines() or [""]
+        if procs[case].returncode != 0:
+            for line in lines[-12:]:
+                log(f"  {case}: {line}")
+        check(procs[case].returncode == 0, f"{case}: its process failed")
+        got = json.loads(lines[-1])
+        check(got["routes"] == wants[case],
+              f"{case}: a replay ran {got['routes']}, not {wants[case]}")
+        log(f"  {case}: one replay under torch.profiler in a process of its "
+            f"own ran {got['kernels']} kernels, routes {got['routes']} (the "
+            f"eager call's), {got['device_ms']:.3f} ms of device time")
+    check(len(wants) == 7, f"phase 12 had {len(wants)} culled graphs, not 7")
 
 
 def run_sharded_ranks(world: int) -> None:
@@ -2280,10 +2657,12 @@ def sharded_rank() -> int:
         with torch.no_grad():
             images = {name: render_frame(*frames[name])
                       for _, name in SHARDED_FRAMES}
-        scene, cam, cfg = train["sparse_train"]
-        steps = {"sparse_train": value_and_grad(
-            init_params(scene), scene, cam,
-            torch.zeros((H, W, 4), device=dev), cfg)}
+        steps = {}
+        for name, _ in SHARDED_STEPS:
+            scene, cam, cfg = train[name]
+            steps[name] = value_and_grad(init_params(scene), scene, cam,
+                                         torch.zeros((H, W, 4), device=dev),
+                                         cfg)
         sharded_cases(frames, train, mesh, images, steps)
     except SmokeFailure as e:
         return fail(str(e))
@@ -2342,9 +2721,11 @@ def main() -> int:
         phase_done(3)
         log("phase 4 main path:")
         launches, images, frame_counts = phase_main_path(frames)
+        shaded = shaded_chunks("sparse", frame_counts["sparse"],
+                               W * H // SPARSE_CHUNK)
         phase_done(4)
         log("phase 5 training:")
-        counts, steps = phase_train(train)
+        counts, steps = phase_train(train, shaded)
         for k, v in counts.items():
             launches[k] += v
         phase_done(5)
@@ -2366,6 +2747,8 @@ def main() -> int:
             log("phase 8 profile cli:")
             for k, v in phase_profile_cli(objs, dev.type).items():
                 launches[k] += v
+            for k, v in phase_culled_stage(frames).items():
+                launches[k] += v
             phase_done(8)
             log("phase 9 depth image and native loader:")
             for k, v in phase_depth_and_loader(
@@ -2377,10 +2760,13 @@ def main() -> int:
             launches[k] += v
         phase_done(10)
         log("phase 11 graphed:")
-        for k, v in phase_graphed(frames, train, images,
-                                  frame_counts).items():
+        for k, v in phase_graphed(frames, train, images, frame_counts,
+                                  shaded).items():
             launches[k] += v
         phase_done(11)
+        log("phase 12 culled replays' kernels:")
+        phase_culled_replays(CULLED_WANT)
+        phase_done(12)
     except SmokeFailure as e:
         return fail(str(e))
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",
@@ -2415,4 +2801,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--sharded-rank"]:
         sys.exit(sharded_rank())
+    if sys.argv[1:2] == ["--replay-kernels"] and len(sys.argv) == 4:
+        sys.exit(replay_kernels(sys.argv[2], json.loads(sys.argv[3])))
     sys.exit(main())

@@ -2,10 +2,11 @@
 """Where a frame's time goes, for the PyTorch + CUDA port on one NVIDIA
 GPU: chip_smoke.py's 1920x1080 frames (dense, sparse, large, the three
 shadowed ones, refract and dense_onchip), each rendered under
-``torch.profiler``, and its three training steps (sparse_train,
-dense_train, onchip_train: ``loss_fn`` + ``backward()``).
+``torch.profiler``, and its four training steps (sparse_train,
+dense_train, onchip_train, sparse_train_culled: ``loss_fn`` +
+``backward()``).
 
-    python3 profile_frames.py [--frames 3] [--top 10]
+    python3 profile_frames.py [--frames 3] [--top 10] [--configs a,b]
 
 Per frame it prints: the unprofiled frame time (host clock ended by a
 synchronize, median of 5 after a warm-up), the BVH build alone (same
@@ -15,8 +16,17 @@ wall, kernels per frame, the device time of each of K1-K8, and the
 ``--top`` kernels by device time; then the same for the frame replayed
 as a CUDA graph (``render_frame_jit``) and for the graphed training step
 (``train_step_jit``: loss, backward and Adam, where the eager row has no
-Adam).  The profiler adds host time, so the idle share is an upper bound
-of the unprofiled frame's.  Exits non-zero without a CUDA device.
+Adam), with the graph's capture ms and pool bytes and the peak device
+memory of an eager and a graphed call.  The profiler adds host time, so
+the idle share is an upper bound of the unprofiled frame's.  A culled
+chunked frame (sparse, sparse_shadows: 81 ray chunks of 25 600) is
+first replayed without the profiler at three shares of its chunks hit
+(``culled_replays``).  Give a culled config a process of its own
+(``--configs sparse``): a graph with IF nodes captured after a
+torch.profiler trace in the same process can replay slower and profile
+short (ROADMAP.md, "Faults found in the port").  Run from another
+checkout's root, with this script and chip_smoke.py copied there, to
+measure that commit.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -49,6 +60,8 @@ KERNELS = {"K1": ("traverse_kernel<false>",),
            "K7": ("gather_cols_f32_kernel",),
            "K8": ("::sort_tile_kernel<", "::merge_kernel<")}
 PASSES = {"K3": 3}
+# culled_replays: captures a case, and timed replays a capture
+CULLED_CAPTURES, CULLED_REPS = 3, 20
 
 
 def kernel_events(trace_path):
@@ -91,36 +104,106 @@ def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
                                                  target, cfg, lr=1e-2)
         mode = torch.enable_grad
     else:
+        opt = None
         run = lambda: render_frame(scene, cam, cfg)
         graphed = lambda: render_frame_jit(scene, cam, cfg)
         mode = torch.inference_mode
+    if not train and cfg.ray_chunk and cfg.cull_empty_chunks:
+        culled_replays(name, scene, cam, cfg)
     with mode():
         wvp, wv = camera_matrices(cam, cfg.width, cfg.height)
         build_ms = wall_ms(lambda: build_bvh(scene, wvp, wv, cfg))
         profile_run(name, run, nframes, top,
                     f", build alone {build_ms:.2f} ms")
         profile_run(f"{name} graphed", graphed, nframes, top)
+        if train:
+            (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+            entry = entry.captured
+        else:
+            (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+        peak = []
+        for fn in (run, graphed):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak.append(torch.cuda.max_memory_allocated())
+        print(f"   {name} graphed: capture {entry.capture_ms:.1f} ms, graph "
+              f"pool {entry.pool_bytes} bytes; peak device memory eager "
+              f"{peak[0]} bytes, graphed {peak[1]}", flush=True)
     pipeline.FRAME_GRAPHS.clear()
 
 
+def replay_ms(fn, reps: int) -> float:
+    """Median ms of ``fn`` by CUDA events around a call, over ``reps``
+    calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def culled_replays(name, scene, cam, cfg):
+    """The culled frame through ``render_frame_jit`` with the config's
+    camera, at ortho_scale 2 (fewer chunks hit) and with the camera
+    turned away (none): ``CULLED_CAPTURES`` captures each (the cache
+    cleared between), each replayed ``CULLED_REPS`` times; per case the
+    chunks hit, and per capture the median replay ms (the host's copies
+    of the inputs included), its capture ms and its graph pool bytes."""
+    from raytracebvh_tpu_torch import pipeline, render_frame_jit
+
+    away = cam.replace(at=cam.at.new_tensor([0.0, 5.0, -200.0]))
+    for case, c, run in (("camera", cam, cfg),
+                         ("ortho 2", cam, cfg.replace(ortho_scale=2.0)),
+                         ("away", away, cfg)):
+        rows = []
+        for _ in range(CULLED_CAPTURES):
+            pipeline.FRAME_GRAPHS.clear()
+            torch.cuda.empty_cache()
+            with torch.inference_mode():
+                img = render_frame_jit(scene, c, run)
+                ms = replay_ms(lambda: render_frame_jit(scene, c, run),
+                               CULLED_REPS)
+            (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
+                        f"pool {entry.pool_bytes} bytes)")
+        bg = img.new_tensor(run.background)
+        chunks = img.reshape(-1, run.ray_chunk, 4)
+        hit = int((chunks - bg).abs().ge(1e-6).any(-1).any(-1).sum())
+        print(f"   {name} graphed, {case}: {hit} of {chunks.shape[0]} chunks "
+              "hit; replay by capture: " + "; ".join(rows), flush=True)
+
+
 def profile_run(name, run, nframes, top, extra=""):
-    """One row: ``run``'s unprofiled time, then ``nframes`` calls under
-    torch.profiler."""
+    """One row: ``run``'s unprofiled time, then ``nframes`` calls, each
+    under a torch.profiler trace of its own (a trace of several replays
+    of a graph with conditional nodes misnames the kernels in their
+    bodies)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     frame_ms = wall_ms(run)
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(nframes):
+    kernels, wall, busy = [], 0.0, 0.0
+    for _ in range(nframes):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / nframes
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        kernels = kernel_events(path)
-    busy = busy_us(kernels) / 1e3 / nframes
+            torch.cuda.synchronize()
+            wall += (time.perf_counter() - t0) * 1e3 / nframes
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            one = kernel_events(path)
+        busy += busy_us(one) / 1e3 / nframes
+        kernels += one
     per = defaultdict(lambda: [0.0, 0])
     for kname, _, dur in kernels:
         per[kname][0] += dur / 1e3 / nframes
@@ -148,6 +231,9 @@ def main(argv=None) -> int:
                    help="frames rendered under the profiler per config")
     p.add_argument("--top", type=int, default=10,
                    help="kernels listed per frame, by device time")
+    p.add_argument("--configs", default="",
+                   help="comma-separated frames and steps to profile "
+                        "(default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device visible", file=sys.stderr)
@@ -159,11 +245,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"{W}x{H} frames, {args.frames} profiled each", flush=True)
     frames = frames_on(dev)
-    for name, (scene, cam, cfg) in frames.items():
-        profile_frame(name, scene, cam, cfg, args.frames, args.top)
-    for name, (scene, cam, cfg) in train_frames(frames).items():
-        profile_frame(name, scene, cam, cfg, args.frames, args.top,
-                      train=True)
+    train = train_frames(frames)
+    only = set(filter(None, args.configs.split(",")))
+    unknown = only - set(frames) - set(train)
+    if unknown:
+        p.error(f"unknown configs {sorted(unknown)}")
+    for runs, is_train in ((frames, False), (train, True)):
+        for name, (scene, cam, cfg) in runs.items():
+            if not only or name in only:
+                profile_frame(name, scene, cam, cfg, args.frames, args.top,
+                              train=is_train)
     return 0
 
 

@@ -24,15 +24,33 @@ Inside a capture every kernel wrapper launches on
 counters of ``ops/*_cuda.py`` count the capture's launches once: a replay
 runs the kernels again without passing through Python, so the counters do
 not count replays.
+
+``cond`` is ``jax.lax.cond``: eagerly it runs one branch by the host's
+value of the predicate; while capturing it records each branch into a
+conditional node of the graph (CUDA 12.4 and later; the node is
+``csrc/cond.cu``'s, since torch 2.11 has none), an IF node on a 0-d CUDA
+bool that the graph reads at each replay, so the device decides which
+branch runs and the host reads nothing.  It differentiates: its backward
+is a ``cond`` on the same predicate (as JAX transposes ``lax.cond`` into a
+``cond``), which recomputes the branch that ran with autograd and takes
+its vector-Jacobian product.  ``Captured``'s warm-up runs both branches
+of every ``cond``, so that the bodies the capture records have run once
+eagerly (their lazily made constants made outside the capture).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
 import dataclasses
+import functools
 import time
+import weakref
 
 import torch
+
+from . import _kernels
 
 
 def tensors(tree) -> list:
@@ -110,16 +128,226 @@ def check_no_grad(tree, what: str) -> None:
             "it under torch.no_grad() or differentiate the eager function")
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False without
+    a card)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def predicates(flags: torch.Tensor) -> list:
+    """The [n] bool ``flags`` as ``cond``'s predicates: while capturing, a
+    0-d device tensor each, which the graph reads at each replay; else
+    their values on the host, all read at once."""
+    if capturing():
+        return list(flags.unbind(0))
+    return flags.tolist()
+
+
+# Captured's warm-ups in progress (``warming``); a global, not a
+# thread-local, since a warm-up's backward runs on autograd's threads
+_warming = 0
+
+
+@contextlib.contextmanager
+def warming():
+    """While open, ``cond`` runs both branches (and returns the one the
+    predicate picks)."""
+    global _warming
+    _warming += 1
+    try:
+        yield
+    finally:
+        _warming -= 1
+
+
+# the IF nodes' bodies' stream on each device, and the bodies of the
+# graph that ``Captured`` is capturing (None outside a capture: a captured
+# cond needs its warm-up)
+_body_streams: dict = {}
+_bodies = None
+
+
+def _body_stream(device: torch.device):
+    """The IF nodes' bodies' stream on ``device``: one of their own
+    (torch's streams come from a shared pool, where a body could meet the
+    stream that captures it)."""
+    if device not in _body_streams:
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _kernels.check(_kernels.load().rtbvh_stream_create(
+                ctypes.byref(handle)), "cond: the IF nodes' stream")
+        _body_streams[device] = torch.cuda.ExternalStream(handle.value,
+                                                          device=device)
+    return _body_streams[device]
+
+
+class _Bodies:
+    """The memory pool of one graph's IF-node bodies (the graph's own pool
+    admits only its capture stream's allocations): made by the first
+    body, held while the graph lives and released with it (``release``),
+    after which the allocator frees it as it frees a graph's pool.  No
+    other graph allocates from it, so graphs' replays may interleave as
+    they may without IF nodes."""
+
+    def __init__(self, device: torch.device):
+        self.index = device.index
+        self.pool = torch.cuda.graph_pool_handle()
+        self.held = False
+
+    @contextlib.contextmanager
+    def allocating(self):
+        """The block's allocations on this thread from the pool (what
+        ``torch.cuda.use_mem_pool`` does for a ``MemPool``)."""
+        torch._C._cuda_beginAllocateCurrentThreadToPool(self.index,
+                                                        self.pool)
+        try:
+            yield
+        finally:
+            torch._C._cuda_endAllocateToPool(self.index, self.pool)
+            # each begin takes a use of the pool; the first one's is held
+            if self.held:
+                torch._C._cuda_releasePool(self.index, self.pool)
+            self.held = True
+
+    def release(self) -> None:
+        """Give the pool back to the allocator (once)."""
+        if self.held:
+            self.held = False
+            torch._C._cuda_releasePool(self.index, self.pool)
+
+
+@contextlib.contextmanager
+def _if_node(pred: torch.Tensor):
+    """Capture the block into an IF node of the graph being captured: its
+    body runs at a replay where ``pred`` (a 0-d CUDA bool, read by the
+    graph) is true.  The node is ``csrc/cond.cu``'s; the block runs on the
+    bodies' stream, its memory from their pool."""
+    if pred.dtype != torch.bool or pred.dim() or pred.device.type != "cuda":
+        raise ValueError(f"cond: the predicate of a captured cond must be a "
+                         f"0-d CUDA bool; got {pred.dtype} "
+                         f"{tuple(pred.shape)} on {pred.device}")
+    bodies = _bodies
+    if bodies is None:
+        raise RuntimeError("cond: a captured cond needs graphs.Captured, "
+                           "whose warm-up runs both its branches")
+    body = _body_stream(pred.device)
+    _kernels.check(_kernels.load().rtbvh_if_begin(
+        pred.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        body.cuda_stream), "cond: an IF node")
+    try:
+        with torch.cuda.stream(body), bodies.allocating():
+            yield
+    finally:
+        _kernels.check(_kernels.load().rtbvh_if_end(body.cuda_stream),
+                       "cond: an IF node's body")
+
+
+def _select(pred, true_fn, false_fn):
+    """``true_fn()`` if ``pred`` else ``false_fn()``: both return a tensor
+    or a tuple of tensors of the same shapes and dtypes.  A tensor ``pred``
+    while capturing makes two IF nodes, on ``pred`` and on its negation;
+    the second copies ``false_fn()`` into the first's output, which it
+    returns (torch's ``if_else_node``).  Else a tensor ``pred`` is read on
+    the host."""
+    if isinstance(pred, torch.Tensor) and capturing():
+        not_pred = torch.logical_not(pred)
+        with _if_node(pred):
+            out = true_fn()
+        with _if_node(not_pred):
+            other = false_fn()
+            for o, x in zip(tensors(out), tensors(other), strict=True):
+                if o.shape != x.shape or o.dtype != x.dtype:
+                    raise ValueError(
+                        f"cond: the branches return {o.dtype} "
+                        f"{tuple(o.shape)} and {x.dtype} {tuple(x.shape)}")
+                o.copy_(x)
+        return out
+    pred = bool(pred)
+    if _warming:  # the branch the predicate skips, for its warm-up
+        (false_fn if pred else true_fn)()
+    return true_fn() if pred else false_fn()
+
+
+def cond(pred, true_fn, false_fn, operands: tuple = ()):
+    """``jax.lax.cond(pred, true_fn, false_fn, *operands)``: the result of
+    ``true_fn(*operands)`` where ``pred`` holds, else of
+    ``false_fn(*operands)``, a tensor or a tuple of tensors, equal in shape
+    and dtype.  ``pred`` is a bool (the host's value, say from
+    ``predicates``) or a 0-d bool tensor: while capturing, on the card, the
+    graph's IF nodes decide at each replay; eagerly it is read.
+
+    With grad mode on, the result is differentiable with respect to the
+    tensors in ``operands`` (trees of tuples and dataclasses) that require
+    grad; tensors the branches close over are constants.  The backward is
+    a ``cond`` on the same predicate, as JAX transposes ``lax.cond``: the
+    branch that ran, recomputed with autograd, and its vector-Jacobian
+    product.  Recomputing costs the branch's forward once more and keeps
+    no residual from the forward: autograd runs a node's backward on the
+    stream that ran its forward, which for a branch captured into an IF
+    node is the bodies' stream, whose capture has ended by the time the
+    backward is captured."""
+    leaves = [t for t in tensors(operands) if t.requires_grad] \
+        if torch.is_grad_enabled() else []
+    if not leaves:
+        return _select(pred, lambda: true_fn(*operands),
+                       lambda: false_fn(*operands))
+    one = []
+    out = _Cond.apply(pred, true_fn, false_fn, operands, one, *leaves)
+    return out[0] if one[0] else out
+
+
+class _Cond(torch.autograd.Function):
+    """``cond`` under autograd: its outputs are a tuple of tensors (the
+    false branch's cloned, so that none is a tensor the branch closes
+    over, such as a constant); ``one`` gets whether the branch returned
+    one tensor."""
+
+    @staticmethod
+    def forward(ctx, pred, true_fn, false_fn, operands, one, *leaves):
+        ctx.pred, ctx.fns, ctx.operands = pred, (true_fn, false_fn), operands
+        ctx.leaves = leaves
+        out = _select(pred, lambda: true_fn(*operands),
+                      lambda: _map(torch.clone, false_fn(*operands)))
+        one.append(isinstance(out, torch.Tensor))
+        return tuple(tensors(out))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        vjps = [functools.partial(_vjp, fn, ctx.operands, ctx.leaves, grads)
+                for fn in ctx.fns]
+        return (None,) * 5 + tuple(_select(ctx.pred, *vjps))
+
+
+def _vjp(fn, operands, leaves, grads):
+    """The gradients of ``fn(*operands)``'s outputs against ``grads`` with
+    respect to ``leaves`` (tensors in ``operands``), ``fn`` recomputed with
+    autograd: a tuple of tensors, zeros where an output does not depend on
+    a leaf."""
+    with torch.enable_grad():
+        fresh = [t.detach().requires_grad_(True) for t in leaves]
+        swap = {id(t): f for t, f in zip(leaves, fresh)}
+        outs = tensors(fn(*_map(lambda t: swap.get(id(t), t), operands)))
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        got = torch.autograd.grad(
+            [o for o, _ in pairs], fresh, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(fresh)
+    return tuple(torch.zeros_like(f) if g is None else g
+                 for f, g in zip(fresh, got))
+
+
 class Captured:
     """One CUDA graph of ``fn(*inputs)``.
 
     ``inputs`` are copied into static tensors (``static_copy``).
     ``warmup`` (default ``fn``) runs once on ``stream`` with the static
-    inputs, then ``prepare()`` where given, then ``fn`` is captured on
-    ``stream`` into a graph whose memory comes from ``pool`` (a pool
-    handle, to share one pool among graphs replayed in the order they
-    were captured) or its own.  ``capture_ms`` is the capture's host time,
-    ``pool_bytes`` the device memory the allocator reserved during it.
+    inputs, both branches of every ``cond`` included (``warming``), then
+    ``prepare()`` where given, then ``fn`` is captured on ``stream`` into
+    a graph with a memory pool of its own, and its IF nodes' bodies with
+    another (``_Bodies``), released with the graph.  A capture that fails
+    raises, and leaves the allocator as it found it (``_abandon``).
+    ``capture_ms`` is the capture's host time, ``pool_bytes`` the device
+    memory the allocator reserved during it.
     ``debug`` keeps the graph for ``CUDAGraph.debug_dump`` (which prints
     it once).  ``capture_error_mode`` is ``torch.cuda.graph``'s: the
     collectives' captures take ``"thread_local"`` (``parallel/render.py``).
@@ -127,14 +355,14 @@ class Captured:
     returns the static output (the caller clones what it hands out)."""
 
     def __init__(self, fn, inputs: tuple, stream: torch.cuda.Stream,
-                 pool=None, debug: bool = False, warmup=None, prepare=None,
+                 debug: bool = False, warmup=None, prepare=None,
                  capture_error_mode: str = "global"):
         self.inputs = static_copy(inputs)
         # the graph reads the tensors ``fn`` closes over (constants made
         # outside the capture) at their addresses: they live as long as it
         self.fn = fn
         stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), warming():
             (warmup or fn)(*self.inputs)
         torch.cuda.current_stream().wait_stream(stream)
         if prepare is not None:
@@ -147,10 +375,22 @@ class Captured:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
+        pool = torch.cuda.graph_pool_handle()
+        bodies = _Bodies(stream.device)
+        global _bodies
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode=capture_error_mode):
-            self.output = fn(*self.inputs)
+        _bodies = bodies
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode=capture_error_mode):
+                self.output = fn(*self.inputs)
+        except BaseException:
+            _abandon(stream.device, pool, bodies)
+            raise
+        finally:
+            _bodies = None
+        # the bodies' pool goes with the graph that replays them
+        weakref.finalize(self.graph, bodies.release).atexit = False
         if debug:
             self.graph.instantiate()
         torch.cuda.synchronize()
@@ -161,6 +401,17 @@ class Captured:
         copy_into(self.inputs, args)
         self.graph.replay()
         return self.output
+
+
+def _abandon(device: torch.device, pool, bodies: _Bodies) -> None:
+    """Undo a failed capture's hold on the allocator: where the capture was
+    invalidated (a host read inside it), torch's ``capture_end`` raises
+    before it stops sending the capture's allocations to ``pool``, and an
+    allocator that still counts a capture fails an assert where it later
+    frees its events; the bodies' pool goes too."""
+    with contextlib.suppress(RuntimeError):  # capture_end had ended it
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    bodies.release()
 
 
 class Cache:
@@ -188,6 +439,18 @@ class Cache:
         if device not in self._stream:
             self._stream[device] = torch.cuda.Stream(device)
         return self._stream[device]
+
+    def call(self, key, fn, inputs: tuple):
+        """``fn(*inputs)`` replayed from the capture for ``key``, made on a
+        miss (a ``Captured`` on the inputs' device, with ``options``, in
+        the caller's grad mode); its output cloned, so the caller's result
+        outlives the next replay."""
+        device = tensors(inputs)[0].device
+        with torch.inference_mode(False):
+            entry = self.get(key, lambda: Captured(
+                fn, inputs, self.stream(device), **self.options()))
+        with torch.no_grad():
+            return _map(torch.clone, entry(*inputs))
 
     def get(self, key, make):
         """The entry for ``key``, made by ``make()`` on a miss."""

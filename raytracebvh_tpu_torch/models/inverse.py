@@ -6,8 +6,12 @@ so that the rendered image matches a target.  The gradient is autograd's
 through ``render_frame``: traversal and hit ids are discrete, and the
 shading re-evaluates each hit from its leaf-attribute row, whose gather
 (kernel K2 on CUDA tensors) has kernel K3 as its backward
-(``ops/gather_cuda``).  ``torch.optim.Adam`` with optax's defaults takes
-the place of ``optax.adam``: it updates the parameters in place.
+(``ops/gather_cuda``).  A culled chunked frame shades each chunk under
+``graphs.cond``, whose backward recomputes a hit chunk's shading and
+takes its vector-Jacobian product under the same predicate: the culled
+chunks add zeros, as under JAX's ``lax.cond``.  ``torch.optim.Adam``
+with optax's defaults takes the place of ``optax.adam``: it updates the
+parameters in place.
 ``adam_state`` and ``optimizer_from_numpy`` carry its state to and from
 optax's layout (``AdamState``), the one checkpoints hold
 (``utils/checkpoint.py``).
@@ -35,7 +39,7 @@ import torch
 from .. import graphs
 from ..config import RenderConfig
 from ..core.types import Camera, Scene
-from ..pipeline import culls_chunks, render_frame
+from ..pipeline import render_frame
 
 
 class InverseParams(NamedTuple):
@@ -170,7 +174,7 @@ class _GraphedStep:
     tensors, updated in place by each replay."""
 
     def __init__(self, params, optimizer, scene, camera, target,
-                 cfg: RenderConfig, stream):
+                 cfg: RenderConfig, stream, **capture):
         self.lr = optimizer.param_groups[0]["lr"]
         params = tuple(params)
         state = [optimizer.state[p] for p in params]
@@ -199,7 +203,8 @@ class _GraphedStep:
         self.captured = graphs.Captured(
             step, (scene, camera, target), stream, warmup=warmup,
             prepare=lambda: (restore(),
-                             optimizer.zero_grad(set_to_none=True)))
+                             optimizer.zero_grad(set_to_none=True)),
+            **capture)
         self.grads = [p.grad for p in params]  # the graph writes them
 
     def __call__(self, scene, camera, target, lr: float):
@@ -220,9 +225,10 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
     optimizer's device learning rate (no re-capture).  ``optimizer`` must
     be ``make_optimizer(params, lr, capturable=True)`` (or
     ``optimizer_from_numpy(..., capturable=True)``) over ``params``.  A
-    culled chunked frame (``pipeline.culls_chunks``) reads the host in
-    the middle of the step and raises.  On CPU tensors it is
-    ``train_step`` at learning rate ``lr``."""
+    culled chunked frame (``pipeline.culls_chunks``) shades and
+    differentiates its hit chunks under the graph's IF nodes
+    (``graphs.cond``).  On CPU tensors it is ``train_step`` at learning
+    rate ``lr``."""
     if params.vert_offsets.device.type != "cuda":
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -234,15 +240,10 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
         raise ValueError(
             "train_step_jit: the optimizer must be make_optimizer(params, "
             "lr, capturable=True) over these parameters")
-    if culls_chunks(cfg, cfg.width * cfg.height):
-        raise ValueError(
-            "train_step_jit: a frame with culled ray chunks reads the host "
-            "in the middle of the step; use ray_chunk=0 or "
-            "cull_empty_chunks=False")
     key = graphs.signature(cfg, scene, camera, target,
                            tuple(p.data_ptr() for p in params))
     cache = _STEP_GRAPHS.setdefault(optimizer, graphs.Cache())
     step = cache.get(key, lambda: _GraphedStep(
         params, optimizer, scene, camera, target, cfg,
-        cache.stream(params.vert_offsets.device)))
+        cache.stream(params.vert_offsets.device), **cache.options()))
     return step(scene, camera, target, lr)

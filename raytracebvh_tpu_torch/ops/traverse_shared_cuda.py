@@ -40,9 +40,6 @@ BLOCK = 1024  # threads of a K5/K6 block, one an SM (csrc/traverse_shared.cu)
 launches = 0
 any_launches = 0
 _smem: dict = {}  # device index -> opt-in shared memory a block may use
-# (device, stream) -> int32[1] work-queue counter, zeroed by each launch
-# that uses it; launches on one stream run in turn, so they may share it
-_work: dict = {}
 
 
 def shared_bytes(n_leaves: int) -> int:
@@ -99,15 +96,6 @@ def launch_geometry(nrays: int, sms: int) -> int:
     return max(1, min(sms, -(-nrays // 32)))
 
 
-def _work_counter(device: torch.device) -> torch.Tensor:
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _work:
-        # a normal tensor even under inference_mode
-        with torch.inference_mode(False):
-            _work[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _work[key]
-
-
 def launch_walk(any_hit: bool, bvh: BVH, rays: Rays, epsilon: float,
                 max_t=None, max_steps: int = 0, return_steps: bool = False):
     """K5 (or K6 for ``any_hit``) on CUDA rays, counted, staging
@@ -118,9 +106,13 @@ def launch_walk(any_hit: bool, bvh: BVH, rays: Rays, epsilon: float,
     what = "K6 traverse_any_shared" if any_hit else "K5 traverse_shared"
     _check_fits(bvh, dev, what)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the work-queue counter, zeroed by the launch on its stream: a
+    # launch's own, so that no two streams share one (a graph's IF nodes
+    # capture on a stream of their own) and none is made in a capture to
+    # be kept
+    work = torch.empty(1, dtype=torch.int32, device=dev)
     extra = (staged_first(bvh.n_leaves, smem_per_block(dev)),
-             launch_geometry(rays.origin.shape[0], sms),
-             _work_counter(dev).data_ptr())
+             launch_geometry(rays.origin.shape[0], sms), work.data_ptr())
     if any_hit:
         out, launched = traverse_cuda.launch_any(
             "rtbvh_traverse_any_shared", what, bvh, rays, epsilon, max_t,

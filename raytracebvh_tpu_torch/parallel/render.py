@@ -46,12 +46,12 @@ capture stream.  The captures run in ``capture_error_mode=
 events, which the default "global" mode forbids while any thread
 captures.  Each capture's eager warm-up (``graphs.Captured``) runs every
 collective of the body first, so the communicators' set-up falls outside
-the graph.  A frame whose
-rank culls ray chunks (``pipeline.culls_chunks`` on its rays) is
-``pipeline.GraphedShade``'s two graphs around one host read, its
-all-gather issued after the chunk graphs' replays; a step that would
-cull raises, as ``models.inverse.train_step_jit`` does.  Nothing catches
-a failed capture: it raises.  On CPU tensors (Gloo) they run the eager
+the graph.  A rank whose
+rays cull ray chunks (``pipeline.culls_chunks``) shades them under the
+graph's IF nodes (``graphs.cond``), its collectives outside them: the
+broadcast and the build's before the first chunk, the frame's all-gather
+and the step's gradient all-reduce after the last.  Nothing catches a
+failed capture: it raises.  On CPU tensors (Gloo) they run the eager
 bodies.
 """
 
@@ -70,16 +70,11 @@ from ..pipeline import (
     assemble_bvh,
     build_bvh,
     build_transforms,
-    culled_front,
-    culls_chunks,
     frame_inputs,
-    graphed_shade,
     light_in_ray_space,
     make_rays,
     shade_rays,
     shade_tiled,
-    tile_frame_rays,
-    untile_frame_color,
 )
 from .mesh import (GEO_AXIS, axis_size, geo_shard, mesh_graphs, ray_axes,
                    ray_shard, replicated)
@@ -132,15 +127,11 @@ def signature(name: str, cfg: RenderConfig, inputs, *static):
     return graphs.signature((name, cfg) + static, *inputs)
 
 
-def _graphed_frame(name: str, fn, inputs, cfg: RenderConfig, mesh, front,
-                   finish):
-    """``fn(*inputs)`` replayed from the mesh's capture for ``signature``
-    (``pipeline.graphed_shade``: ``front`` and ``finish`` for a rank whose
-    rays cull chunks)."""
+def _graphed_frame(name: str, fn, inputs, cfg: RenderConfig, mesh):
+    """``fn(*inputs)`` replayed from the mesh's capture for
+    ``signature``."""
     graphs.check_no_grad(inputs, name)
-    return graphed_shade(mesh_graphs(mesh), signature(name, cfg, inputs), fn,
-                         inputs, cfg, _ray_rows(cfg, mesh) * cfg.width,
-                         front, finish)
+    return mesh_graphs(mesh).call(signature(name, cfg, inputs), fn, inputs)
 
 
 def _ray_inputs(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
@@ -169,20 +160,9 @@ def render_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
     (see the module docstring)."""
     if scene.device.type != "cuda":
         return _render_sharded(scene, camera, cfg, mesh)
-    rows, w = _ray_rows(cfg, mesh), cfg.width
-
-    def front(s, c):
-        s, bvh, rays, light3 = _ray_inputs(s, c, cfg, mesh)
-        return culled_front(s, bvh, tile_frame_rays(rays, cfg, w, rows), cfg,
-                            light3)
-
-    def finish(color):
-        color = untile_frame_color(color, cfg, w, rows)
-        return _gather_rays(color, mesh).reshape(cfg.height, w, 4)
-
     return _graphed_frame(
         "render_sharded", lambda s, c: _render_sharded(s, c, cfg, mesh),
-        (scene, camera), cfg, mesh, front, finish)
+        (scene, camera), cfg, mesh)
 
 
 def _light3(cfg: RenderConfig, wvp):
@@ -259,17 +239,10 @@ def render_geo_sharded(scene: Scene, camera: Camera, cfg: RenderConfig,
     if scene.device.type != "cuda":
         return _render_geo_sharded(scene, camera, cfg, mesh)
     _check_geo(scene, cfg, mesh)
-
-    def front(s, c):
-        s, bvh, rays, light3 = _geo_inputs(s, c, cfg, mesh)
-        return culled_front(s, bvh, rays, cfg, light3)
-
     return _graphed_frame(
         "render_geo_sharded",
         lambda s, c: _render_geo_sharded(s, c, cfg, mesh), (scene, camera),
-        cfg, mesh, front,
-        lambda color: _gather_rays(color, mesh).reshape(cfg.height,
-                                                        cfg.width, 4))
+        cfg, mesh)
 
 
 def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
@@ -294,31 +267,19 @@ def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
     chunks' means add up as ``acc + x / grad_chunks`` in chunk order.
 
     On CUDA tensors the step (the builds, the forward, the backward with
-    K3 and the all-reduces) is one replayed CUDA graph (see the module
-    docstring), and the returned tensors are new; a step whose rays would
-    cull chunks reads the host in the middle and raises."""
+    K3 and the all-reduces; a culled chunk loop's IF nodes) is one
+    replayed CUDA graph (see the module docstring), and the returned
+    tensors are new."""
     if params[0].device.type != "cuda":
         return _train_step_sharded(params, scene_fn, scene, camera, target,
                                    cfg, mesh, grad_chunks)
-    nloc = _check_chunks(cfg, mesh, grad_chunks)
-    if culls_chunks(cfg, nloc // grad_chunks):
-        raise ValueError(
-            "train_step_sharded: a frame with culled ray chunks reads the "
-            "host in the middle of the step; use ray_chunk=0 or "
-            "cull_empty_chunks=False")
+    _check_chunks(cfg, mesh, grad_chunks)
     inputs = (params, scene, camera, target)
-    cache = mesh_graphs(mesh)
-    with torch.inference_mode(False):
-        graph = cache.get(
-            signature("train_step_sharded", cfg, inputs, grad_chunks,
-                      scene_fn),
-            lambda: graphs.Captured(
-                lambda p, s, c, t: _train_step_sharded(
-                    p, scene_fn, s, c, t, cfg, mesh, grad_chunks),
-                inputs, cache.stream(params[0].device), **cache.options()))
-    with torch.no_grad():
-        loss, grads = graph(*inputs)
-        return loss.clone(), type(grads)(*(g.clone() for g in grads))
+    return mesh_graphs(mesh).call(
+        signature("train_step_sharded", cfg, inputs, grad_chunks, scene_fn),
+        lambda p, s, c, t: _train_step_sharded(p, scene_fn, s, c, t, cfg,
+                                               mesh, grad_chunks),
+        inputs)
 
 
 def _check_chunks(cfg: RenderConfig, mesh, grad_chunks: int) -> int:

@@ -469,9 +469,8 @@ def shade_setup(scene: Scene, bvh: BVH, cfg: RenderConfig):
 
 def culls_chunks(cfg: RenderConfig, nrays: int) -> bool:
     """Whether ``shade_rays`` runs ``nrays`` rays as ray chunks with empty
-    chunks culled, the one path whose work the host decides (it reads
-    which chunks hit); raises where ``cfg.ray_chunk`` does not divide
-    ``nrays``."""
+    chunks culled (each chunk's shading under ``graphs.cond``); raises
+    where ``cfg.ray_chunk`` does not divide ``nrays``."""
     chunk = cfg.ray_chunk
     if not (chunk > 0 and nrays > chunk):
         return False
@@ -507,15 +506,29 @@ def chunk_background(cfg: RenderConfig, tex_quads, device) -> torch.Tensor:
                         for b in cfg.background], dim=-1)
 
 
+def _shade_chunk(scene: Scene, flat: BVH, cfg: RenderConfig, light3, rec):
+    """One hit chunk's shading as ``graphs.cond``'s true branch, a function
+    of its differentiable inputs (the leaf-attribute table, the chunk's
+    rays, the quad table) on ``flat``, the detached tree: its other fields
+    reach the shading only through the walks, behind their detach
+    boundary."""
+    def shade(leaf_attrs, rays, tex_quads):
+        return _shade_rays_one(scene, flat.replace(leaf_attrs=leaf_attrs),
+                               rays, cfg, tex_quads, light3, rec)
+    return shade
+
+
 def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
                light3=None):
     """The whole per-ray pipeline, optionally in sequential chunks of
     ``cfg.ray_chunk`` rays.  With ``cull_empty_chunks`` a chunk whose
     primary rays all miss skips shading and its shadow rays: it is pure
     background (its spawns carry zero intensity), so the image is the
-    same.  The culled loop runs in two passes: every chunk's primary
-    traversal (``trace_chunks``), one read of the chunks' hit flags on the
-    host, then each hit chunk's shading from its record.  ``light3``
+    same.  The culled loop runs in two passes, as the JAX package's
+    ``lax.map`` of ``lax.cond``: every chunk's primary traversal
+    (``trace_chunks``), then each chunk's shading from its record under
+    ``graphs.cond`` on its hit flag (eagerly the flags are read on the
+    host once; in a CUDA graph its IF nodes read them).  ``light3``
     (``light_in_ray_space``) is needed for shadows."""
     bvh, tex_quads = shade_setup(scene, bvh, cfg)
     nrays = rays.origin.shape[0]
@@ -529,10 +542,13 @@ def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
             for i in range(nrays // chunk)])
     recs, any_hit = trace_chunks(bvh, rays, cfg)
     bg = chunk_background(cfg, tex_quads, rays.origin.device)
+    flat = bvh.detach()
     return torch.cat([
-        _shade_rays_one(scene, bvh, chunk_rays(rays, i, chunk), cfg,
-                        tex_quads, light3, rec) if hit else bg
-        for i, (rec, hit) in enumerate(zip(recs, any_hit.tolist()))])
+        graphs.cond(pred, _shade_chunk(scene, flat, cfg, light3, rec),
+                    lambda *_: bg,
+                    (bvh.leaf_attrs, chunk_rays(rays, i, chunk), tex_quads))
+        for i, (rec, pred) in enumerate(zip(recs,
+                                            graphs.predicates(any_hit)))])
 
 
 def build_transforms(camera: Camera, cfg: RenderConfig):
@@ -623,121 +639,20 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
 FRAME_GRAPHS = graphs.Cache()
 
 
-def culled_front(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
-                 light3=None):
-    """``shade_rays``' culled chunk loop up to its host read: the shared
-    tables (``shade_setup``) and pass 1 (``trace_chunks``) -> (scene, bvh
-    with its tables, rays, light3, tex_quads, the chunks' records, their
-    hit flags), what ``GraphedShade`` shades the hit chunks from."""
-    bvh, tex_quads = shade_setup(scene, bvh, cfg)
-    recs, any_hit = trace_chunks(bvh, rays, cfg)
-    return scene, bvh, rays, light3, tex_quads, recs, any_hit
-
-
-def _frame_front(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """Everything of a culled chunked frame up to its host read: the
-    build, the tiled rays and ``culled_front``."""
-    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
-    rays = tile_frame_rays(rays, cfg, cfg.width, cfg.height)
-    return culled_front(scene, bvh, rays, cfg, light3)
-
-
-class GraphedShade:
-    """``fn(*inputs)`` for one signature as replayed CUDA graphs.
-
-    Where the device alone decides the work (``front`` None) it is one
-    graph.  The culled chunk loop (``culls_chunks``) reads on the host
-    which chunks hit, so it is two graphs sharing one memory pool: the
-    front (``front(*inputs)``, which ends in ``culled_front``) and one
-    chunk's shading (``_shade_rays_one``), captured on a static chunk slot
-    and replayed for each hit chunk.  The host reads the chunks' hit flags
-    once a call, between the two; miss chunks get the background, and
-    ``finish`` turns the colours in ray order into the result eagerly (a
-    view, a few copies, or a collective between the graphs).  Every
-    chunk's arithmetic is ``shade_rays``'.  ``capture`` is handed to each
-    ``graphs.Captured`` (``graphs.Cache.options``)."""
-
-    def __init__(self, fn, inputs: tuple, cfg: RenderConfig,
-                 stream: torch.cuda.Stream, front=None, finish=None,
-                 **capture):
-        self.cfg = cfg
-        self.culled = front is not None
-        if not self.culled:
-            self.frame = graphs.Captured(fn, inputs, stream, **capture)
-            self.captures = (self.frame,)
-            return
-        self.finish = finish
-        self.front = graphs.Captured(front, inputs, stream, **capture)
-        # a real call in the front's outputs before the chunk's warm-up,
-        # which reads them
-        self.front(*inputs)
-        scene, bvh, rays, light3, tex_quads, recs, _ = self.front.output
-        pool = self.front.graph.pool()
-        self.chunk = graphs.Captured(
-            lambda r, rec: _shade_rays_one(scene, bvh, r, cfg, tex_quads,
-                                           light3, rec),
-            (chunk_rays(rays, 0, cfg.ray_chunk), recs[0]), stream, pool=pool,
-            **capture)
-        self.background = chunk_background(cfg, tex_quads, rays.origin.device)
-        self.color = torch.empty((rays.origin.shape[0], 4),
-                                 dtype=self.chunk.output.dtype,
-                                 device=rays.origin.device)
-        self.captures = (self.front, self.chunk)
-
-    def __call__(self, *inputs):
-        if not self.culled:
-            return self.frame(*inputs).clone()
-        _, _, rays, _, _, recs, any_hit = self.front(*inputs)
-        chunk = self.cfg.ray_chunk
-        slots = self.color.view(-1, chunk, 4)
-        slots.copy_(self.background.expand_as(slots))
-        for i, hit in enumerate(any_hit.tolist()):  # the call's host read
-            if hit:
-                slots[i].copy_(self.chunk(chunk_rays(rays, i, chunk),
-                                          recs[i]))
-        return self.finish(self.color).clone()
-
-    @property
-    def capture_ms(self) -> float:
-        return sum(c.capture_ms for c in self.captures)
-
-    @property
-    def pool_bytes(self) -> int:
-        return sum(c.pool_bytes for c in self.captures)
-
-
-def graphed_shade(cache: graphs.Cache, key, fn, inputs: tuple,
-                  cfg: RenderConfig, nrays: int, front, finish):
-    """``fn(*inputs)`` replayed from ``cache``'s ``GraphedShade`` for
-    ``key``, captured on a miss with the cache's options: the two-pass
-    scheme (``front``, then ``finish`` of the chunks' colours) where
-    ``cfg`` culls the chunks of ``nrays`` rays (``culls_chunks``), else
-    one graph of ``fn``.  Returns a new tensor."""
-    with torch.inference_mode(False), torch.no_grad():
-        shade = cache.get(key, lambda: GraphedShade(
-            fn, inputs, cfg, cache.stream(inputs[0].device),
-            front=front if culls_chunks(cfg, nrays) else None,
-            finish=finish, **cache.options()))
-    with torch.no_grad():
-        return shade(*inputs)
-
 def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
     """``render_frame`` compiled once a signature, the counterpart of the
     JAX package's ``render_frame_jit``: on CUDA tensors the whole frame
     (build, sort, every traversal and gather, K1-K8 as the config routes
-    them) is a CUDA graph captured at the first call of its signature
-    (``graphs.signature``: cfg and the inputs' shapes, dtypes and device)
-    and replayed with the caller's scene and camera copied in; the culled
-    chunk loop reads its chunks' hit flags once a frame
-    (``GraphedShade``).  It returns a new image, the eager frame's bits.
-    On CPU tensors it is ``render_frame``.  It does not differentiate:
-    with grad mode on, an input that requires grad raises."""
+    them, the culled chunk loop's IF nodes) is one CUDA graph captured at
+    the first call of its signature (``graphs.signature``: cfg and the
+    inputs' shapes, dtypes and device) and replayed with the caller's
+    scene and camera copied in.  It returns a new image, the eager
+    frame's bits.  On CPU tensors it is ``render_frame``.  It does not
+    differentiate: with grad mode on, an input that requires grad
+    raises."""
     graphs.check_no_grad((scene, camera), "render_frame_jit")
     if scene.device.type != "cuda":
         return render_frame(scene, camera, cfg)
-    w, h = cfg.width, cfg.height
-    return graphed_shade(
-        FRAME_GRAPHS, graphs.signature(cfg, scene, camera),
-        lambda s, c: render_frame(s, c, cfg), (scene, camera), cfg, w * h,
-        lambda s, c: _frame_front(s, c, cfg),
-        lambda color: untile_frame_color(color, cfg, w, h).reshape(h, w, 4))
+    return FRAME_GRAPHS.call(graphs.signature(cfg, scene, camera),
+                             lambda s, c: render_frame(s, c, cfg),
+                             (scene, camera))

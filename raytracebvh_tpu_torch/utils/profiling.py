@@ -146,31 +146,20 @@ def _eager_stages(scene, camera, cfg):
 def _graphed_stages(scene, camera, cfg) -> Dict[str, Callable]:
     """``_eager_stages`` with every stage captured alone into its own CUDA
     graph (each with its own memory pool), as the JAX function jits each
-    stage alone: a replay a call.  ``trace_shade`` of a culled chunked
-    config is ``pipeline.GraphedShade``'s two graphs around one host read
-    of the chunks' hit flags; ``frame_total`` is ``render_frame_jit``'s
-    capture (its cache's).  A stage whose capture fails raises: none runs
-    eagerly in its place."""
+    stage alone: a replay a call (a culled chunk loop's in ``trace_shade``
+    under its IF nodes); ``frame_total`` is ``render_frame_jit``'s capture
+    (its cache's).  A stage whose capture fails raises: none runs eagerly
+    in its place."""
     from .. import graphs
-    from ..pipeline import (culled_front, graphed_shade, render_frame_jit,
-                            shade_rays)
+    from ..pipeline import render_frame_jit
 
-    eager, (scene, bvh, rays) = _eager_stages(scene, camera, cfg)
-    cache = graphs.Cache()
-    stream = cache.stream(scene.device)
+    eager, _ = _eager_stages(scene, camera, cfg)
+    stream = graphs.Cache().stream(scene.device)
     stages = {name: graphs.Captured(eager[name], (), stream)
               for name in ("morton", "sort", "topology", "fit", "links",
-                           "build_total")}
-
-    def trace_shade():
-        return graphed_shade(
-            cache, "trace_shade", lambda s, b, r: shade_rays(s, b, r, cfg),
-            (scene, bvh, rays), cfg, rays.origin.shape[0],
-            lambda s, b, r: culled_front(s, b, r, cfg), lambda color: color)
-
-    trace_shade()  # the capture
+                           "build_total", "trace_shade")}
     render_frame_jit(scene, camera, cfg)  # the capture, or a cached one
-    return {**stages, "trace_shade": trace_shade,
+    return {**stages,
             "frame_total": lambda: render_frame_jit(scene, camera, cfg)}
 
 

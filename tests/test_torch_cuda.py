@@ -862,6 +862,68 @@ def test_graphed_frame_equals_eager_and_follows_the_camera(dev, kw):
     pipeline.FRAME_GRAPHS.clear()
 
 
+def test_graphed_culled_frame_is_one_graph_the_device_steers(dev):
+    """A culled chunked frame is one graph: its replays read nothing back
+    (sync-debug mode "error"), and the IF nodes follow the copied-in
+    camera, which the capture did not see: some, none and every chunk
+    hit, each replay render_frame's bits, with one capture."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import graphs, pipeline
+
+    # 75% of the 256-ray chunks hit at ortho_scale 3, all at 1.4
+    scene, cam, cfg = _graph_frame_args(dev, ray_chunk=256, ortho_scale=3.0)
+    away = cam.replace(at=torch.tensor([0.0, 5.0, -200.0], device=dev))
+    pipeline.FRAME_GRAPHS.clear()
+    shares = []
+    for c, ortho in ((cam, 3.0), (away, 3.0), (cam, 1.4), (cam, 3.0)):
+        run = cfg.replace(ortho_scale=ortho)
+        want = T.render_frame(scene, c, run)
+        T.render_frame_jit(scene, c, run)  # a capture for each ortho_scale
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = T.render_frame_jit(scene, c, run)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want)
+        bg = torch.tensor(cfg.background, device=dev)
+        hit = (want - bg).abs().ge(1e-6).any(-1).reshape(-1, 256).any(-1)
+        shares.append(float(hit.float().mean()))
+    assert 0 < shares[0] < 1 and shares[1] == 0 and shares[2] == 1, shares
+    assert len(pipeline.FRAME_GRAPHS.entries) == 2
+    assert all(isinstance(e, graphs.Captured)
+               for e in pipeline.FRAME_GRAPHS.entries.values())
+    pipeline.FRAME_GRAPHS.clear()
+
+
+def test_culled_graph_gives_its_memory_back(dev):
+    """A culled frame's graph allocates from two pools, its own and its IF
+    bodies' (graphs._Bodies), and dropping the graph gives both back: once
+    the cache is cleared, the device memory reserved is what it was
+    before the capture."""
+    import gc
+
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+
+    scene, cam, cfg = _graph_frame_args(dev, ray_chunk=256, ortho_scale=3.0)
+    pipeline.FRAME_GRAPHS.clear()
+    T.render_frame(scene, cam, cfg)  # the eager frame's lazy constants
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    T.render_frame_jit(scene, cam, cfg)
+    (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+    held = torch.cuda.memory_reserved()
+    assert entry.pool_bytes > 0 and held > before
+    del entry
+    pipeline.FRAME_GRAPHS.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() == before, (before, held)
+
+
 def test_graphed_frame_recaptures_on_a_new_size(dev):
     import raytracebvh_tpu_torch as T
     from raytracebvh_tpu_torch import pipeline
@@ -903,23 +965,34 @@ def test_failed_capture_raises(dev, monkeypatch):
     pipeline.FRAME_GRAPHS.clear()
 
 
-def test_graphed_steps_match_eager_steps(dev):
+@pytest.mark.parametrize("chunk", [0, 32], ids=["unchunked", "culled"])
+def test_graphed_steps_match_eager_steps(dev, chunk):
     """Three train_step_jit calls at 64x64 equal three eager train_steps
-    with the same capturable Adam from the same start, bit for bit; with
-    make_optimizer's default Adam the first loss is bit-equal and the
-    parameters after one step are within 1e-6 (the capturable Adam's
-    float32 bias corrections: chip_smoke.py's GRAPHED_STEP1_TOL).  lr is
-    read at each call: a step at lr 0 moves nothing, without a second
-    capture.  A default (not capturable) Adam is refused."""
+    with the same capturable Adam from the same start, bit for bit, also
+    where the frame culls 32-ray chunks (shaded and differentiated under
+    the graph's IF nodes); with make_optimizer's default Adam the first
+    loss is bit-equal and the parameters after one step are within 1e-6
+    (the capturable Adam's float32 bias corrections: chip_smoke.py's
+    GRAPHED_STEP1_TOL).  lr is read at each call: a step at lr 0 moves
+    nothing, without a second capture.  A default (not capturable) Adam
+    is refused."""
     import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
     from raytracebvh_tpu_torch.models import inverse
     from raytracebvh_tpu_torch.models.procedural import random_triangles
 
     scene = random_triangles(40, seed=11, extent=8.0, tri_size=2.0,
                              with_texture=True, device=dev)
     cam = T.Camera.default(dev)
-    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.0)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.0,
+                         ray_chunk=chunk)
     target = T.render_frame(scene, cam, cfg) * 0.8
+    if chunk:
+        assert pipeline.culls_chunks(cfg, 64 * 64)
+        bg = torch.tensor(cfg.background, device=dev)
+        hit = (target / 0.8 - bg).abs().ge(1e-6).any(-1)
+        chunk_hits = hit.reshape(-1, chunk).any(-1)
+        assert bool(chunk_hits.any()) and not bool(chunk_hits.all())
 
     def run(step, capturable, n=3, **kw):
         params = inverse.init_params(scene)
@@ -991,8 +1064,8 @@ def test_graph_replays_after_an_eager_launch_lowers_the_smem_limit(dev):
                          ids=["one_graph", "culled_chunks"])
 def test_graphed_stage_times(dev, kw):
     """stage_times on the card: the JAX function's keys, every stage a
-    replayed graph with a finite positive time; trace_shade's graphs (the
-    culled loop's two, around one host read) give shade_rays' bits."""
+    replayed graph with a finite positive time; trace_shade's graph (the
+    culled loop's IF nodes inside it) gives shade_rays' bits."""
     from raytracebvh_tpu_torch import pipeline
     from raytracebvh_tpu_torch.utils import profiling
 
@@ -1037,11 +1110,10 @@ def test_graphed_sharded_frames_and_step_world_one(dev):
     world-1 NCCL group replay CUDA graphs with the collectives inside:
     each call equals the eager body (frames bit for bit, also a culled
     chunked frame; the step's loss bit for bit and its gradients within
-    1e-6 of the largest |grad|, with grad_chunks 1 and 2), a second call
-    replays without a new capture (the graphs are the mesh's), the
-    parameters stay as they were, and a step that would cull chunks
-    raises.  destroy_distributed drops the mesh's graphs and ends the
-    group."""
+    1e-6 of the largest |grad|, with grad_chunks 1 and 2, and a step
+    whose rays cull chunks), a second call replays without a new capture
+    (the graphs are the mesh's), and the parameters stay as they were.
+    destroy_distributed drops the mesh's graphs and ends the group."""
     import raytracebvh_tpu_torch as T
     from raytracebvh_tpu_torch.models.inverse import apply_params, init_params
     from raytracebvh_tpu_torch.parallel import mesh, render
@@ -1068,24 +1140,20 @@ def test_graphed_sharded_frames_and_step_world_one(dev):
         target = torch.zeros((64, 64, 4), device=dev)
         params = init_params(scene)
         before = [p.clone() for p in params]
-        for chunks in (1, 2):
+        for chunks, c in ((1, cfg_bwd), (2, cfg_bwd),
+                          (1, cfg_bwd.replace(ray_chunk=512))):
             loss_e, grads_e = render._train_step_sharded(
-                params, apply_params, scene, cam, target, cfg_bwd, flat,
-                chunks)
+                params, apply_params, scene, cam, target, c, flat, chunks)
             for _ in range(2):
                 loss, grads = render.train_step_sharded(
-                    params, apply_params, scene, cam, target, cfg_bwd, flat,
+                    params, apply_params, scene, cam, target, c, flat,
                     chunks)
                 assert torch.equal(loss, loss_e)
                 for g, ge in zip(grads, grads_e):
                     tol = 1e-6 * float(ge.abs().max())
                     assert float((g - ge).abs().max()) <= tol
         assert all(torch.equal(p, b) for p, b in zip(params, before))
-        assert len(cache.entries) == 5
-        with pytest.raises(ValueError, match="culled ray chunks"):
-            render.train_step_sharded(params, apply_params, scene, cam,
-                                      target, cfg_bwd.replace(ray_chunk=512),
-                                      flat)
+        assert len(cache.entries) == 6
     finally:
         mesh.destroy_distributed()
     assert not cache.entries
@@ -1123,16 +1191,17 @@ assert len(mesh.mesh_graphs(geo).entries) == 3
 cfg_bwd = cfg.replace(enable_shadows=False, ray_tile=16)
 target = torch.zeros((64, 64, 4), device=dev)
 params = init_params(scene)
-for chunks in (1, 2):
+for chunks, c in ((1, cfg_bwd), (2, cfg_bwd),
+                  (1, cfg_bwd.replace(ray_chunk=512))):
     loss_e, grads_e = render._train_step_sharded(
-        params, apply_params, scene, cam, target, cfg_bwd, geo, chunks)
+        params, apply_params, scene, cam, target, c, geo, chunks)
     for _ in range(2):
         loss, grads = render.train_step_sharded(
-            params, apply_params, scene, cam, target, cfg_bwd, geo, chunks)
+            params, apply_params, scene, cam, target, c, geo, chunks)
         assert abs(float(loss - loss_e)) <= 1e-6 * abs(float(loss_e))
         for g, ge in zip(grads, grads_e):
             assert float((g - ge).abs().max()) <= 1e-6 * float(ge.abs().max())
-assert len(mesh.mesh_graphs(geo).entries) == 5
+assert len(mesh.mesh_graphs(geo).entries) == 6
 caches = mesh.mesh_graphs(flat), mesh.mesh_graphs(geo)
 mesh.destroy_distributed()  # with the meshes alive
 assert not dist.is_initialized()
@@ -1147,8 +1216,9 @@ def test_graphed_sharded_frames_and_step_across_ranks(dev, world, tmp_path):
     card each (skips with fewer cards): on the flat (world x 1) and geo=2
     meshes, render_sharded (also a culled chunked frame) and
     render_geo_sharded equal the eager bodies and render_frame bit for bit
-    on every call, and train_step_sharded (grad_chunks 1 and 2) its eager
-    body within 1e-6 of the loss and of each gradient's largest |grad|
+    on every call, and train_step_sharded (grad_chunks 1 and 2, and a
+    culled chunked step: at 2 ranks the culled frame and step's case) its
+    eager body within 1e-6 of the loss and of each gradient's largest |grad|
     (NCCL's sums across cards; the world-one test holds the bits).  Each
     rank then ends with destroy_distributed, its meshes still alive: it
     drops their graphs, which hold the communicators, before the group

@@ -14,12 +14,16 @@ the CPU can show is held here:
   * the culled chunk loop's two passes bit for bit against the one-pass
     loop they replace (``_one_pass_shade_rays``), with some, none and
     every chunk hitting;
+  * ``graphs.cond``'s eager branches (both under ``warming``) and its
+    gradient, the recomputed branch's, in float64 at rtol 1e-14;
   * the capture-safe constants bit for bit against the host literals
     they replace, in float32, bfloat16 and float16;
   * the unchunked frame issuing no host read and no tensor literal
-    outside the plain walks (a ``TorchDispatchMode`` guard);
-  * ``train_step_jit`` equal to ``train_step``, and a capturable Adam's
-    state through ``adam_state`` / ``optimizer_from_numpy``.
+    outside the plain walks (a ``TorchDispatchMode`` guard), and the
+    culled frame and step none outside ``graphs.cond`` (made a select);
+  * ``train_step_jit`` equal to ``train_step`` (also culled), and a
+    capturable Adam's state through ``adam_state`` /
+    ``optimizer_from_numpy``.
 """
 
 import numpy as np
@@ -139,6 +143,74 @@ def test_two_pass_chunk_loop_equals_one_pass(share, ortho_scale, away,
     hit = any_hit.tolist()
     assert {"some": any(hit) and not all(hit), "none": not any(hit),
             "all": all(hit)}[share], hit
+
+
+def test_cond_runs_the_branch_the_predicate_picks():
+    """graphs.cond eagerly: the branch of the host's value (a bool, or a
+    0-d tensor read on the host), a tensor or a tuple of tensors; under
+    warming() both branches run and the picked one is returned; without a
+    capture ``predicates`` reads the flags at once."""
+    calls = []
+
+    def branch(name, value):
+        def fn(x):
+            calls.append(name)
+            return x + value, x * value
+        return fn
+
+    x = torch.arange(4.0)
+    for pred in (True, False, torch.tensor(True), torch.tensor(False)):
+        calls.clear()
+        out = graphs.cond(pred, branch("t", 1.0), branch("f", 2.0), (x,))
+        want = (x + 1.0, x * 1.0) if bool(pred) else (x + 2.0, x * 2.0)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+        assert calls == ["t" if bool(pred) else "f"]
+        calls.clear()
+        with graphs.warming():
+            again = graphs.cond(pred, branch("t", 1.0), branch("f", 2.0),
+                                (x,))
+        assert sorted(calls) == ["f", "t"]
+        assert all(torch.equal(a, b) for a, b in zip(again, want))
+    one = graphs.cond(False, lambda: x + 1, lambda: x - 1)
+    assert torch.equal(one, x - 1)
+    assert not graphs.capturing()
+    assert graphs.predicates(torch.tensor([True, False, True])) == [
+        True, False, True]
+
+
+@pytest.mark.parametrize("pred", [True, False])
+def test_cond_gradient_is_the_branch_that_ran(pred):
+    """cond's backward is the vector-Jacobian product of the branch the
+    predicate picked, recomputed: the gradients of each branch written
+    out alone, and zeros (not None) for an operand that branch does not
+    read; a tensor a branch closes over is a constant."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(5, 3, generator=gen, dtype=torch.float64)
+    y = torch.randn(5, 3, generator=gen, dtype=torch.float64)
+    c = torch.randn(5, 3, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    true_fn = lambda a, b: (a * b).sin() * c  # noqa: E731
+    false_fn = lambda a, b: a.exp() + 0 * c.detach()  # noqa: E731
+    w = torch.randn(5, 3, generator=gen, dtype=torch.float64)
+
+    def grads(fn):
+        a, b = (t.clone().requires_grad_(True) for t in (x, y))
+        (fn(a, b) * w).sum().backward()
+        return [torch.zeros_like(x) if t.grad is None else t.grad
+                for t in (a, b)]
+
+    a, b = (t.clone().requires_grad_(True) for t in (x, y))
+    out = graphs.cond(pred, true_fn, false_fn, (a, b))
+    assert out.requires_grad
+    (out * w).sum().backward()
+    assert c.grad is None  # closed over: a constant
+    want = grads(true_fn if pred else false_fn)
+    assert torch.equal(out.detach(), (true_fn if pred else false_fn)(x, y)
+                       .detach())
+    assert torch.allclose(a.grad, want[0], rtol=1e-14, atol=0)
+    assert torch.allclose(b.grad, want[1], rtol=1e-14, atol=0)
+    with torch.no_grad():
+        assert not graphs.cond(pred, true_fn, false_fn, (a, b)).requires_grad
 
 
 def test_trace_chunks_flags_are_the_chunks_any_hit():
@@ -269,6 +341,52 @@ def test_unchunked_frame_reads_nothing_back(monkeypatch, kw):
     assert torch.equal(got, want)
 
 
+def _select_cond(pred, true_fn, false_fn, operands=()):
+    """graphs.cond as a select: both branches run and a 0-d tensor picks,
+    which reads nothing back (what the graph's IF nodes do on the card,
+    without the skipped work)."""
+    assert isinstance(pred, torch.Tensor) and pred.dim() == 0, pred
+    return torch.where(pred, true_fn(*operands), false_fn(*operands))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(width=48, height=32, ray_chunk=96, ortho_scale=0.05),
+    dict(width=48, height=48, ray_chunk=96, ortho_scale=0.05, bounces=0,
+         enable_shadows=True, light_pos=LIGHT, ray_tile=16),
+], ids=["culled", "culled_shadows_tiled"])
+def test_culled_frame_and_step_read_nothing_back_outside_cond(monkeypatch,
+                                                              kw):
+    """With graphs.cond a select on device predicates (graphs.capturing
+    made true, as in a capture), the culled chunk loop's frame and its
+    training step (loss and backward) make no host read and no tensor
+    literal outside the plain walks, and give the eager frame's bits and
+    loss: nothing but cond decides on the host."""
+    monkeypatch.setattr(t_traverse, "traverse",
+                        _unguarded(t_traverse.traverse))
+    monkeypatch.setattr(t_traverse, "traverse_any",
+                        _unguarded(t_traverse.traverse_any))
+    scene = t_random(300, device="cpu", seed=6, with_texture=True)
+    cam = T.Camera.default("cpu")
+    cfg = T.RenderConfig(**dict(dict(bounces=1), **kw))
+    assert tp.culls_chunks(cfg, cfg.width * cfg.height)
+    want = T.render_frame(scene, cam, cfg)
+    hits = _bg_mask(want.numpy()).reshape(-1, cfg.ray_chunk).any(-1)
+    assert hits.any() and not hits.all()
+    target = torch.zeros_like(want)
+    want_loss = inverse.loss_fn(inverse.init_params(scene), scene, cam,
+                                target, cfg)
+    monkeypatch.setattr(graphs, "cond", _select_cond)
+    monkeypatch.setattr(graphs, "capturing", lambda: True)
+    params = inverse.init_params(scene)
+    with _NoHostReads():
+        got = T.render_frame(scene, cam, cfg)
+        loss = inverse.loss_fn(params, scene, cam, target, cfg)
+        loss.backward()
+    assert torch.equal(got, want) and torch.equal(loss, want_loss)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in params)
+
+
 @pytest.mark.parametrize("stage", [
     "morton", "sort", "topology", "fit", "links", "build_total",
     "trace_shade", "depth_image"])
@@ -330,8 +448,17 @@ def _train_setup():
     return scene, cam, target, cfg
 
 
-def test_train_step_jit_on_cpu_is_train_step():
+@pytest.mark.parametrize("culled", [False, True])
+def test_train_step_jit_on_cpu_is_train_step(culled):
+    """train_step_jit on CPU tensors is train_step, also where the frame
+    culls ray chunks (some of its 8-ray chunks, half rows, miss)."""
     scene, cam, target, cfg = _train_setup()
+    if culled:
+        cfg = cfg.replace(ray_chunk=8)
+        assert tp.culls_chunks(cfg, 256)
+        hits = _bg_mask(T.render_frame(scene, cam, cfg).numpy())
+        chunk_hits = hits.reshape(-1, 8).any(-1)
+        assert chunk_hits.any() and not chunk_hits.all()
     runs = []
     for step in (inverse.train_step, inverse.train_step_jit):
         params = inverse.init_params(scene)

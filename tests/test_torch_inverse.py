@@ -202,6 +202,42 @@ def test_cull_empty_chunks_grads_identical():
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_culled_chunk_vjp_matches_jax_grad(dtype):
+    """The culled chunk loop's gradient (graphs.cond's backward: each hit
+    chunk's shading recomputed and its vector-Jacobian product, zeros for
+    the culled chunks) against the JAX package's jax.grad through
+    lax.map of lax.cond, on tests/test_ray_chunk.py::
+    test_cull_empty_chunks_identical's scene and config, at that test's
+    rtol 1e-6 and atol 1e-8."""
+    cfg_kw = dict(width=32, height=32, bounces=2, ortho_scale=0.05,
+                  enable_shadows=True, ray_chunk=128, dtype=dtype,
+                  texture_dtype="float32")
+    jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    target = np.zeros((32, 32, 4))
+    with jax.enable_x64(dtype == "float64"):
+        js, ts = _scenes(dtype, num_tris=60, seed=11, with_texture=True)
+        jcfg = J.RenderConfig(**cfg_kw)
+        g = jax.grad(lambda p: ji.loss_fn(p, js, J.Camera.default(jdt),
+                                          jnp.asarray(target, jdt), jcfg))(
+            ji.init_params(js))
+        want = [np.asarray(getattr(g, f)) for f in FIELDS]
+        params = ti.params_from_numpy(ji.init_params(js), device="cpu")
+    tcfg = T.RenderConfig(**cfg_kw)
+    assert tcfg.cull_empty_chunks
+    with torch.no_grad():
+        img = T.render_frame(ts, T.Camera.default("cpu", params.diffuse.dtype),
+                             tcfg)
+    bg = torch.tensor(tcfg.background, dtype=img.dtype)
+    chunk_hits = (img - bg).abs().ge(1e-6).any(-1).reshape(-1, 128).any(-1)
+    assert chunk_hits.any() and not chunk_hits.all()
+    _, got = _port_value_and_grad(params, ts, tcfg,
+                                  target.astype(np.dtype(dtype)))
+    assert max(np.abs(a).max() for a in want) > 0
+    for f, a, b in zip(FIELDS, got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8, err_msg=f)
+
+
 # tests/test_grad.py::test_train_step_lr_takes_effect's scene and frame
 STEP_SCENE = dict(num_tris=12, seed=3, extent=8.0, tri_size=2.0,
                   with_texture=True)

@@ -33,6 +33,8 @@ Tolerances:
     tests/test_sharding.py:74 holds JAX's own sharded step to its single
     one by (the FMAs move the vertex gradient by 1.5e-7, 7e-5 of its
     largest |grad|);
+  * the culled chunked step (``ray_chunk`` 8) against JAX's and the
+    unculled step: their tolerances above;
   * ``grad_chunks=4`` against 1: rtol 1e-4, atol 1e-7 (loss rtol 1e-6;
     tests/test_sharding.py); the host mesh against the flat one: loss
     rtol 1e-6, gradients rtol 1e-5, atol 1e-7; every rank returns the
@@ -110,9 +112,9 @@ def info(name, mesh):
     res[name + "_coord"] = np.array(mesh.get_coordinate())
     res[name + "_ray_axes"] = np.array(tm.ray_axes(mesh))
 
-def step(tag, mesh, **kw):
+def step(tag, mesh, c=None, **kw):
     loss, grads = tr.train_step_sharded(params, ti.apply_params, scene["s16"], cam,
-                                        target, cfg["c16"], mesh, **kw)
+                                        target, c or cfg["c16"], mesh, **kw)
     res[tag + "_loss"] = loss.numpy()
     for f, g in zip(ti.InverseParams._fields, grads):
         res[tag + "_" + f] = g.numpy()
@@ -135,6 +137,7 @@ if mode == "flat":
     res["rgs4k"] = tr.render_geo_sharded(scene["s4k"], cam, cfg["c4k"], m22).numpy()
     step("step", m22)
     step("chunks", m22, grad_chunks=4)
+    step("culled", m22, cfg["c16"].replace(ray_chunk=8))
     s16 = scene["s16"]
     rep = tm.replicated(s16.replace(verts=s16.verts + int(rank)), m22)
     res["replicated"] = rep.verts.numpy()
@@ -294,6 +297,31 @@ def test_train_step_sharded_matches_jax(flat):
                                    atol=1e-6, err_msg=f)
 
 
+def test_culled_train_step_sharded_matches_jax(flat):
+    """A step whose ray chunks cull (ray_chunk 8: half rows, about half of
+    them all-miss), each chunk's shading and gradient under graphs.cond,
+    against JAX's sharded step through lax.map of lax.cond and the same
+    unculled step on the port, at the unculled step's tolerances."""
+    cfg_kw = dict(CFG16, ray_chunk=8)
+    hits = _port_frame(SCENE16, CFG16)
+    bg = np.asarray(T.RenderConfig().background, np.float32)
+    chunk_hits = (~(np.abs(hits - bg) < 1e-6).all(-1)).reshape(-1, 8).any(-1)
+    assert chunk_hits.any() and not chunk_hits.all()
+    js16 = _jax_scene(SCENE16)
+    loss, grads = jr.train_step_sharded(
+        ji.init_params(js16), ji.apply_params, js16, J.Camera.default(),
+        jnp.zeros((32, 16, 4), jnp.float32), J.RenderConfig(**cfg_kw),
+        jm.make_mesh(WORLD, geo=2))
+    got_loss, got = _step(flat[0][0], "culled")
+    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-6)
+    for f, a in zip(FIELDS, got):
+        np.testing.assert_allclose(a, np.asarray(getattr(grads, f)), rtol=0,
+                                   atol=1e-6, err_msg=f)
+    l1, g1 = _step(flat[0][0])
+    np.testing.assert_allclose(got_loss, l1, rtol=1e-6)
+    _assert_grads(got, g1)
+
+
 def test_grad_chunks_match_one_chunk(flat):
     """grad_chunks=4: four builds, forwards and backwards, each chunk's
     all-reduce over 'geo' overlapping the next chunk."""
@@ -317,8 +345,9 @@ def test_ranks_return_the_same_bits(flat, host, which):
     ranks = flat[0] if which == "flat" else host
     tags = ["rs", "rgs", "step_loss"] + [f"step_{f}" for f in FIELDS]
     if which == "flat":
-        tags += ["chunks_loss", "rgs300", "rgs4k", "replicated"] + [
-            f"chunks_{f}" for f in FIELDS]
+        tags += ["chunks_loss", "culled_loss", "rgs300", "rgs4k",
+                 "replicated"] + [f"{t}_{f}" for t in ("chunks", "culled")
+                                  for f in FIELDS]
     for res in ranks[1:]:
         for tag in tags:
             np.testing.assert_array_equal(res[tag], ranks[0][tag], tag)
