@@ -46,20 +46,23 @@ Phases (one line of output each, or more):
      through K5/K7/K8, held to the plain path given its kernels' float32
      casts); every
      kernel's launch count over each frame (counts set to 0 just before
-     it, read just after; a culled frame's a walk a chunk and a body a
-     shaded chunk); frame ms and Mrays/s (median of 5 after one
+     it, read just after; a culled frame's a walk a chunk and a loop
+     body's trip a shaded chunk); frame ms and Mrays/s (median of 5 after one
      warm-up); each image but sparse's and large's against the
      all-plain-PyTorch render, and dense_onchip's against the same config
      through K1/K4/K2/lax, bit for bit
   5. training: models.inverse.loss_fn + backward() and train_step on
      sparse_train (bench.py:319-320's cfg_bwd), dense_train, onchip_train
-     and sparse_train_culled (the sparse frame's config: ray chunks culled
-     under graphs.cond, each shaded chunk's VJP under the same predicate);
-     launch counts (K3 twice a step, twice a shaded chunk), loss bit-equal
-     to the all-plain step (and onchip_train's to dense_train's,
-     sparse_train_culled's to the unculled chunked step's), gradients
-     within GRAD_TOL of it (and of the unculled step's), 3 Adam steps;
-     step ms (median of 5), Mrays/s and peak device memory
+     and sparse_train_culled (the sparse frame's config: the chunk loop
+     over the hit chunks, each shaded chunk's VJP in a second loop over
+     them, pipeline._ChunkMap); launch counts (K3 twice a step, twice a
+     shaded chunk; the unculled chunked step every chunk's), loss
+     bit-equal to the all-plain step (and onchip_train's to
+     dense_train's, sparse_train_culled's to the unculled chunked
+     step's), gradients within GRAD_TOL of it (and of the unculled
+     step's, whether bit for bit logged), 3 Adam steps; step ms (median
+     of 5), Mrays/s and peak device memory (also of the unculled chunked
+     step)
   6. cli: raytracebvh_tpu_torch.cli.render on an OBJ + MTL + BMP copy of
      the 3 072-triangle scene, plain and with --shadows --refract; its
      default backend runs K5 (and K6) there
@@ -80,8 +83,9 @@ Phases (one line of output each, or more):
      same stages eager (median of 10 rounds); a Chrome trace (--trace)
      that names K5, K2 and K8; the stages of the sparse frame (culled
      chunks): trace_shade one graph, a replay under sync-debug mode
-     "error" shade_rays' bits, its eager launches phase 4's sparse
-     walks and bodies (a replay's: phase 12)
+     "error" shade_rays' bits and its loop's trip counter the hit
+     chunks, its eager launches phase 4's sparse walks and bodies (a
+     replay's: phase 12)
   9. depth image and loader: ref.refimage.render_depth_bmp at 500x500 on
      the 3 072-triangle scene, a CUDA graph (K5 inside), its capture's
      replay and a second replay byte for byte its eager body's and the
@@ -92,11 +96,12 @@ Phases (one line of output each, or more):
      1 on one card) and make_mesh; render_sharded on the dense and sparse
      frames, render_geo_sharded on the large, dense_shadows and
      sparse_shadows frames, each one CUDA graph with its collectives
-     inside (a culled frame's chunks under IF nodes), its capture's
+     inside (a culled frame's chunk loop one WHILE node), its capture's
      replay, a second replay (under sync-debug mode "error") and its
      eager body each bit for bit phase 4's image (K1 2 + K2 4; K1 1 + K2
      2; K1 1 + K2 2 + K4 1; the sparse frames phase 4's in the eager body,
-     every chunk's body in the graph's nodes, a replay's in phase 12);
+     one loop body in the graph's nodes, its trip counter the hit chunks
+     after each replay, a replay's kernels in phase 12);
      train_step_sharded on sparse_train with grad_chunks 1 (loss phase 5's
      bits, gradients within GRAD_TOL, K1 2 + K2 4 + K3 2) and 4 (within
      the same gates of 1, four times the launches), and on
@@ -110,19 +115,23 @@ Phases (one line of output each, or more):
  11. graphed: render_frame_jit on the dense, sparse, large,
      dense_shadows, sparse_shadows, refract, dense_onchip and dense_bf16
      frames (one capture each, freed before the next; the sparse frames'
-     culled chunks under the graph's IF nodes), each bit for bit phase 4's
+     chunk loop one WHILE node of the graph), each bit for bit phase 4's
      eager image, and again at orbit(camera, 0.1, 0), bit for bit the
      eager frame there (inputs are copied in, not baked in), the replays
      under torch.cuda.set_sync_debug_mode("error"); the hand-written
      kernels counted from the graph's own kernel nodes
-     (CUDAGraph.debug_dump: phase 4's launches, for a culled frame every
-     chunk's body) and by torch.profiler over a replay (phase 4's
-     launches; a culled frame's in phase 12); train_step_jit on sparse_train, onchip_train and
+     (CUDAGraph.debug_dump: phase 4's launches, for a culled frame the
+     primary walks and one loop body, a WHILE node's, no other
+     conditional node, its trip counter the hit chunks after each
+     replay) and by torch.profiler over a replay (phase 4's
+     launches; a culled frame's in phase 12); train_step_jit on
+     sparse_train, onchip_train and
      sparse_train_culled, TRAIN_STEPS steps beside as many eager
      train_steps from the same start (bit for bit the eager steps with the
      same capturable Adam; with the default Adam the first loss
      bit-equal, the rest within GRAPHED_STEP1_TOL / GRAPHED_PARAM_TOL /
-     GRAPHED_LOSS_RTOL; K3 twice a replayed step, twice a shaded chunk);
+     GRAPHED_LOSS_RTOL; K3 twice a replayed step, twice a shaded chunk;
+     the culled step's two loops' trip counters the hit chunks);
      graphed and eager ms side by side (median of 5 after a warm-up),
      capture ms, graph-pool bytes and peak device memory
  12. culled replays: the seven culled graphs of phases 8, 10 and 11
@@ -132,13 +141,14 @@ Phases (one line of output each, or more):
      process of this script (--replay-kernels), all started together,
      and one replay of each traced by torch.profiler: its hand-written
      kernels the eager call's launches (the shaded chunks' bodies only;
-     K3 twice a shaded chunk in the steps)
+     K3 twice a shaded chunk in the steps), from the trace and its
+     loops' trip counters, the hit chunks
 
 Launch counts include phases 10's and 11's (not phase 12's, whose
-processes count their own).  The Python launch counters
-count a graph's capture (and its eager warm-up, which runs every culled
-chunk's body too), not its replays: the CLIs of phases 6-8 replay
-graphs, so their counts are the captures'.
+processes count their own).  The Python launch counters count a graph's
+capture (its eager warm-up, which shades the hit chunks, and one loop
+body), not its replays: the CLIs of phases 6-8 replay graphs, so their
+counts are the captures'.
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, printing no result, without a CUDA device.
@@ -290,7 +300,7 @@ def train_frames(frames):
     dense_train through the on-chip kernels K5, K7 and K8;
     sparse_train_culled is the step on the sparse frame itself
     (bench.py:76-77: ray_chunk=25600, culling on, default backends: K5 a
-    chunk, K2 and K3 on the shaded chunks, under graphs.cond)."""
+    chunk, K2 and K3 on the shaded chunks, in the chunk loop)."""
     small, cam, sparse = frames["sparse"]
     _, aimed, dense = frames["dense"]
     cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8",
@@ -687,13 +697,10 @@ def profiled(fn, reps: int = 10, expect=None):
 def replay_routes(call, want, tries: int = 5):
     """(K -> calls, kernels in all, their device ms) of one replay of a
     graph (``call``) by torch.profiler, a trace a replay, the hand-written
-    kernels held to ``want``; a trace that disagrees (one that dropped
-    records) is logged and taken again, ``tries`` at most.  A graph with
-    IF nodes is profiled in a process of its own (phase 12): in a process
-    that had traced such graphs before, the profiler named kernels in
-    their bodies after others (K6 as K5 or K2) and a profiled replay of
-    the culled step came out short before the card faulted (PERF.md, open
-    questions)."""
+    kernels held to ``want`` (or to any of a tuple of them); a trace that
+    disagrees (one that dropped records) is logged and taken again,
+    ``tries`` at most."""
+    wants = want if isinstance(want, tuple) else (want,)
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -708,7 +715,7 @@ def replay_routes(call, want, tries: int = 5):
                   and not e.key.startswith(("Memcpy", "Memset"))]
         seen = routes({e.key: e.count for e in events})
         total = sum(e.count for e in events)
-        if seen == want:
+        if seen in wants:
             return seen, total, sum(e.self_device_time_total
                                     for e in events) / 1e3
         log(f"    profiler trace {t}: {total} kernels, routes {seen}, not "
@@ -1053,7 +1060,7 @@ def phase_topology(frames):
             with mock.patch.object(bvh_ops, "karras_children_rmq", emit):
                 call = lambda: bvh_ops.build_topology(codes)  # noqa: E731
                 graph = graphs.Captured(call, (), stream, debug=True)
-                _, nodes, _ = dump_routes(graph.graph)
+                _, nodes, _, _ = dump_routes(graph.graph)
                 got = graph()
                 check(all(torch.equal(a, b) for a, b in zip(got, call())),
                       f"topology {name} {how}: a replay differs")
@@ -1171,7 +1178,7 @@ def phase_k3(train):
     dense_train's two calls (K2's backward) and onchip_train's (K7's), each
     2 073 600 ids into the 3 072-row leaf-attribute table, and the first
     of sparse_train_culled's (a shaded chunk's primary pass, 25 600 ids,
-    under graphs.cond's backward)."""
+    in the chunk loop's backward)."""
     from raytracebvh_tpu_torch.models.inverse import init_params
     from raytracebvh_tpu_torch.ops import gather_cuda
 
@@ -1230,8 +1237,8 @@ ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
                 "dense_bf16_onchip", "onchip_train", "sparse_train_culled")
 # the culled chunk loop's kernels: K5 a chunk (its primary walk,
 # pipeline.trace_chunks) and a body a shaded chunk; a step's body is its
-# forward and, under the same predicate, its recomputed forward and the
-# backward (graphs.cond)
+# forward's trip and its backward's (pipeline._ChunkMap: the chunk's
+# forward recomputed and its VJP)
 CHUNK_BODY = {"sparse": dict(K5=1, K2=4), "sparse_shadows": dict(K6=1, K2=2),
               "sparse_train_culled": dict(K5=2, K2=8, K3=2)}
 
@@ -1244,6 +1251,59 @@ def culled_routes(name, nchunks, shaded):
     for k, v in CHUNK_BODY[name].items():
         want[k] += shaded * v
     return want
+
+
+def loop_trips(name, want):
+    """The trip counters that a replay of the culled config ``name`` whose
+    call launches ``want`` leaves: its shaded chunks, once for each loop
+    (a step's forward and backward)."""
+    shaded = want["K2"] // CHUNK_BODY[name]["K2"]
+    return [shaded] * (2 if CHUNK_BODY[name].get("K3") else 1)
+
+
+def check_trips(what, captured, name, want):
+    """The trip counters of ``captured`` (a graphs.Captured) after a
+    replay, held to ``loop_trips``: a device witness of the trips that
+    ran, which needs no profiler.  Returns them."""
+    trips = [int(t) for t in captured.trips]
+    check(trips == loop_trips(name, want),
+          f"{what}: trip counters {trips}, not {loop_trips(name, want)}")
+    return trips
+
+
+def culled_replay_routes(call, captured, name, want, nchunks, tries=5):
+    """(K -> launches, trip counters, kernel records) of one replay of the
+    graph of the culled config ``name`` (``call``; ``captured`` its
+    graphs.Captured), whose eager call launches ``want``.  torch.profiler
+    records a WHILE node's body either at every trip or once a replay
+    however many trips run, the latter for a graph captured before the
+    process's first profiler trace (CUPTI; PERF.md §6): the
+    trace (``replay_routes``) is held to ``want`` or to the graph's kernel
+    nodes (a body once for each loop that ran), and the loops' trip
+    counters (``check_trips``, a device witness read after the traced
+    replay) give the trips; the launches, the trace's and, where it held
+    one trip a loop, the further trips' bodies, are held to ``want``."""
+    shaded = want["K2"] // CHUNK_BODY[name]["K2"]
+    once = culled_routes(name, nchunks, min(shaded, 1))
+    seen, total, _ = replay_routes(call, (want, once), tries)
+    trips = check_trips(name, captured, name, want)
+    ran = seen
+    if seen != want:
+        ran = {k: seen[k] + (shaded - 1) * CHUNK_BODY[name].get(k, 0)
+               for k in KERNELS}
+    check(ran == want, f"{name}: a replay ran {ran}, not {want}")
+    return ran, trips, total
+
+
+def capture_routes(name, want, in_graph, nchunks):
+    """K -> launches of a capture of the case ``name`` whose call launches
+    ``want``: its eager warm-up's (which shades at least one chunk of a
+    culled loop) and the graph's, ``in_graph``."""
+    warm = want
+    if name in CHUNK_BODY:
+        warm = culled_routes(name, nchunks, max(
+            want["K2"] // CHUNK_BODY[name]["K2"], 1))
+    return {k: warm[k] + in_graph[k] for k in KERNELS}
 
 
 def shaded_chunks(name, n, nchunks):
@@ -1419,10 +1479,15 @@ def phase_train(train, shaded):
         want = step_routes(name, shaded)
         check(n == want, f"{name}: launches {n}, not {want}")
         if name in CHUNK_BODY:
-            # the same step with every chunk shaded and differentiated
-            loss_u, grads_u = value_and_grad(
-                init_params(scene), scene, cam, target,
-                cfg.replace(cull_empty_chunks=False))
+            # the same step with every chunk shaded and differentiated:
+            # both loops visit every chunk
+            unculled = cfg.replace(cull_empty_chunks=False)
+            nchunks = W * H // cfg.ray_chunk
+            (loss_u, grads_u), n_u = counted(lambda: value_and_grad(
+                init_params(scene), scene, cam, target, unculled))
+            want_u = culled_routes(name, nchunks, nchunks)
+            check(n_u == want_u, f"{name} unculled: launches {n_u}, not "
+                  f"{want_u}")
             check(torch.equal(loss, loss_u),
                   f"{name}: loss {float(loss)!r}, unculled "
                   f"{float(loss_u)!r}")
@@ -1430,9 +1495,20 @@ def phase_train(train, shaded):
                 rel = float((g - gu).abs().max()) / max(
                     float(gu.abs().max()), 1e-30)
                 log(f"  {name} d{field} against the unculled chunked step: "
-                    f"{rel:.3g} of its largest |grad|")
+                    f"{rel:.3g} of its largest |grad|, "
+                    f"{'bit for bit' if torch.equal(g, gu) else 'not bit for bit'}")
                 check(rel <= GRAD_TOL, f"{name}: d{field} {rel} off the "
                       "unculled step's")
+            ms_u = wall_ms(lambda: value_and_grad(init_params(scene), scene,
+                                                  cam, target, unculled))
+            torch.cuda.reset_peak_memory_stats()
+            value_and_grad(init_params(scene), scene, cam, target, unculled)
+            torch.cuda.synchronize()
+            log(f"  {name} unculled chunked step: launches {n_u}; loss_fn + "
+                f"backward {ms_u:.2f} ms/step, peak device memory "
+                f"{torch.cuda.max_memory_allocated()} bytes")
+            for k in totals:
+                totals[k] += n_u[k]
         for k in totals:
             totals[k] += n[k]
         steps[name] = (loss, grads)
@@ -1649,6 +1725,19 @@ TRACE_KERNELS = ("traverse_shared_kernel", "gather_f32_kernel",
                  "sort_tile_kernel")
 
 
+def trace_path(lines):
+    """The Chrome trace that cli.profile's printed ``lines`` name."""
+    return lines[-1].split("trace written to ", 1)[-1]
+
+
+def trace_kernels(lines):
+    """name -> whether the trace that cli.profile wrote names it, for each
+    of TRACE_KERNELS."""
+    with open(trace_path(lines)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    return {k: any(k in x for x in names) for k in TRACE_KERNELS}
+
+
 def phase_profile_cli(objs, device):
     """cli.profile at 1920x1080 on the small OBJ and the large one (read
     by the native loader), with the lax sort and with K8; the small one
@@ -1669,9 +1758,17 @@ def phase_profile_cli(objs, device):
                 traced = name == "small" and sort == "bitonic"
                 if traced:
                     argv += ["--trace", os.path.join(tmp, "trace")]
-                with Recorder(native, "load_obj_native") as loader:
-                    rc, lines, n, dt = run_cli(cli, argv)
                 what = f"profile cli {name} --sort {sort}"
+                # a trace now and then drops kernel records (profile_counts):
+                # a traced run whose trace lacks a kernel runs again, three
+                # runs at most
+                for attempt in range(3 if traced else 1):
+                    with Recorder(native, "load_obj_native") as loader:
+                        rc, lines, n, dt = run_cli(cli, argv)
+                    if not traced or rc or all(trace_kernels(lines).values()):
+                        break
+                    log(f"  {what}: run {attempt + 1}'s trace lacks kernels: "
+                        f"{trace_kernels(lines)}")
                 for line in lines:
                     log(f"  {what}: {line}")
                 log(f"  {what}: exit {rc} in {dt:.1f} s, launches {n}")
@@ -1689,14 +1786,9 @@ def phase_profile_cli(objs, device):
                 check((n["K8"] > 0) == (sort == "bitonic"),
                       f"{what}: {n['K8']} K8 launches")
                 if traced:
-                    path = lines[-1].split("trace written to ", 1)[-1]
-                    with open(path) as f:
-                        names = {e.get("name", "") for e in
-                                 json.load(f)["traceEvents"]}
-                    found = {k: any(k in x for x in names)
-                             for k in TRACE_KERNELS}
-                    log(f"  {what}: trace {os.path.getsize(path)} bytes, "
-                        f"{len(names)} names, kernels {found}")
+                    found = trace_kernels(lines)
+                    log(f"  {what}: trace {os.path.getsize(trace_path(lines))}"
+                        f" bytes, kernels {found}")
                     check(all(found.values()),
                           f"{what}: the trace lacks kernels: {found}")
                 for k in totals:
@@ -1736,10 +1828,11 @@ def eager_stage_times(obj, device):
 def phase_culled_stage(frames):
     """utils.profiling's graphed stages on the sparse frame (culled ray
     chunks): trace_shade is one CUDA graph (a graphs.Captured), whose
-    capture launched every chunk's body and whose replay under sync-debug
-    mode "error" is shade_rays' bits; its replay ms (CUDA events) beside
-    the eager stage's; its eager launches, which phase 12 holds a
-    profiled replay to.  Returns the launch counts of its captures."""
+    capture launched its warm-up's and one loop body, and whose replay
+    under sync-debug mode "error" is shade_rays' bits with its loop's
+    trip counter the hit chunks; its replay ms (CUDA events) beside the
+    eager stage's; its eager launches, which phase 12 holds a profiled
+    replay to.  Returns the launch counts of its captures."""
     from raytracebvh_tpu_torch import graphs, pipeline
     from raytracebvh_tpu_torch.utils import profiling
 
@@ -1752,13 +1845,17 @@ def phase_culled_stage(frames):
         n = read_counts()
         eager, (s, bvh, rays) = profiling._eager_stages(scene, cam, cfg)
         ref = pipeline.shade_rays(s, bvh, rays, cfg)
+        _, ne = counted(eager["trace_shade"])
     torch.cuda.synchronize()
-    # trace_shade's and frame_total's warm-ups and captures: every chunk's
-    # body, four times
-    every = culled_routes("sparse", nchunks, nchunks)
-    check(n == {k: 4 * v for k, v in every.items()},
-          f"trace_shade and frame_total: captures' launches {n}, not four "
-          f"times {every}")
+    shaded = ne["K2"] // CHUNK_BODY["sparse"]["K2"]
+    check(ne == culled_routes("sparse", nchunks, shaded),
+          f"trace_shade: eager launches {ne}")
+    # trace_shade's and frame_total's warm-ups and captures
+    each = capture_routes("sparse", ne, culled_routes("sparse", nchunks, 1),
+                          nchunks)
+    check(n == {k: 2 * v for k, v in each.items()},
+          f"trace_shade and frame_total: captures' launches {n}, not twice "
+          f"{each}")
     trace_shade = stages["trace_shade"]
     check(isinstance(trace_shade, graphs.Captured),
           f"trace_shade is a {type(trace_shade).__name__}, not one graph")
@@ -1766,17 +1863,14 @@ def phase_culled_stage(frames):
         got = trace_shade().clone()
     torch.cuda.synchronize()
     check(torch.equal(got, ref), "trace_shade: a replay off shade_rays' bits")
-    with torch.no_grad():
-        _, ne = counted(eager["trace_shade"])
-    check(ne["K5"] == nchunks + ne["K2"] // CHUNK_BODY["sparse"]["K2"],
-          f"trace_shade: eager launches {ne}")
+    trips = check_trips("trace_shade", trace_shade, "sparse", ne)
     CULLED_WANT["trace_shade sparse"] = ne
     times = profiling._median_times(
         {"graphed": trace_shade, "eager": eager["trace_shade"]}, 10,
         scene.device)
     log(f"  trace_shade on the sparse frame (culled chunks): one graph "
-        f"(its and frame_total's captures launched every chunk's body: "
-        f"{n}), a replay under sync-debug mode 'error' shade_rays' bits; "
+        f"(its and frame_total's captures launched {n}), a replay under "
+        f"sync-debug mode 'error' shade_rays' bits, trip counter {trips}; "
         f"{times['graphed'] * 1e3:.3f} ms a replay, "
         f"eager {times['eager'] * 1e3:.3f} ms (CUDA events, median of 10 "
         f"rounds); capture {trace_shade.capture_ms:.1f} ms, pool "
@@ -1886,18 +1980,20 @@ def graph_routes(entry, case, name, want, call, nodes_want, nrays):
     """The hand-written kernels in the graph of ``case`` on the config
     ``name`` over ``nrays`` rays: from its own kernel nodes
     (CUDAGraph.debug_dump), held to ``nodes_want`` (a culled chunk loop's
-    graph holds every chunk's body: ``check_culled_nodes``), and by
+    graph holds one loop body: ``check_culled_nodes``), and by
     torch.profiler over a replay (``call``), held to ``want``
-    (``replay_routes``; a culled case's in phase 12, ``CULLED_WANT``);
-    returns the replay's kernels in all (None for a culled case) and the
-    graph's kernel nodes."""
-    nodes, nk, per = dump_routes(entry.graph)
+    (``replay_routes``; a culled case's in phase 12, ``CULLED_WANT``, and
+    here its trip counters after the last replay, ``check_trips``);
+    returns the replay's kernels in all (None for a culled case), the
+    graph's kernel nodes and its trip counters."""
+    nodes, nk, per, conds = dump_routes(entry.graph)
     check(nodes == nodes_want, f"graph nodes {nodes}, not {nodes_want}")
     if name not in CHUNK_BODY:
-        return replay_routes(call, want)[1], nk
-    check_culled_nodes(case, name, per, nrays // SPARSE_CHUNK)
+        check(not conds, f"{case}: conditional nodes {conds}")
+        return replay_routes(call, want)[1], nk, []
+    check_culled_nodes(case, name, per, conds, nrays // SPARSE_CHUNK)
     CULLED_WANT[case] = want
-    return None, nk
+    return None, nk, check_trips(case, entry, name, want)
 
 
 def case_routes(name, n_eager, nrays, builds=1):
@@ -1905,7 +2001,7 @@ def case_routes(name, n_eager, nrays, builds=1):
     holds): ``SHARDED_LAUNCHES`` or ``step_routes`` ``builds`` times, or
     for a culled chunk loop over ``nrays`` rays its eager body's, held to
     ``culled_routes`` (a rank's shaded chunks are its own), and in the
-    graph every chunk's body."""
+    graph one chunk's loop body."""
     if name not in CHUNK_BODY:
         want = dict.fromkeys(KERNELS, 0)
         for k, v in (SHARDED_LAUNCHES.get(name) or step_routes(name)).items():
@@ -1915,7 +2011,7 @@ def case_routes(name, n_eager, nrays, builds=1):
     check(n_eager == culled_routes(
         name, nchunks, n_eager["K2"] // CHUNK_BODY[name]["K2"]),
         f"{name}: eager launches {n_eager}")
-    return n_eager, culled_routes(name, nchunks, nchunks)
+    return n_eager, culled_routes(name, nchunks, 1)
 
 
 def sharded_cases(frames, train, mesh, images, steps):
@@ -1927,12 +2023,13 @@ def sharded_cases(frames, train, mesh, images, steps):
     within GRAD_TOL of loss_fn's; the four-chunk step within the same
     gates of the one-chunk step; the replayed steps and the eager bodies'
     within the same gates.  The launch counts: the eager body's the
-    case's, the capture's (warm-up and capture) twice what its graph
-    holds, a replay's none; the kernels in the graph (its nodes) and in a
-    replay (torch.profiler) the case's (``case_routes``; a culled case's
-    replay runs only its shaded chunks' bodies).  Returns the launch
-    counts summed over the cases and a row of capture ms, pool bytes and
-    replay kernels a case."""
+    case's, the capture's its warm-up's and what its graph holds
+    (``capture_routes``), a replay's none; the kernels in the graph (its
+    nodes) and in a replay (torch.profiler) the case's (``case_routes``;
+    a culled case's graph holds one loop body, and its replay runs it
+    once a shaded chunk: its trip counters).  Returns the launch counts
+    summed over the cases and a row of capture ms, pool bytes, replay
+    kernels and trip counters a case."""
     from raytracebvh_tpu_torch.models.inverse import (InverseParams,
                                                       apply_params,
                                                       init_params)
@@ -1954,10 +2051,11 @@ def sharded_cases(frames, train, mesh, images, steps):
         (entry,) = cache.entries.values()
         nrays = prender._ray_rows(cfg, mesh) * W
         want, in_graph = case_routes(name, n_eager, nrays, builds)
-        twice = {k: 2 * v for k, v in in_graph.items()}
-        check(n_eager == want and n == twice and not any(n_replay.values()),
+        n_capture = capture_routes(name, want, in_graph, nrays // SPARSE_CHUNK)
+        check(n_eager == want and n == n_capture
+              and not any(n_replay.values()),
               f"{what}: launches eager {n_eager}, capture {n}, replay "
-              f"{n_replay}; the case's {want}, its graph's {in_graph}")
+              f"{n_replay}; the case's {want}, its capture's {n_capture}")
         return entry, want, in_graph, nrays
 
     cache.debug = True
@@ -1982,21 +2080,22 @@ def sharded_cases(frames, train, mesh, images, steps):
 
             with no_host_reads(f"{fn_name} {name}"):
                 replay()
-            kernels, nodes = graph_routes(entry, f"{fn_name} {name}", name,
-                                          want, replay, in_graph, nrays)
+            kernels, nodes, trips = graph_routes(
+                entry, f"{fn_name} {name}", name, want, replay, in_graph,
+                nrays)
             log(f"  {fn_name} {name} (world {world}): pixels off "
                 f"render_frame's {ndiff} (capture's replay, a replay, eager "
                 f"body); launches eager {ne}, capture {n}; one graph, "
                 f"{nodes} kernel nodes ({in_graph}), a replay under "
-                f"sync-debug mode 'error' {kernels} kernels ({want}), "
-                f"capture {entry.capture_ms:.1f} ms, pool "
+                f"sync-debug mode 'error' {kernels} kernels ({want}), trip "
+                f"counters {trips}, capture {entry.capture_ms:.1f} ms, pool "
                 f"{entry.pool_bytes} bytes")
             check(ndiff == [0, 0, 0], f"{fn_name} {name}: pixels off {ndiff}")
             add(n)
             add(ne)
             rows[f"{fn_name} {name}"] = dict(
                 capture_ms=entry.capture_ms, pool_bytes=entry.pool_bytes,
-                kernels=kernels)
+                kernels=kernels, kernel_nodes=nodes, trips=trips)
 
         ref = {}
         for name, chunks in SHARDED_STEPS:
@@ -2039,21 +2138,25 @@ def sharded_cases(frames, train, mesh, images, steps):
                 torch.equal(a, b) for a, b in zip(grads2, grads_e))
             with no_host_reads(what):
                 step()
-            kernels, nodes = graph_routes(entry, f"train_step_sharded {name}",
-                                          name, want, step, in_graph, nrays)
+            kernels, nodes, trips = graph_routes(
+                entry, f"train_step_sharded {name}", name, want, step,
+                in_graph, nrays)
             check(torch.equal(step()[0], loss2),
                   f"{what}: a later replay's loss off the first replays'")
+            if name in CHUNK_BODY:
+                trips = check_trips(what, entry, name, want)
             log(f"    replay vs eager body: "
                 f"{'bit for bit' if same else 'DIFFERENT bits'}; one graph, "
                 f"{nodes} kernel nodes ({in_graph}), a replay {kernels} "
-                f"kernels ({want}), capture {entry.capture_ms:.1f} ms, pool "
-                f"{entry.pool_bytes} bytes")
+                f"kernels ({want}), trip counters {trips}, capture "
+                f"{entry.capture_ms:.1f} ms, pool {entry.pool_bytes} bytes")
             if chunks == 1:
                 ref[name] = (loss_e, grads_e)
             add(n)
             add(ne)
             rows[what] = dict(capture_ms=entry.capture_ms,
                               pool_bytes=entry.pool_bytes, kernels=kernels,
+                              kernel_nodes=nodes, trips=trips,
                               replay_equals_eager=same)
     finally:
         cache.debug = False
@@ -2218,12 +2321,12 @@ def routes(counts):
 
 
 def dump_routes(graph):
-    """(K -> calls, kernel nodes in all, graph -> K -> calls) of a kept CUDA
-    graph, from its own kernel nodes: ``CUDAGraph.debug_dump``'s DOT gives
+    """(K -> calls, kernel nodes in all, graph -> K -> calls, the types of
+    its conditional nodes) of a kept CUDA graph, from its own nodes: ``CUDAGraph.debug_dump``'s DOT gives
     each node as a record ``"graph_G_node_N"[... label="{KERNEL | {ID | N
     | <mangled name><<<grid, block, smem>>>} ...}"];`` over several lines,
-    an IF node's body as a graph G of its own.  A witness of the graph's
-    kernels that needs no profiler."""
+    a conditional node's body as a graph G of its own.  A witness of the
+    graph's kernels that needs no profiler."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "graph.dot")
         graph.debug_dump(path)
@@ -2239,15 +2342,17 @@ def dump_routes(graph):
         k = kernel_of(n)
         if k is not None:
             counts[k] += 1
-    return routes({n: 1 for n in kernels}), len(kernels), per
+    conds = re.findall(r"Conditional Type\|\s*(\w+)", dot)
+    return routes({n: 1 for n in kernels}), len(kernels), per, conds
 
 
-def check_culled_nodes(what, name, per_graph, nchunks):
+def check_culled_nodes(what, name, per_graph, conds, nchunks):
     """The graph of the culled config ``name`` from its own nodes
     (``dump_routes``): the captured graph holds the primary walks alone,
-    its IF bodies every chunk's body (a step's: the forward and the VJP in
-    two bodies).  What a replay runs of them, torch.profiler counts in
-    phase 12."""
+    its loop bodies (WHILE nodes' body graphs: a frame's one, a step's
+    two, the forward's and the VJP's) one chunk's shading, and its
+    conditional nodes (``conds``) are those WHILE nodes alone.  What a
+    replay runs of them, torch.profiler counts in phase 12."""
     top = min(per_graph)
     bodies = dict.fromkeys(KERNELS, 0)
     for g, r in per_graph.items():
@@ -2255,11 +2360,13 @@ def check_culled_nodes(what, name, per_graph, nchunks):
             for k in KERNELS:
                 bodies[k] += r[k]
     front = culled_routes(name, nchunks, 0)
-    every = {k: v - front[k] for k, v in
-             culled_routes(name, nchunks, nchunks).items()}
-    check(per_graph[top] == front and bodies == every,
-          f"{what}: graph {per_graph[top]} and IF bodies {bodies}, not "
-          f"{front} and {every}")
+    one = {k: v - front[k] for k, v in culled_routes(name, nchunks, 1).items()}
+    loops = len(loop_trips(name, culled_routes(name, nchunks, 1)))
+    check(per_graph[top] == front and bodies == one
+          and len(per_graph) == 1 + loops and conds == ["WHILE"] * loops,
+          f"{what}: graph {per_graph[top]} and {len(per_graph) - 1} loop "
+          f"bodies {bodies} ({conds} nodes), not {front} and {loops} WHILE "
+          f"bodies holding {one}")
 
 
 def step_routes(name, shaded=None):
@@ -2317,24 +2424,29 @@ def graphed_frame(name, frame_args, image, want):
           f"graphed {name}: a replay off phase 4's eager image")
 
     # the kernels in the graph, from its own nodes (a culled frame's
-    # graph holds every chunk's body), and from torch.profiler over a
-    # replay (the shaded chunks' bodies: phase 4's launches)
-    in_graph = want
+    # graph holds one loop body), and from torch.profiler over a replay
+    # (phase 4's launches; a culled frame's in phase 12, and here its
+    # loop's trip counter, the shaded chunks)
+    in_graph, trips = want, []
     if cfg.ray_chunk:
         nchunks = W * H // cfg.ray_chunk
-        in_graph = culled_routes(name, nchunks, nchunks)
+        in_graph = culled_routes(name, nchunks, 1)
+        trips = check_trips(f"graphed {name}", frame, name, want)
+        check(n == capture_routes(name, want, in_graph, nchunks),
+              f"graphed {name}: warm-up and capture launches {n}")
 
     def call():
         with torch.inference_mode():
             render_frame_jit(scene, cam, cfg)
 
-    nodes, nk, per = dump_routes(frame.graph)
+    nodes, nk, per, conds = dump_routes(frame.graph)
     check(nodes == in_graph,
           f"graphed {name}: graph nodes {nodes}, not {in_graph}")
     if cfg.ray_chunk:
-        check_culled_nodes(f"graphed {name}", name, per, nchunks)
+        check_culled_nodes(f"graphed {name}", name, per, conds, nchunks)
         CULLED_WANT[f"render_frame_jit {name}"] = want
         seen, kernels, device_ms = "in phase 12", None, cuda_ms(call)
+        check_trips(f"graphed {name}", frame, name, want)
     else:
         seen, kernels, device_ms = replay_routes(call, want)
 
@@ -2343,12 +2455,14 @@ def graphed_frame(name, frame_args, image, want):
         graphed_ms = wall_ms(lambda: render_frame_jit(scene, cam, cfg))
     row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
                capture_ms=frame.capture_ms, pool_bytes=frame.pool_bytes,
-               kernels=kernels, device_ms=device_ms, kernel_nodes=nk)
+               kernels=kernels, device_ms=device_ms, kernel_nodes=nk,
+               trips=trips)
     log(f"  graphed {name}: one graph, bit for bit phase 4's image and the "
         f"eager frame at an orbited camera; {nk} kernel nodes, routes "
         f"{nodes}; a replay under sync-debug mode 'error' raised nothing, "
-        f"{kernels} kernels, routes {seen} (phase 4's), {device_ms:.3f} ms "
-        f"of device time; eager {eager_ms:.2f} ms, graphed "
+        f"{kernels} kernels, routes {seen} (phase 4's), trip counters "
+        f"{trips}, {device_ms:.3f} ms (CUDA events for a culled frame, else "
+        f"device time); eager {eager_ms:.2f} ms, graphed "
         f"{graphed_ms:.2f} ms; capture {frame.capture_ms:.1f} ms, graph "
         f"pool {frame.pool_bytes} bytes")
     cache.clear()
@@ -2363,9 +2477,10 @@ def graphed_step(name, step_args, shaded):
     the losses within GRAPHED_LOSS_RTOL, the parameters after one step
     within GRAPHED_STEP1_TOL (the update's ulps) and after TRAIN_STEPS
     steps within GRAPHED_PARAM_TOL; the step's kernels in a replay (K3
-    twice; the culled step's, ``shaded`` chunks' bodies, and every
-    chunk's in the graph), a replay under sync-debug mode "error"; peak
-    device memory of a graphed and an eager step.  Returns its row and
+    twice; the culled step's, ``shaded`` chunks' trips of its two loops,
+    their trip counters, and one body each in the graph), a replay under
+    sync-debug mode "error"; peak device memory of a graphed and an eager
+    step.  Returns its row and
     the launch counts of its warm-up and capture."""
     from raytracebvh_tpu_torch import graphs
     from raytracebvh_tpu_torch.models import inverse
@@ -2426,18 +2541,18 @@ def graphed_step(name, step_args, shaded):
           f"graphed {name}: losses off the default Adam's eager losses")
     (entry,) = inverse._STEP_GRAPHS[og].entries.values()
     want = step_routes(name, shaded)
-    in_graph = want
+    in_graph, nchunks, trips = want, W * H // max(cfg.ray_chunk, 1), []
     if name in CHUNK_BODY:
-        nchunks = W * H // cfg.ray_chunk
-        in_graph = culled_routes(name, nchunks, nchunks)
-    check(n == {k: 2 * v for k, v in in_graph.items()},
-          f"graphed {name}: warm-up and capture launches {n}, not twice "
-          f"{in_graph}")
-    nodes, nk, per = dump_routes(entry.captured.graph)
+        in_graph = culled_routes(name, nchunks, 1)
+        trips = check_trips(f"graphed {name}", entry.captured, name, want)
+    n_capture = capture_routes(name, want, in_graph, nchunks)
+    check(n == n_capture, f"graphed {name}: warm-up and capture launches "
+          f"{n}, not {n_capture}")
+    nodes, nk, per, conds = dump_routes(entry.captured.graph)
     check(nodes == in_graph,
           f"graphed {name}: graph nodes {nodes}, not {in_graph}")
     if name in CHUNK_BODY:
-        check_culled_nodes(f"graphed {name}", name, per, nchunks)
+        check_culled_nodes(f"graphed {name}", name, per, conds, nchunks)
         CULLED_WANT[f"train_step_jit {name}"] = want
         seen = "in phase 12"
 
@@ -2448,6 +2563,7 @@ def graphed_step(name, step_args, shaded):
         call()
     if name in CHUNK_BODY:
         kernels, device_ms = None, cuda_ms(call)
+        check_trips(f"graphed {name}", entry.captured, name, want)
     else:
         seen, kernels, device_ms = replay_routes(call, want)
     eager_ms = wall_ms(lambda: inverse.train_step(pe, oe, scene, cam, target,
@@ -2465,14 +2581,15 @@ def graphed_step(name, step_args, shaded):
     row = dict(eager_ms=eager_ms, graphed_ms=graphed_ms,
                capture_ms=cap.capture_ms, pool_bytes=cap.pool_bytes,
                kernels=kernels, device_ms=device_ms, param_off=off,
-               peak_bytes=peak)
+               peak_bytes=peak, kernel_nodes=nk, trips=trips)
     log(f"  graphed {name}: one graph; routes {seen} a replay under "
         f"sync-debug mode 'error' (K3 {want['K3']}); eager train_step "
         f"{eager_ms:.2f} ms, graphed {graphed_ms:.2f} ms; capture "
         f"{cap.capture_ms:.1f} ms, graph pool {cap.pool_bytes} bytes; peak "
         f"device memory eager {peak['eager']} bytes, graphed "
-        f"{peak['graphed']}; a replay {kernels} kernels, {device_ms:.3f} ms "
-        f"of device time")
+        f"{peak['graphed']}; {nk} kernel nodes, trip counters {trips}; a "
+        f"replay {kernels} kernels, {device_ms:.3f} ms (CUDA events for the "
+        f"culled step, else device time)")
     return row, n
 
 
@@ -2507,54 +2624,57 @@ def phase_graphed(frames, train, images, frame_counts, shaded):
 CULLED_WANT: dict = {}
 
 
-def culled_call(case: str, dev):
-    """A call that replays the graph of the culled ``case`` of
-    ``CULLED_WANT``, captured here at its first call."""
-    from raytracebvh_tpu_torch import render_frame_jit
+def culled_call(case: str, frames, train, mesh):
+    """(a call that replays the graph of the culled ``case`` of
+    ``CULLED_WANT``, captured here at its first call, the graph's
+    graphs.Captured)."""
+    from raytracebvh_tpu_torch import pipeline, render_frame_jit
     from raytracebvh_tpu_torch.models import inverse
     from raytracebvh_tpu_torch.parallel import mesh as pmesh
     from raytracebvh_tpu_torch.parallel import render as prender
     from raytracebvh_tpu_torch.utils import profiling
 
     fn_name, name = case.split()
-    frames = frames_on(dev)
-    scene, cam, cfg = {**frames, **train_frames(frames)}[name]
-    target = torch.zeros((H, W, 4), device=dev)
+    scene, cam, cfg = {**frames, **train}[name]
+    target = torch.zeros((H, W, 4), device=scene.device)
+    if fn_name == "trace_shade":
+        with torch.no_grad():
+            call = profiling._graphed_stages(scene, cam, cfg)[fn_name]
+        return call, call
+    caches = lambda: pmesh.mesh_graphs(mesh)  # noqa: E731
     if fn_name == "render_frame_jit":
+        caches = lambda: pipeline.FRAME_GRAPHS  # noqa: E731
+
         def call():
             with torch.inference_mode():
                 render_frame_jit(scene, cam, cfg)
     elif fn_name == "train_step_jit":
         params = inverse.init_params(scene)
         opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+        caches = lambda: inverse._STEP_GRAPHS[opt]  # noqa: E731
 
         def call():
             inverse.train_step_jit(params, opt, scene, cam, target, cfg,
                                    lr=1e-2)
-    elif fn_name == "trace_shade":
-        with torch.no_grad():
-            call = profiling._graphed_stages(scene, cam, cfg)[fn_name]
+    elif fn_name == "train_step_sharded":
+        def call():
+            prender.train_step_sharded(inverse.init_params(scene),
+                                       inverse.apply_params, scene, cam,
+                                       target, cfg, mesh)
     else:
-        pmesh.initialize_distributed()
-        mesh = pmesh.make_mesh()
-        fn = getattr(prender, fn_name)
-        if fn_name == "train_step_sharded":
-            def call():
-                fn(inverse.init_params(scene), inverse.apply_params, scene,
-                   cam, target, cfg, mesh)
-        else:
-            def call():
-                with torch.no_grad():
-                    fn(scene, cam, cfg, mesh)
+        def call():
+            with torch.no_grad():
+                getattr(prender, fn_name)(scene, cam, cfg, mesh)
     call()
-    return call
+    (entry,) = caches().entries.values()
+    return call, getattr(entry, "captured", entry)
 
 
 def replay_kernels(case: str, want: dict) -> int:
     """One case of phase 12 in a process of its own: the culled graph of
     ``case`` captured, then torch.profiler over one replay, its
-    hand-written kernels held to ``want`` (``replay_routes``); the last
-    line is {"routes", "kernels", "device_ms"}."""
+    hand-written kernels held to ``want`` (``culled_replay_routes``); the
+    last line is {"routes", "trips", "kernels", "ms"}."""
     import torch.distributed as dist
 
     from raytracebvh_tpu_torch import _kernels
@@ -2563,15 +2683,23 @@ def replay_kernels(case: str, want: dict) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _kernels.load()
+    dev = torch.device("cuda", 0)
     try:
-        seen, kernels, ms = replay_routes(
-            culled_call(case, torch.device("cuda", 0)), want)
+        frames = frames_on(dev)
+        mesh = None
+        if "sharded" in case:
+            pmesh.initialize_distributed()
+            mesh = pmesh.make_mesh()
+        call, captured = culled_call(case, frames, train_frames(frames), mesh)
+        ran, trips, records = culled_replay_routes(
+            call, captured, case.split()[1], want, W * H // SPARSE_CHUNK)
+        ms = cuda_ms(call)
     except SmokeFailure as e:
         return fail(str(e))
     finally:
         if dist.is_initialized():
             pmesh.destroy_distributed()
-    print(json.dumps(dict(routes=seen, kernels=kernels, device_ms=ms)))
+    print(json.dumps(dict(routes=ran, trips=trips, kernels=records, ms=ms)))
     return 0
 
 
@@ -2580,7 +2708,10 @@ def phase_culled_replays(wants: dict) -> None:
     phases 8, 10 and 11, each graph captured and traced in a fresh process
     of this script (--replay-kernels), all started together: a replay's
     hand-written kernels must be the launches of the eager call that its
-    phase held it to (the shaded chunks' bodies, K3 in the steps')."""
+    phase held it to (the shaded chunks' bodies, K3 in the steps'), from
+    the trace and its loops' trip counters (``culled_replay_routes``).  A
+    fresh process, since in a process that has taken many traces the
+    profiler misnames kernels in a loop's body (PERF.md §7)."""
     procs = {case: subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--replay-kernels", case,
          json.dumps(want)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2601,8 +2732,9 @@ def phase_culled_replays(wants: dict) -> None:
         check(got["routes"] == wants[case],
               f"{case}: a replay ran {got['routes']}, not {wants[case]}")
         log(f"  {case}: one replay under torch.profiler in a process of its "
-            f"own ran {got['kernels']} kernels, routes {got['routes']} (the "
-            f"eager call's), {got['device_ms']:.3f} ms of device time")
+            f"own: {got['kernels']} kernel records, trip counters "
+            f"{got['trips']}, so routes {got['routes']} (the eager call's); "
+            f"{got['ms']:.3f} ms a replay (CUDA events)")
     check(len(wants) == 7, f"phase 12 had {len(wants)} culled graphs, not 7")
 
 

@@ -18,15 +18,18 @@ as a CUDA graph (``render_frame_jit``) and for the graphed training step
 (``train_step_jit``: loss, backward and Adam, where the eager row has no
 Adam), with the graph's capture ms and pool bytes and the peak device
 memory of an eager and a graphed call.  The profiler adds host time, so
-the idle share is an upper bound of the unprofiled frame's.  A culled
-chunked frame (sparse, sparse_shadows: 81 ray chunks of 25 600) is
-first replayed without the profiler at three shares of its chunks hit
-(``culled_replays``).  Give a culled config a process of its own
-(``--configs sparse``): a graph with IF nodes captured after a
-torch.profiler trace in the same process can replay slower and profile
-short (ROADMAP.md, "Faults found in the port").  Run from another
-checkout's root, with this script and chip_smoke.py copied there, to
-measure that commit.  Exits non-zero without a CUDA device.
+the idle share is an upper bound of the unprofiled frame's; it records a
+loop body's kernels once a replay, however many trips ran (CUPTI), so a
+chunked config's kernel counts and busy time are a body's, not the
+frame's.  A culled chunked frame (sparse, sparse_shadows: 81 ray chunks
+of 25 600) is first replayed without the profiler at three shares of its
+chunks hit (``culled_replays``).  ``--culled`` times only that, and the
+culled training step beside the unculled chunked one (``culled_steps``),
+without the profiler: give each config a process of its own
+(``--culled --configs sparse``), since a graph captured after a
+torch.profiler trace in the same process can replay slower.  Run from
+another checkout's root, with this script and chip_smoke.py copied
+there, to measure that commit.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import W, H, frames_on, train_frames, value_and_grad, wall_ms
+from chip_smoke import (W, H, dump_routes, frames_on, train_frames,
+                        value_and_grad, wall_ms)
 
 # csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4, and
 # so is csrc/traverse_shared.cu's for K5 and K6; K3 is csrc/scatter.cu's
@@ -165,21 +169,99 @@ def culled_replays(name, scene, cam, cfg):
                          ("ortho 2", cam, cfg.replace(ortho_scale=2.0)),
                          ("away", away, cfg)):
         rows = []
-        for _ in range(CULLED_CAPTURES):
+        for k in range(CULLED_CAPTURES + 1):
             pipeline.FRAME_GRAPHS.clear()
             torch.cuda.empty_cache()
+            pipeline.FRAME_GRAPHS.debug = k == CULLED_CAPTURES
             with torch.inference_mode():
                 img = render_frame_jit(scene, c, run)
+            (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+            if pipeline.FRAME_GRAPHS.debug:  # one more, for its nodes
+                nodes = kernel_nodes(entry)
+                break
+            with torch.inference_mode():
                 ms = replay_ms(lambda: render_frame_jit(scene, c, run),
                                CULLED_REPS)
-            (entry,) = pipeline.FRAME_GRAPHS.entries.values()
             rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
-                        f"pool {entry.pool_bytes} bytes)")
+                        f"pool {entry.pool_bytes} bytes, trips "
+                        f"{trips_of(entry)})")
+        pipeline.FRAME_GRAPHS.debug = False
+        pipeline.FRAME_GRAPHS.clear()
         bg = img.new_tensor(run.background)
         chunks = img.reshape(-1, run.ray_chunk, 4)
         hit = int((chunks - bg).abs().ge(1e-6).any(-1).any(-1).sum())
         print(f"   {name} graphed, {case}: {hit} of {chunks.shape[0]} chunks "
-              "hit; replay by capture: " + "; ".join(rows), flush=True)
+              f"hit; {nodes[0]} kernel nodes in {nodes[1]} graphs; replay by "
+              "capture: " + "; ".join(rows), flush=True)
+
+
+def trips_of(entry):
+    """The trip counters of a graphs.Captured after its last replay (a
+    graph without loops, or one of a commit before them: [])."""
+    return [int(t) for t in getattr(entry, "trips", ())]
+
+
+def kernel_nodes(entry):
+    """(kernel nodes in all, graphs) of a graphs.Captured made with
+    ``debug``: the captured graph and each conditional node's body."""
+    _, nodes, per, _ = dump_routes(entry.graph)
+    return nodes, len(per)
+
+
+def culled_steps(name, scene, cam, cfg):
+    """The culled training step (``cfg``) and the same step unculled (its
+    chunk loop over every chunk): graphed (``train_step_jit``)
+    ``CULLED_CAPTURES`` captures, each replayed ``CULLED_REPS`` times
+    (median ms by CUDA events), with capture ms, pool bytes and trip
+    counters; one more capture kept for its kernel nodes; eager
+    ``loss_fn`` + ``backward()`` (host clock, median of 5), and the peak
+    device memory of an eager and a graphed step."""
+    from raytracebvh_tpu_torch import graphs
+    from raytracebvh_tpu_torch.models import inverse
+
+    target = torch.zeros((H, W, 4), device=scene.device)
+    for case, run in (("culled", cfg),
+                      ("unculled", cfg.replace(cull_empty_chunks=False))):
+        rows = []
+        for k in range(CULLED_CAPTURES + 1):
+            torch.cuda.empty_cache()
+            params = inverse.init_params(scene)
+            opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+            debug = k == CULLED_CAPTURES
+            inverse._STEP_GRAPHS.setdefault(opt, graphs.Cache()).debug = debug
+
+            def step():
+                inverse.train_step_jit(params, opt, scene, cam, target, run,
+                                       lr=1e-2)
+
+            step()
+            (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+            entry = entry.captured
+            if debug:
+                nodes = kernel_nodes(entry)
+                break
+            ms = replay_ms(step, CULLED_REPS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
+                        f"pool {entry.pool_bytes} bytes, peak {peak} bytes, "
+                        f"trips {trips_of(entry)})")
+            del entry, step, params, opt
+        eager = lambda: value_and_grad(inverse.init_params(scene), scene,
+                                       cam, target, run)
+        eager_ms = wall_ms(eager)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   {name} {case} step: eager loss_fn + backward "
+              f"{eager_ms:.2f} ms, peak {peak} bytes; graphed "
+              f"({nodes[0]} kernel nodes in {nodes[1]} graphs) replay by "
+              f"capture: " + "; ".join(rows), flush=True)
 
 
 def profile_run(name, run, nframes, top, extra=""):
@@ -234,6 +316,9 @@ def main(argv=None) -> int:
     p.add_argument("--configs", default="",
                    help="comma-separated frames and steps to profile "
                         "(default: all)")
+    p.add_argument("--culled", action="store_true",
+                   help="only the culled configs' graphed replays and "
+                        "steps, without the profiler")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device visible", file=sys.stderr)
@@ -252,9 +337,14 @@ def main(argv=None) -> int:
         p.error(f"unknown configs {sorted(unknown)}")
     for runs, is_train in ((frames, False), (train, True)):
         for name, (scene, cam, cfg) in runs.items():
-            if not only or name in only:
+            if only and name not in only:
+                continue
+            if not args.culled:
                 profile_frame(name, scene, cam, cfg, args.frames, args.top,
                               train=is_train)
+            elif cfg.ray_chunk and cfg.cull_empty_chunks:
+                (culled_steps if is_train else culled_replays)(
+                    name, scene, cam, cfg)
     return 0
 
 

@@ -68,6 +68,11 @@ _SIGNATURES = {
     "rtbvh_if_begin": [_P, _P, _P],
     # body stream
     "rtbvh_if_end": [_P],
+    # count (int32), trip counter (int32), capturing stream, body stream,
+    # the node's handle (out)
+    "rtbvh_while_begin": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],
+    # the node's handle, count, trip counter, body stream
+    "rtbvh_while_end": [ctypes.c_ulonglong, _P, _P, _P],
     # the new stream (out)
     "rtbvh_stream_create": [ctypes.POINTER(_P)],
 }

@@ -1,11 +1,15 @@
-// Conditional CUDA-graph nodes: the device side of graphs.cond, the
-// port's counterpart of jax.lax.cond inside a compiled program.
+// Conditional CUDA-graph nodes: the device side of graphs.cond and
+// graphs.while_loop, the port's counterparts of jax.lax.cond and of the
+// while loop that XLA compiles lax.map into, inside a compiled program.
 //
-// The JAX package's culled chunk loop is a lax.map of lax.cond(any hit,
-// shade, background) (raytracebvh_tpu/pipeline.py, shade_rays); under jit
-// it is a branch on the device.  CUDA 12.4 added its counterpart to CUDA
-// graphs: an IF node, whose body graph runs at a launch only where a
-// kernel earlier in the graph set the node's handle to a non-zero value.
+// The JAX package's chunk loop is a lax.map over ray chunks, culled ones
+// under lax.cond(any hit, shade, background) (raytracebvh_tpu/pipeline.py,
+// shade_rays); under jit it is one while loop on the device with one body.
+// CUDA 12.4 added the counterparts to CUDA graphs: an IF node, whose body
+// graph runs at a launch only where a kernel earlier in the graph set the
+// node's handle to a non-zero value, and a WHILE node, whose body graph
+// runs again and again while the handle is non-zero, checked before each
+// trip (a kernel in the body sets it for the next).
 //
 // rtbvh_if_begin adds one IF node to the graph that `stream` is capturing:
 // a one-thread kernel copies the predicate (a bool in device memory, read
@@ -16,6 +20,14 @@
 // rtbvh_if_end.  The caller launches the body's work on `body` in
 // between.  This is what torch's CUDAGraph.begin_capture_to_if_node does
 // in the torch releases that have it.
+//
+// rtbvh_while_begin adds one WHILE node the same way: a one-thread kernel
+// sets the trip counter (an int in device memory) to 0 and the handle to
+// count > 0 (count an int in device memory, read at each launch), the
+// node follows, and `body` captures into its body graph.  rtbvh_while_end
+// ends the body with a one-thread kernel that adds one to the counter and
+// sets the handle to counter < count, then ends the body's capture.  The
+// counter outlives the launch: after it, it holds the trips run.
 
 #include <cuda_runtime.h>
 
@@ -24,6 +36,21 @@ namespace {
 __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
                                      const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+// before a WHILE node: the first trip runs where count > 0
+__global__ void while_start_kernel(cudaGraphConditionalHandle handle,
+                                   const int* count, int* trip) {
+  *trip = 0;
+  cudaGraphSetConditional(handle, *count > 0 ? 1u : 0u);
+}
+
+// the last kernel of a WHILE node's body: another trip while trip < count
+__global__ void while_next_kernel(cudaGraphConditionalHandle handle,
+                                  const int* count, int* trip) {
+  int j = *trip + 1;
+  *trip = j;
+  cudaGraphSetConditional(handle, j < *count ? 1u : 0u);
 }
 
 // the capture's graph and its current dependencies (their edge data,
@@ -43,28 +70,33 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
   return err;
 }
 
-}  // namespace
-
-extern "C" int rtbvh_if_begin(const void* pred, void* stream, void* body) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// a new conditional handle of the graph that `s` is capturing
+cudaError_t new_handle(cudaStream_t s, cudaGraphConditionalHandle* handle) {
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
   size_t ndeps;
   cudaError_t err = capture_info(s, &graph, &deps, &ndeps);
   if (err != cudaSuccess) return err;
-  cudaGraphConditionalHandle handle;
-  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  return cudaGraphConditionalHandleCreate(handle, graph, 0, 0);
+}
+
+// after the kernel that sets `handle` (launched on `s`): a conditional
+// node of `type` on it, made `s`'s only capture dependency, and `body`
+// capturing into the node's body graph
+cudaError_t add_node(cudaStream_t s, cudaGraphConditionalHandle handle,
+                     cudaGraphConditionalNodeType type, cudaStream_t body) {
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  set_condition_kernel<<<1, 1, 0, s>>>(handle,
-                                       static_cast<const bool*>(pred));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t ndeps;
   if ((err = capture_info(s, &graph, &deps, &ndeps)) != cudaSuccess)
     return err;
 
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
@@ -80,8 +112,21 @@ extern "C" int rtbvh_if_begin(const void* pred, void* stream, void* body) {
 #endif
   if (err != cudaSuccess) return err;
   return cudaStreamBeginCaptureToGraph(
-      static_cast<cudaStream_t>(body), params.conditional.phGraph_out[0],
-      nullptr, nullptr, 0, cudaStreamCaptureModeThreadLocal);
+      body, params.conditional.phGraph_out[0], nullptr, nullptr, 0,
+      cudaStreamCaptureModeThreadLocal);
+}
+
+}  // namespace
+
+extern "C" int rtbvh_if_begin(const void* pred, void* stream, void* body) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGraphConditionalHandle handle;
+  cudaError_t err = new_handle(s, &handle);
+  if (err != cudaSuccess) return err;
+  set_condition_kernel<<<1, 1, 0, s>>>(handle,
+                                       static_cast<const bool*>(pred));
+  return add_node(s, handle, cudaGraphCondTypeIf,
+                  static_cast<cudaStream_t>(body));
 }
 
 extern "C" int rtbvh_if_end(void* body) {
@@ -89,8 +134,33 @@ extern "C" int rtbvh_if_end(void* body) {
   return cudaStreamEndCapture(static_cast<cudaStream_t>(body), &graph);
 }
 
-// A stream of its own for the IF nodes' bodies (torch's streams come from
-// a shared pool, where a body could meet the stream that captures it).
+extern "C" int rtbvh_while_begin(const void* count, void* trip, void* stream,
+                                 void* body, unsigned long long* handle_out) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGraphConditionalHandle handle;
+  cudaError_t err = new_handle(s, &handle);
+  if (err != cudaSuccess) return err;
+  while_start_kernel<<<1, 1, 0, s>>>(handle, static_cast<const int*>(count),
+                                     static_cast<int*>(trip));
+  *handle_out = handle;
+  return add_node(s, handle, cudaGraphCondTypeWhile,
+                  static_cast<cudaStream_t>(body));
+}
+
+extern "C" int rtbvh_while_end(unsigned long long handle, const void* count,
+                               void* trip, void* body) {
+  cudaStream_t b = static_cast<cudaStream_t>(body);
+  while_next_kernel<<<1, 1, 0, b>>>(handle, static_cast<const int*>(count),
+                                    static_cast<int*>(trip));
+  cudaError_t err = cudaGetLastError();
+  cudaGraph_t graph;
+  cudaError_t end = cudaStreamEndCapture(b, &graph);
+  return err != cudaSuccess ? err : end;
+}
+
+// A stream of its own for the conditional nodes' bodies (torch's streams
+// come from a shared pool, where a body could meet the stream that
+// captures it).
 extern "C" int rtbvh_stream_create(void** stream) {
   return cudaStreamCreateWithFlags(reinterpret_cast<cudaStream_t*>(stream),
                                    cudaStreamNonBlocking);

@@ -33,9 +33,18 @@ bool that the graph reads at each replay, so the device decides which
 branch runs and the host reads nothing.  It differentiates: its backward
 is a ``cond`` on the same predicate (as JAX transposes ``lax.cond`` into a
 ``cond``), which recomputes the branch that ran with autograd and takes
-its vector-Jacobian product.  ``Captured``'s warm-up runs both branches
-of every ``cond``, so that the bodies the capture records have run once
-eagerly (their lazily made constants made outside the capture).
+its vector-Jacobian product.
+
+``while_loop`` is the while loop that XLA compiles ``lax.map`` into: one
+body run ``count`` times, the trip number a device index.  Eagerly it
+loops in Python; while capturing it records the body once into a WHILE
+node of ``csrc/cond.cu``, whose trip count the graph reads from a 0-d
+device int at each replay.  ``pipeline.shade_rays`` runs its chunk loop
+on it.
+
+``Captured``'s warm-up runs both branches of every ``cond`` and every
+loop's body at least once, so that the bodies the capture records have
+run once eagerly (their lazily made constants made outside the capture).
 """
 
 from __future__ import annotations
@@ -135,15 +144,6 @@ def capturing() -> bool:
             and torch.cuda.is_current_stream_capturing())
 
 
-def predicates(flags: torch.Tensor) -> list:
-    """The [n] bool ``flags`` as ``cond``'s predicates: while capturing, a
-    0-d device tensor each, which the graph reads at each replay; else
-    their values on the host, all read at once."""
-    if capturing():
-        return list(flags.unbind(0))
-    return flags.tolist()
-
-
 # Captured's warm-ups in progress (``warming``); a global, not a
 # thread-local, since a warm-up's backward runs on autograd's threads
 _warming = 0
@@ -152,7 +152,7 @@ _warming = 0
 @contextlib.contextmanager
 def warming():
     """While open, ``cond`` runs both branches (and returns the one the
-    predicate picks)."""
+    predicate picks), and ``while_loop`` runs its body at least once."""
     global _warming
     _warming += 1
     try:
@@ -161,39 +161,41 @@ def warming():
         _warming -= 1
 
 
-# the IF nodes' bodies' stream on each device, and the bodies of the
-# graph that ``Captured`` is capturing (None outside a capture: a captured
-# cond needs its warm-up)
+# the conditional nodes' bodies' stream on each device, and the bodies of
+# the graph that ``Captured`` is capturing (None outside a capture: a
+# captured cond or loop needs its warm-up)
 _body_streams: dict = {}
 _bodies = None
 
 
 def _body_stream(device: torch.device):
-    """The IF nodes' bodies' stream on ``device``: one of their own
+    """The conditional nodes' bodies' stream on ``device``: one of their own
     (torch's streams come from a shared pool, where a body could meet the
     stream that captures it)."""
     if device not in _body_streams:
         handle = ctypes.c_void_p()
         with torch.cuda.device(device):
             _kernels.check(_kernels.load().rtbvh_stream_create(
-                ctypes.byref(handle)), "cond: the IF nodes' stream")
+                ctypes.byref(handle)), "the conditional nodes' stream")
         _body_streams[device] = torch.cuda.ExternalStream(handle.value,
                                                           device=device)
     return _body_streams[device]
 
 
 class _Bodies:
-    """The memory pool of one graph's IF-node bodies (the graph's own pool
-    admits only its capture stream's allocations): made by the first
-    body, held while the graph lives and released with it (``release``),
-    after which the allocator frees it as it frees a graph's pool.  No
-    other graph allocates from it, so graphs' replays may interleave as
-    they may without IF nodes."""
+    """The memory pool of one graph's conditional-node bodies (the graph's
+    own pool admits only its capture stream's allocations): made by the
+    first body, held while the graph lives and released with it
+    (``release``), after which the allocator frees it as it frees a
+    graph's pool.  No other graph allocates from it, so graphs' replays
+    may interleave as they may without conditional nodes.  ``trips`` are
+    the graph's loops' trip counters (``while_loop``), in capture order."""
 
     def __init__(self, device: torch.device):
         self.index = device.index
         self.pool = torch.cuda.graph_pool_handle()
         self.held = False
+        self.trips = []
 
     @contextlib.contextmanager
     def allocating(self):
@@ -227,10 +229,7 @@ def _if_node(pred: torch.Tensor):
         raise ValueError(f"cond: the predicate of a captured cond must be a "
                          f"0-d CUDA bool; got {pred.dtype} "
                          f"{tuple(pred.shape)} on {pred.device}")
-    bodies = _bodies
-    if bodies is None:
-        raise RuntimeError("cond: a captured cond needs graphs.Captured, "
-                           "whose warm-up runs both its branches")
+    bodies = _captured_bodies("cond: a captured cond")
     body = _body_stream(pred.device)
     _kernels.check(_kernels.load().rtbvh_if_begin(
         pred.data_ptr(), torch.cuda.current_stream().cuda_stream,
@@ -241,6 +240,81 @@ def _if_node(pred: torch.Tensor):
     finally:
         _kernels.check(_kernels.load().rtbvh_if_end(body.cuda_stream),
                        "cond: an IF node's body")
+
+
+def _captured_bodies(what: str) -> _Bodies:
+    """The bodies of the graph being captured; raises outside
+    ``Captured``, whose warm-up runs the bodies first."""
+    if _bodies is None:
+        raise RuntimeError(f"{what} needs graphs.Captured, whose warm-up "
+                           "runs its bodies")
+    return _bodies
+
+
+def while_loop(count, body, device=None) -> torch.Tensor:
+    """``body(j)`` for ``j`` in ``[0, count)``, in order: the while loop
+    that XLA compiles ``lax.map`` into, one body for every trip.  ``j`` is
+    a 0-d int32 tensor on the device, the trip number: the body reads it
+    there (as an index: ``index_select`` and ``index_copy_``, XLA's
+    ``dynamic_slice`` and ``dynamic_update_slice``), never as a Python
+    value, and writes its results into tensors made before the loop.
+    ``count`` is a Python int (a trip count known before the loop, on
+    ``device``) or a 0-d integer tensor.
+
+    While capturing, the loop is one WHILE node of the graph
+    (``csrc/cond.cu``): the body is captured once, on the bodies' stream
+    with the bodies' memory pool, and the graph reads ``count`` at each
+    replay, so the device decides how many trips run.  Eagerly a tensor
+    ``count`` is read on the host, once.  Under ``warming`` the body runs
+    at least once, so that what it makes lazily is made before a capture.
+    Returns the trip counter, a 0-d int32 device tensor: the trips run
+    (after each replay, for a captured loop; ``Captured.trips`` keeps the
+    graph's)."""
+    if isinstance(count, torch.Tensor):
+        if count.dim() or count.is_floating_point() or count.is_complex():
+            raise ValueError(f"while_loop: count must be a 0-d integer "
+                             f"tensor or an int; got {count.dtype} "
+                             f"{tuple(count.shape)}")
+        device = count.device
+    elif device is None:
+        raise ValueError("while_loop: an int count needs a device")
+    if capturing():
+        return _while_node(count, body, torch.device(device))
+    n = int(count)
+    trips = torch.arange(max(n, 1) if _warming else n, dtype=torch.int32,
+                         device=device)
+    for j in trips.unbind(0):
+        body(j)
+    return trips.new_full((), trips.shape[0])
+
+
+def _while_node(count, body, device: torch.device) -> torch.Tensor:
+    """``while_loop`` while capturing: one WHILE node, its trip counter
+    kept with the graph's bodies."""
+    bodies = _captured_bodies("while_loop: a captured loop")
+    if isinstance(count, torch.Tensor):
+        count = count.to(torch.int32)
+    else:
+        count = torch.full((), count, dtype=torch.int32, device=device)
+    trip = torch.empty((), dtype=torch.int32, device=device)
+    stream = _body_stream(device)
+    handle = ctypes.c_ulonglong()
+    lib = _kernels.load()
+    _kernels.check(lib.rtbvh_while_begin(
+        count.data_ptr(), trip.data_ptr(),
+        torch.cuda.current_stream().cuda_stream, stream.cuda_stream,
+        ctypes.byref(handle)), "while_loop: a WHILE node")
+    try:
+        with torch.cuda.stream(stream), bodies.allocating():
+            body(trip)
+    finally:
+        _kernels.check(lib.rtbvh_while_end(
+            handle.value, count.data_ptr(), trip.data_ptr(),
+            stream.cuda_stream), "while_loop: a WHILE node's body")
+    # the graph writes the counter at each replay: it lives as long as the
+    # graph, so no later allocation of the capture reuses its memory
+    bodies.trips.append(trip)
+    return trip
 
 
 def _select(pred, true_fn, false_fn):
@@ -273,9 +347,9 @@ def cond(pred, true_fn, false_fn, operands: tuple = ()):
     """``jax.lax.cond(pred, true_fn, false_fn, *operands)``: the result of
     ``true_fn(*operands)`` where ``pred`` holds, else of
     ``false_fn(*operands)``, a tensor or a tuple of tensors, equal in shape
-    and dtype.  ``pred`` is a bool (the host's value, say from
-    ``predicates``) or a 0-d bool tensor: while capturing, on the card, the
-    graph's IF nodes decide at each replay; eagerly it is read.
+    and dtype.  ``pred`` is a bool (the host's value) or a 0-d bool
+    tensor: while capturing, on the card, the graph's IF nodes decide at
+    each replay; eagerly it is read.
 
     With grad mode on, the result is differentiable with respect to the
     tensors in ``operands`` (trees of tuples and dataclasses) that require
@@ -341,13 +415,15 @@ class Captured:
 
     ``inputs`` are copied into static tensors (``static_copy``).
     ``warmup`` (default ``fn``) runs once on ``stream`` with the static
-    inputs, both branches of every ``cond`` included (``warming``), then
-    ``prepare()`` where given, then ``fn`` is captured on ``stream`` into
-    a graph with a memory pool of its own, and its IF nodes' bodies with
-    another (``_Bodies``), released with the graph.  A capture that fails
-    raises, and leaves the allocator as it found it (``_abandon``).
-    ``capture_ms`` is the capture's host time, ``pool_bytes`` the device
-    memory the allocator reserved during it.
+    inputs, both branches of every ``cond`` and every loop's body included
+    (``warming``), then ``prepare()`` where given, then ``fn`` is captured
+    on ``stream`` into a graph with a memory pool of its own, and its
+    conditional nodes' bodies with another (``_Bodies``), released with
+    the graph.  A capture that fails raises, and leaves the allocator as
+    it found it (``_abandon``).  ``capture_ms`` is the capture's host
+    time, ``pool_bytes`` the device memory the allocator reserved during
+    it, ``trips`` the trip counters of its loops (``while_loop``), which
+    each replay rewrites: a witness of the trips the device ran.
     ``debug`` keeps the graph for ``CUDAGraph.debug_dump`` (which prints
     it once).  ``capture_error_mode`` is ``torch.cuda.graph``'s: the
     collectives' captures take ``"thread_local"`` (``parallel/render.py``).
@@ -391,6 +467,7 @@ class Captured:
             _bodies = None
         # the bodies' pool goes with the graph that replays them
         weakref.finalize(self.graph, bodies.release).atexit = False
+        self.trips = bodies.trips
         if debug:
             self.graph.instantiate()
         torch.cuda.synchronize()

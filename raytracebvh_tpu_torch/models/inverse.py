@@ -6,10 +6,11 @@ so that the rendered image matches a target.  The gradient is autograd's
 through ``render_frame``: traversal and hit ids are discrete, and the
 shading re-evaluates each hit from its leaf-attribute row, whose gather
 (kernel K2 on CUDA tensors) has kernel K3 as its backward
-(``ops/gather_cuda``).  A culled chunked frame shades each chunk under
-``graphs.cond``, whose backward recomputes a hit chunk's shading and
-takes its vector-Jacobian product under the same predicate: the culled
-chunks add zeros, as under JAX's ``lax.cond``.  ``torch.optim.Adam``
+(``ops/gather_cuda``).  A chunked frame shades its chunks in one loop
+(``pipeline._ChunkMap``), whose backward is a second loop over the same
+chunks that recomputes each chunk's shading and takes its
+vector-Jacobian product: a culled chunk is visited by neither, and adds
+nothing, as under JAX's ``lax.cond``.  ``torch.optim.Adam``
 with optax's defaults takes the place of ``optax.adam``: it updates the
 parameters in place.
 ``adam_state`` and ``optimizer_from_numpy`` carry its state to and from
@@ -225,10 +226,10 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
     optimizer's device learning rate (no re-capture).  ``optimizer`` must
     be ``make_optimizer(params, lr, capturable=True)`` (or
     ``optimizer_from_numpy(..., capturable=True)``) over ``params``.  A
-    culled chunked frame (``pipeline.culls_chunks``) shades and
-    differentiates its hit chunks under the graph's IF nodes
-    (``graphs.cond``).  On CPU tensors it is ``train_step`` at learning
-    rate ``lr``."""
+    chunked frame shades and differentiates its chunks (a culled one its
+    hit chunks) in two WHILE nodes of the graph, the forward's and the
+    backward's (``graphs.while_loop``).  On CPU tensors it is
+    ``train_step`` at learning rate ``lr``."""
     if params.vert_offsets.device.type != "cuda":
         for group in optimizer.param_groups:
             group["lr"] = lr

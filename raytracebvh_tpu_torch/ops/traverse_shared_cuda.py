@@ -107,9 +107,9 @@ def launch_walk(any_hit: bool, bvh: BVH, rays: Rays, epsilon: float,
     _check_fits(bvh, dev, what)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the work-queue counter, zeroed by the launch on its stream: a
-    # launch's own, so that no two streams share one (a graph's IF nodes
-    # capture on a stream of their own) and none is made in a capture to
-    # be kept
+    # launch's own, so that no two streams share one (a graph's
+    # conditional nodes capture on a stream of their own) and none is made
+    # in a capture to be kept
     work = torch.empty(1, dtype=torch.int32, device=dev)
     extra = (staged_first(bvh.n_leaves, smem_per_block(dev)),
              launch_geometry(rays.origin.shape[0], sms), work.data_ptr())

@@ -47,10 +47,10 @@ events, which the default "global" mode forbids while any thread
 captures.  Each capture's eager warm-up (``graphs.Captured``) runs every
 collective of the body first, so the communicators' set-up falls outside
 the graph.  A rank whose
-rays cull ray chunks (``pipeline.culls_chunks``) shades them under the
-graph's IF nodes (``graphs.cond``), its collectives outside them: the
-broadcast and the build's before the first chunk, the frame's all-gather
-and the step's gradient all-reduce after the last.  Nothing catches a
+rays run in ray chunks shades them in the graph's WHILE nodes
+(``graphs.while_loop``; culled, its own hit chunks), its collectives
+outside them: the broadcast and the build's before the loop, the frame's
+all-gather and the step's gradient all-reduce after it.  Nothing catches a
 failed capture: it raises.  On CPU tensors (Gloo) they run the eager
 bodies.
 """
@@ -267,7 +267,7 @@ def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
     chunks' means add up as ``acc + x / grad_chunks`` in chunk order.
 
     On CUDA tensors the step (the builds, the forward, the backward with
-    K3 and the all-reduces; a culled chunk loop's IF nodes) is one
+    K3 and the all-reduces; a chunk loop's WHILE nodes) is one
     replayed CUDA graph (see the module docstring), and the returned
     tensors are new."""
     if params[0].device.type != "cuda":

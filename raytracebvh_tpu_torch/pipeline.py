@@ -20,6 +20,8 @@ refraction chain and blends it over the reflection result.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .camera import (
@@ -469,7 +471,7 @@ def shade_setup(scene: Scene, bvh: BVH, cfg: RenderConfig):
 
 def culls_chunks(cfg: RenderConfig, nrays: int) -> bool:
     """Whether ``shade_rays`` runs ``nrays`` rays as ray chunks with empty
-    chunks culled (each chunk's shading under ``graphs.cond``); raises
+    chunks culled (the chunk loop visits the hit chunks alone); raises
     where ``cfg.ray_chunk`` does not divide ``nrays``."""
     chunk = cfg.ray_chunk
     if not (chunk > 0 and nrays > chunk):
@@ -486,12 +488,28 @@ def chunk_rays(rays: Rays, i: int, chunk: int) -> Rays:
 
 
 def trace_chunks(bvh: BVH, rays: Rays, cfg: RenderConfig):
-    """Pass 1 of the culled chunk loop: every chunk's primary traversal
-    (a launch a chunk) -> (the chunks' hit records, [chunks] bool device
-    tensor: whether any of the chunk's rays hits)."""
+    """Every ray chunk's primary traversal (a launch a chunk) -> (the
+    chunks' hit records stacked as [chunks, ray_chunk] tensors, [chunks]
+    bool device tensor: whether any of the chunk's rays hits)."""
     recs = [_traverse_ids(bvh, chunk_rays(rays, i, cfg.ray_chunk), cfg)
             for i in range(rays.origin.shape[0] // cfg.ray_chunk)]
-    return recs, torch.stack([rec.hit.any() for rec in recs])
+    rec = HitRecord(*(torch.stack([getattr(r, f) for r in recs])
+                      for f in ("hit", "distance", "leaf")))
+    return rec, rec.hit.any(-1)
+
+
+def chunk_order(flags: torch.Tensor, cull: bool):
+    """(order, count): the chunks the loop visits, their indices on the
+    device in visiting order, and the trip count.  Culled, the hit chunks
+    (``flags``) first, in chunk order (a stable sort of the misses'
+    flags), and their number as a 0-d int32 device tensor; else every
+    chunk in order, and their number as an int.  Nothing is read on the
+    host."""
+    if not cull:
+        return (torch.arange(flags.shape[0], device=flags.device),
+                flags.shape[0])
+    order = torch.sort((~flags).to(torch.uint8), stable=True).indices
+    return order, flags.sum(dtype=torch.int32)
 
 
 def chunk_background(cfg: RenderConfig, tex_quads, device) -> torch.Tensor:
@@ -506,13 +524,109 @@ def chunk_background(cfg: RenderConfig, tex_quads, device) -> torch.Tensor:
                         for b in cfg.background], dim=-1)
 
 
-def _shade_chunk(scene: Scene, flat: BVH, cfg: RenderConfig, light3, rec):
-    """One hit chunk's shading as ``graphs.cond``'s true branch, a function
-    of its differentiable inputs (the leaf-attribute table, the chunk's
-    rays, the quad table) on ``flat``, the detached tree: its other fields
+@dataclasses.dataclass
+class _ChunkLoop:
+    """The chunk loop of ``shade_rays``: ``shade(leaf_attrs, rays,
+    tex_quads, rec)`` (one chunk's colours) over the chunks
+    ``order[:count]`` (``chunk_order``), each from its record in ``recs``
+    (``trace_chunks``), into an image of the background ``bg``
+    ([ray_chunk, 4])."""
+
+    shade: object
+    recs: HitRecord
+    order: torch.Tensor
+    count: object
+    bg: torch.Tensor
+
+    def rows(self, j):
+        """(chunk ``order[j]`` as a [1] index, its rays' rows) for the trip
+        number ``j``, a 0-d device tensor: on the device, so that a
+        captured body holds no trip's offset."""
+        c = self.order.index_select(0, j.reshape(1))
+        chunk = self.bg.shape[0]
+        return c, c * chunk + torch.arange(chunk, device=c.device)
+
+    def record(self, c) -> HitRecord:
+        return HitRecord(*(x.index_select(0, c).reshape(-1) for x in (
+            self.recs.hit, self.recs.distance, self.recs.leaf)))
+
+    def run(self, leaf_attrs, origin, direction, tex_quads):
+        """The colours of every ray: each trip shades its chunk and writes
+        it into the chunk's rows."""
+        out = self.bg.repeat(self.order.shape[0], 1)
+
+        def trip(j):
+            c, rows = self.rows(j)
+            rays = Rays(origin.index_select(0, rows),
+                        direction.index_select(0, rows))
+            out.index_copy_(0, rows, self.shade(leaf_attrs, rays, tex_quads,
+                                                self.record(c)))
+
+        graphs.while_loop(self.count, trip, self.order.device)
+        return out
+
+    def vjp(self, needs, grad, leaf_attrs, origin, direction, tex_quads):
+        """The gradients of ``run``'s colours against ``grad`` with respect
+        to the inputs ``needs`` names (None for the rest): each trip
+        recomputes its chunk's shading with autograd and takes its
+        vector-Jacobian product; the tables' gradients add in trip order
+        (a culled chunk adds nothing), the rays' go into their rows."""
+        ins = (leaf_attrs, origin, direction, tex_quads)
+        out = [torch.zeros_like(x) if n else None for x, n in zip(ins, needs)]
+
+        def trip(j):
+            c, rows = self.rows(j)
+            with torch.enable_grad():
+                fresh = [leaf_attrs.detach(),
+                         origin.detach().index_select(0, rows),
+                         direction.detach().index_select(0, rows),
+                         tex_quads.detach()]
+                fresh = [x.requires_grad_(n) for x, n in zip(fresh, needs)]
+                color = self.shade(fresh[0], Rays(fresh[1], fresh[2]),
+                                   fresh[3], self.record(c))
+                wrt = [x for x in fresh if x.requires_grad]
+                got = iter(torch.autograd.grad(
+                    color, wrt, grad.index_select(0, rows),
+                    allow_unused=True))
+            for k, x in enumerate(fresh):
+                g = next(got) if x.requires_grad else None
+                if g is None:
+                    continue
+                if k in (1, 2):
+                    out[k].index_copy_(0, rows, g)
+                else:
+                    out[k].add_(g)
+
+        graphs.while_loop(self.count, trip, self.order.device)
+        return tuple(out)
+
+
+class _ChunkMap(torch.autograd.Function):
+    """``_ChunkLoop.run`` under autograd, eager and captured alike: the
+    forward keeps no residual but its inputs, and the backward is a second
+    loop over the same chunks (``_ChunkLoop.vjp``), so the memory the
+    shading's autograd holds is one chunk's, as the JAX docstring of
+    ``lax.map``'s chunks intends."""
+
+    @staticmethod
+    def forward(ctx, loop, leaf_attrs, origin, direction, tex_quads):
+        ctx.loop = loop
+        ctx.save_for_backward(leaf_attrs, origin, direction, tex_quads)
+        return loop.run(leaf_attrs, origin, direction, tex_quads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) + ctx.loop.vjp(ctx.needs_input_grad[1:], grad,
+                                      *ctx.saved_tensors)
+
+
+def _shade_chunk(scene: Scene, flat: BVH, cfg: RenderConfig, light3):
+    """One chunk's shading as a function of its differentiable inputs (the
+    leaf-attribute table, the chunk's rays, the quad table) and its
+    primary hit record, on ``flat``, the detached tree: its other fields
     reach the shading only through the walks, behind their detach
     boundary."""
-    def shade(leaf_attrs, rays, tex_quads):
+    def shade(leaf_attrs, rays, tex_quads, rec):
         return _shade_rays_one(scene, flat.replace(leaf_attrs=leaf_attrs),
                                rays, cfg, tex_quads, light3, rec)
     return shade
@@ -521,34 +635,29 @@ def _shade_chunk(scene: Scene, flat: BVH, cfg: RenderConfig, light3, rec):
 def shade_rays(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
                light3=None):
     """The whole per-ray pipeline, optionally in sequential chunks of
-    ``cfg.ray_chunk`` rays.  With ``cull_empty_chunks`` a chunk whose
-    primary rays all miss skips shading and its shadow rays: it is pure
-    background (its spawns carry zero intensity), so the image is the
-    same.  The culled loop runs in two passes, as the JAX package's
-    ``lax.map`` of ``lax.cond``: every chunk's primary traversal
-    (``trace_chunks``), then each chunk's shading from its record under
-    ``graphs.cond`` on its hit flag (eagerly the flags are read on the
-    host once; in a CUDA graph its IF nodes read them).  ``light3``
-    (``light_in_ray_space``) is needed for shadows."""
+    ``cfg.ray_chunk`` rays, as the JAX package's ``lax.map`` over them:
+    every chunk's primary traversal (``trace_chunks``), then one loop body
+    (``graphs.while_loop``: in a CUDA graph one WHILE node) that shades a
+    chunk from its record a trip.  With ``cull_empty_chunks`` the loop
+    visits the hit chunks alone (``chunk_order``): a chunk whose primary
+    rays all miss is pure background (its spawns carry zero intensity),
+    so the image is the same, as under the JAX package's ``lax.cond``.
+    Eagerly the culled loop reads its trip count on the host once; in a
+    graph the device reads it.  ``light3`` (``light_in_ray_space``) is
+    needed for shadows."""
     bvh, tex_quads = shade_setup(scene, bvh, cfg)
     nrays = rays.origin.shape[0]
     chunk = cfg.ray_chunk
-    if not culls_chunks(cfg, nrays):
-        if not (chunk > 0 and nrays > chunk):
-            return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
-        return torch.cat([
-            _shade_rays_one(scene, bvh, chunk_rays(rays, i, chunk), cfg,
-                            tex_quads, light3)
-            for i in range(nrays // chunk)])
+    cull = culls_chunks(cfg, nrays)
+    if not (chunk > 0 and nrays > chunk):
+        return _shade_rays_one(scene, bvh, rays, cfg, tex_quads, light3)
     recs, any_hit = trace_chunks(bvh, rays, cfg)
-    bg = chunk_background(cfg, tex_quads, rays.origin.device)
-    flat = bvh.detach()
-    return torch.cat([
-        graphs.cond(pred, _shade_chunk(scene, flat, cfg, light3, rec),
-                    lambda *_: bg,
-                    (bvh.leaf_attrs, chunk_rays(rays, i, chunk), tex_quads))
-        for i, (rec, pred) in enumerate(zip(recs,
-                                            graphs.predicates(any_hit)))])
+    order, count = chunk_order(any_hit, cull)
+    loop = _ChunkLoop(_shade_chunk(scene, bvh.detach(), cfg, light3), recs,
+                      order, count,
+                      chunk_background(cfg, tex_quads, rays.origin.device))
+    return _ChunkMap.apply(loop, bvh.leaf_attrs, rays.origin, rays.direction,
+                           tex_quads)
 
 
 def build_transforms(camera: Camera, cfg: RenderConfig):
@@ -643,7 +752,7 @@ def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
     """``render_frame`` compiled once a signature, the counterpart of the
     JAX package's ``render_frame_jit``: on CUDA tensors the whole frame
     (build, sort, every traversal and gather, K1-K8 as the config routes
-    them, the culled chunk loop's IF nodes) is one CUDA graph captured at
+    them, the chunk loop's WHILE node) is one CUDA graph captured at
     the first call of its signature (``graphs.signature``: cfg and the
     inputs' shapes, dtypes and device) and replayed with the caller's
     scene and camera copied in.  It returns a new image, the eager

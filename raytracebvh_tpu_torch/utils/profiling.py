@@ -146,8 +146,8 @@ def _eager_stages(scene, camera, cfg):
 def _graphed_stages(scene, camera, cfg) -> Dict[str, Callable]:
     """``_eager_stages`` with every stage captured alone into its own CUDA
     graph (each with its own memory pool), as the JAX function jits each
-    stage alone: a replay a call (a culled chunk loop's in ``trace_shade``
-    under its IF nodes); ``frame_total`` is ``render_frame_jit``'s capture
+    stage alone: a replay a call (a chunk loop's in ``trace_shade`` as
+    its WHILE node); ``frame_total`` is ``render_frame_jit``'s capture
     (its cache's).  A stage whose capture fails raises: none runs eagerly
     in its place."""
     from .. import graphs

@@ -862,11 +862,43 @@ def test_graphed_frame_equals_eager_and_follows_the_camera(dev, kw):
     pipeline.FRAME_GRAPHS.clear()
 
 
+def _graph_bodies(graph) -> dict:
+    """Graph id -> kernel nodes of a kept CUDA graph (``debug_dump``'s DOT
+    numbers the captured graph 0 and each conditional node's body graph
+    after it)."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    per = {}
+    for node in re.findall(r'"graph_\d+_node_\d+"\[.*?\];', dot, re.DOTALL):
+        if 'label="{KERNEL' in node:
+            g = int(re.match(r'"graph_(\d+)_', node).group(1))
+            per[g] = per.get(g, 0) + 1
+    return per
+
+
+def _chunk_hits(scene, cam, cfg):
+    """[chunks] bool: whether any primary ray of each ray chunk hits (the
+    chunk loop's flags, pipeline.trace_chunks)."""
+    from raytracebvh_tpu_torch import pipeline
+
+    bvh, rays, _ = pipeline.frame_inputs(scene, cam, cfg)
+    rays = pipeline.tile_frame_rays(rays, cfg, cfg.width, cfg.height)
+    bvh = pipeline.shade_setup(scene, bvh, cfg)[0]
+    return pipeline.trace_chunks(bvh, rays, cfg)[1]
+
+
 def test_graphed_culled_frame_is_one_graph_the_device_steers(dev):
-    """A culled chunked frame is one graph: its replays read nothing back
-    (sync-debug mode "error"), and the IF nodes follow the copied-in
-    camera, which the capture did not see: some, none and every chunk
-    hit, each replay render_frame's bits, with one capture."""
+    """A culled chunked frame is one graph with one loop body (a WHILE
+    node's): its replays read nothing back (sync-debug mode "error"), and
+    the loop follows the copied-in camera, which the capture did not see:
+    some, none and every chunk hit, each replay render_frame's bits, its
+    trip counter the hit chunks, with one capture a config."""
     import raytracebvh_tpu_torch as T
     from raytracebvh_tpu_torch import graphs, pipeline
 
@@ -874,21 +906,29 @@ def test_graphed_culled_frame_is_one_graph_the_device_steers(dev):
     scene, cam, cfg = _graph_frame_args(dev, ray_chunk=256, ortho_scale=3.0)
     away = cam.replace(at=torch.tensor([0.0, 5.0, -200.0], device=dev))
     pipeline.FRAME_GRAPHS.clear()
+    pipeline.FRAME_GRAPHS.debug = True
     shares = []
-    for c, ortho in ((cam, 3.0), (away, 3.0), (cam, 1.4), (cam, 3.0)):
-        run = cfg.replace(ortho_scale=ortho)
-        want = T.render_frame(scene, c, run)
-        T.render_frame_jit(scene, c, run)  # a capture for each ortho_scale
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = T.render_frame_jit(scene, c, run)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        assert torch.equal(got, want)
-        bg = torch.tensor(cfg.background, device=dev)
-        hit = (want - bg).abs().ge(1e-6).any(-1).reshape(-1, 256).any(-1)
-        shares.append(float(hit.float().mean()))
+    try:
+        for c, ortho in ((cam, 3.0), (away, 3.0), (cam, 1.4), (cam, 3.0)):
+            run = cfg.replace(ortho_scale=ortho)
+            want = T.render_frame(scene, c, run)
+            T.render_frame_jit(scene, c, run)  # a capture an ortho_scale
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = T.render_frame_jit(scene, c, run)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert torch.equal(got, want)
+            hit = _chunk_hits(scene, c, run)
+            shares.append(float(hit.float().mean()))
+            entry = pipeline.FRAME_GRAPHS.entries[
+                graphs.signature(run, scene, c)]
+            assert [int(t) for t in entry.trips] == [int(hit.sum())]
+            # the captured graph (the primary walks) and one loop body
+            assert len(_graph_bodies(entry.graph)) == 2
+    finally:
+        pipeline.FRAME_GRAPHS.debug = False
     assert 0 < shares[0] < 1 and shares[1] == 0 and shares[2] == 1, shares
     assert len(pipeline.FRAME_GRAPHS.entries) == 2
     assert all(isinstance(e, graphs.Captured)
@@ -896,9 +936,109 @@ def test_graphed_culled_frame_is_one_graph_the_device_steers(dev):
     pipeline.FRAME_GRAPHS.clear()
 
 
+def test_captured_cond_steers_by_the_device(dev):
+    """graphs.cond captured: two IF nodes on a 0-d CUDA bool that the
+    graph reads at each replay (csrc/cond.cu), each replay the branch
+    the copied-in predicate picks; its gradient, captured too, the
+    branch's."""
+    from raytracebvh_tpu_torch import graphs
+
+    x0 = torch.arange(1.0, 7.0, device=dev)
+
+    def fn(x, pred):
+        a = x.detach().requires_grad_(True)
+        out = graphs.cond(pred, lambda v: (v * v).sin(), lambda v: v.exp(),
+                          (a,))
+        (grad,) = torch.autograd.grad(out.sum(), a)
+        return out.detach(), grad
+
+    stream = torch.cuda.Stream(dev)
+    captured = graphs.Captured(fn, (x0, torch.tensor(True, device=dev)),
+                               stream)
+    for pred in (True, False, True):
+        p = torch.tensor(pred, device=dev)
+        got = [t.clone() for t in captured(x0 + 1.0, p)]
+        want = fn(x0 + 1.0, pred)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), pred
+        assert not captured.trips
+
+
+def test_profiled_culled_replays_after_traces(dev):
+    """torch.profiler over culled graphs in one process, in the order that
+    faulted the card with IF nodes: chip_smoke.py's 1080p sparse and
+    sparse_shadows frames captured and a replay of each traced, then the
+    culled training step captured and three of its replays traced.  Each
+    traced replay (a trace a replay, no retry) runs the eager call's
+    hand-written kernels (``chip_smoke.culled_replay_routes``: the trace
+    records a loop body's kernels at every trip, or once a replay for a
+    graph captured before the first trace, and the loop's trip counter
+    gives its trips), the trip counters are the hit chunks after every
+    replay, every frame replay gives the eager frame's bits, and the
+    step's losses (the last replay unprofiled) the eager steps' with the
+    same capturable Adam."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.models import inverse
+
+    frames = cs.frames_on(dev)
+    nchunks = cs.W * cs.H // cs.SPARSE_CHUNK
+    for name in ("sparse", "sparse_shadows"):
+        scene, cam, cfg = frames[name]
+        with torch.inference_mode():
+            want_img, want = cs.counted(
+                lambda: T.render_frame(scene, cam, cfg))
+        pipeline.FRAME_GRAPHS.clear()
+
+        def call():
+            with torch.inference_mode():
+                img = T.render_frame_jit(scene, cam, cfg)
+            assert torch.equal(img, want_img), name
+
+        call()
+        (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+        ran, trips, _ = cs.culled_replay_routes(call, entry, name, want,
+                                                nchunks, tries=1)
+        assert ran == want and 0 < trips[0] < nchunks, (name, ran, trips)
+    pipeline.FRAME_GRAPHS.clear()
+
+    name = "sparse_train_culled"
+    scene, cam, cfg = cs.train_frames(frames)[name]
+    target = torch.zeros((cs.H, cs.W, 4), device=dev)
+    pe = inverse.init_params(scene)
+    oe = inverse.make_optimizer(pe, 1e-2, capturable=True)
+    eager = []
+    eager.append(cs.counted(lambda: inverse.train_step(
+        pe, oe, scene, cam, target, cfg))[0])
+    want = cs.read_counts()
+    params = inverse.init_params(scene)
+    opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+    losses = []
+
+    def step():
+        losses.append(inverse.train_step_jit(params, opt, scene, cam,
+                                             target, cfg, lr=1e-2))
+
+    step()
+    (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+    for _ in range(3):
+        ran, trips, _ = cs.culled_replay_routes(step, entry.captured, name,
+                                                want, nchunks, tries=1)
+        assert ran == want and trips == [want["K3"] // 2] * 2, (ran, trips)
+    step()
+    assert cs.check_trips(name, entry.captured, name, want)
+    while len(eager) < len(losses):
+        eager.append(inverse.train_step(pe, oe, scene, cam, target, cfg))
+    assert all(torch.equal(a, b) for a, b in zip(losses, eager))
+
+
 def test_culled_graph_gives_its_memory_back(dev):
-    """A culled frame's graph allocates from two pools, its own and its IF
-    bodies' (graphs._Bodies), and dropping the graph gives both back: once
+    """A culled frame's graph allocates from two pools, its own and its
+    loop body's (graphs._Bodies), and dropping the graph gives both back: once
     the cache is cleared, the device memory reserved is what it was
     before the capture."""
     import gc
@@ -909,6 +1049,7 @@ def test_culled_graph_gives_its_memory_back(dev):
     scene, cam, cfg = _graph_frame_args(dev, ray_chunk=256, ortho_scale=3.0)
     pipeline.FRAME_GRAPHS.clear()
     T.render_frame(scene, cam, cfg)  # the eager frame's lazy constants
+    gc.collect()  # what earlier tests left in reference cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
@@ -969,8 +1110,9 @@ def test_failed_capture_raises(dev, monkeypatch):
 def test_graphed_steps_match_eager_steps(dev, chunk):
     """Three train_step_jit calls at 64x64 equal three eager train_steps
     with the same capturable Adam from the same start, bit for bit, also
-    where the frame culls 32-ray chunks (shaded and differentiated under
-    the graph's IF nodes); with make_optimizer's default Adam the first
+    where the frame culls 32-ray chunks (shaded and differentiated in the
+    graph's two WHILE nodes, each counting the hit chunks' trips); with
+    make_optimizer's default Adam the first
     loss is bit-equal and the parameters after one step are within 1e-6
     (the capturable Adam's float32 bias corrections: chip_smoke.py's
     GRAPHED_STEP1_TOL).  lr is read at each call: a step at lr 0 moves
@@ -989,9 +1131,7 @@ def test_graphed_steps_match_eager_steps(dev, chunk):
     target = T.render_frame(scene, cam, cfg) * 0.8
     if chunk:
         assert pipeline.culls_chunks(cfg, 64 * 64)
-        bg = torch.tensor(cfg.background, device=dev)
-        hit = (target / 0.8 - bg).abs().ge(1e-6).any(-1)
-        chunk_hits = hit.reshape(-1, chunk).any(-1)
+        chunk_hits = _chunk_hits(scene, cam, cfg)
         assert bool(chunk_hits.any()) and not bool(chunk_hits.all())
 
     def run(step, capturable, n=3, **kw):
@@ -1006,7 +1146,12 @@ def test_graphed_steps_match_eager_steps(dev, chunk):
     assert all(torch.equal(a, b) for a, b in zip(lg, lc))
     assert all(torch.equal(a, b) for a, b in zip(pg, pc))
     assert float(lg[2]) < float(lg[0])
-    p1, _, l1 = run(inverse.train_step_jit, True, n=1, lr=1e-2)
+    p1, o1, l1 = run(inverse.train_step_jit, True, n=1, lr=1e-2)
+    # one step, at the scene's own vertices: each loop ran a trip a hit
+    # chunk of the frame there
+    (step,) = inverse._STEP_GRAPHS[o1].entries.values()
+    trips = [int(t) for t in step.captured.trips]
+    assert trips == ([int(chunk_hits.sum())] * 2 if chunk else []), trips
     pe, oe, le = run(inverse.train_step, False, n=1)
     assert torch.equal(l1[0], le[0])
     for a, b in zip(p1, pe):
@@ -1065,7 +1210,7 @@ def test_graph_replays_after_an_eager_launch_lowers_the_smem_limit(dev):
 def test_graphed_stage_times(dev, kw):
     """stage_times on the card: the JAX function's keys, every stage a
     replayed graph with a finite positive time; trace_shade's graph (the
-    culled loop's IF nodes inside it) gives shade_rays' bits."""
+    culled loop's WHILE node inside it) gives shade_rays' bits."""
     from raytracebvh_tpu_torch import pipeline
     from raytracebvh_tpu_torch.utils import profiling
 

@@ -13,14 +13,17 @@ the CPU can show is held here:
     which a textured bounce amplifies);
   * the culled chunk loop's two passes bit for bit against the one-pass
     loop they replace (``_one_pass_shade_rays``), with some, none and
-    every chunk hitting;
+    every chunk hitting, and its trips (``chunk_order``) against the
+    chunks' hit flags;
+  * ``graphs.while_loop`` eagerly for 0, 1 and n trips (at least one
+    under ``warming``);
   * ``graphs.cond``'s eager branches (both under ``warming``) and its
     gradient, the recomputed branch's, in float64 at rtol 1e-14;
   * the capture-safe constants bit for bit against the host literals
     they replace, in float32, bfloat16 and float16;
   * the unchunked frame issuing no host read and no tensor literal
     outside the plain walks (a ``TorchDispatchMode`` guard), and the
-    culled frame and step none outside ``graphs.cond`` (made a select);
+    culled frame and step none but the chunk loop's count;
   * ``train_step_jit`` equal to ``train_step`` (also culled), and a
     capturable Adam's state through ``adam_state`` /
     ``optimizer_from_numpy``.
@@ -148,8 +151,7 @@ def test_two_pass_chunk_loop_equals_one_pass(share, ortho_scale, away,
 def test_cond_runs_the_branch_the_predicate_picks():
     """graphs.cond eagerly: the branch of the host's value (a bool, or a
     0-d tensor read on the host), a tensor or a tuple of tensors; under
-    warming() both branches run and the picked one is returned; without a
-    capture ``predicates`` reads the flags at once."""
+    warming() both branches run and the picked one is returned."""
     calls = []
 
     def branch(name, value):
@@ -174,8 +176,6 @@ def test_cond_runs_the_branch_the_predicate_picks():
     one = graphs.cond(False, lambda: x + 1, lambda: x - 1)
     assert torch.equal(one, x - 1)
     assert not graphs.capturing()
-    assert graphs.predicates(torch.tensor([True, False, True])) == [
-        True, False, True]
 
 
 @pytest.mark.parametrize("pred", [True, False])
@@ -221,8 +221,54 @@ def test_trace_chunks_flags_are_the_chunks_any_hit():
     recs, any_hit = tp.trace_chunks(bvh, rays, cfg)
     whole = tp._traverse_ids(bvh, rays, cfg)
     assert any_hit.dtype == torch.bool and any_hit.shape == (16,)
-    assert torch.equal(torch.cat([r.hit for r in recs]), whole.hit)
+    for f in ("hit", "distance", "leaf"):
+        assert getattr(recs, f).shape == (16, 96)
+        assert torch.equal(getattr(recs, f).reshape(-1), getattr(whole, f))
     assert torch.equal(any_hit, whole.hit.reshape(16, 96).any(-1))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5])
+def test_while_loop_runs_its_body_count_times(n):
+    """graphs.while_loop eagerly: body(j) for j = 0 .. n - 1 in order, j a
+    0-d int32 tensor on the count's device, for an int count and a 0-d
+    integer tensor; the returned counter holds the trips run; under
+    warming() a loop of 0 trips runs its body once (j = 0)."""
+    for count in (n, torch.tensor(n), torch.tensor(n, dtype=torch.int32)):
+        seen = []
+
+        def body(j):
+            assert j.dim() == 0 and j.dtype == torch.int32
+            seen.append(int(j))
+
+        trips = graphs.while_loop(count, body, "cpu")
+        assert seen == list(range(n))
+        assert trips.dtype == torch.int32 and int(trips) == n
+        seen.clear()
+        with graphs.warming():
+            trips = graphs.while_loop(count, body, "cpu")
+        assert seen == list(range(max(n, 1))) and int(trips) == max(n, 1)
+    with pytest.raises(ValueError, match="needs a device"):
+        graphs.while_loop(n, lambda j: None)
+    with pytest.raises(ValueError, match="0-d integer"):
+        graphs.while_loop(torch.tensor([n]), lambda j: None)
+
+
+@pytest.mark.parametrize("flags", [
+    [False, True, True, False, False, True, False, False],
+    [False] * 8, [True] * 8], ids=["some", "none", "all"])
+def test_chunk_order_is_the_hit_chunks_first(flags):
+    """The chunk loop's trips: culled, the hit chunks in chunk order, then
+    the rest (which no trip visits), and their number as a 0-d int32
+    tensor; unculled, every chunk in order and their number as an int."""
+    hit = torch.tensor(flags)
+    order, count = tp.chunk_order(hit, cull=True)
+    hits = [i for i, f in enumerate(flags) if f]
+    misses = [i for i, f in enumerate(flags) if not f]
+    assert order.tolist() == hits + misses
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == len(hits)
+    order, count = tp.chunk_order(hit, cull=False)
+    assert order.tolist() == list(range(8)) and count == 8
 
 
 def test_culls_chunks():
@@ -341,12 +387,16 @@ def test_unchunked_frame_reads_nothing_back(monkeypatch, kw):
     assert torch.equal(got, want)
 
 
-def _select_cond(pred, true_fn, false_fn, operands=()):
-    """graphs.cond as a select: both branches run and a 0-d tensor picks,
-    which reads nothing back (what the graph's IF nodes do on the card,
-    without the skipped work)."""
-    assert isinstance(pred, torch.Tensor) and pred.dim() == 0, pred
-    return torch.where(pred, true_fn(*operands), false_fn(*operands))
+def _count_on_the_host(while_loop):
+    """graphs.while_loop with its count, a 0-d device tensor, read on the
+    host outside the guard (what the graph's WHILE node reads on the
+    card); the body runs under the guard."""
+    def run(count, body, device=None):
+        assert isinstance(count, torch.Tensor) and count.dim() == 0, count
+        with _disable_current_modes():
+            n = int(count)
+        return while_loop(n, body, count.device)
+    return run
 
 
 @pytest.mark.parametrize("kw", [
@@ -354,13 +404,14 @@ def _select_cond(pred, true_fn, false_fn, operands=()):
     dict(width=48, height=48, ray_chunk=96, ortho_scale=0.05, bounces=0,
          enable_shadows=True, light_pos=LIGHT, ray_tile=16),
 ], ids=["culled", "culled_shadows_tiled"])
-def test_culled_frame_and_step_read_nothing_back_outside_cond(monkeypatch,
-                                                              kw):
-    """With graphs.cond a select on device predicates (graphs.capturing
-    made true, as in a capture), the culled chunk loop's frame and its
-    training step (loss and backward) make no host read and no tensor
-    literal outside the plain walks, and give the eager frame's bits and
-    loss: nothing but cond decides on the host."""
+def test_culled_frame_and_step_read_nothing_back_outside_the_loop(
+        monkeypatch, kw):
+    """The culled chunk loop's frame and its training step (loss and
+    backward: two loops) make no host read and no tensor literal outside
+    the plain walks but their loops' trip counts, each a 0-d device
+    tensor, and give the eager frame's bits and loss: nothing but the
+    loop's count decides on the host, and a captured loop's WHILE node
+    reads it on the card."""
     monkeypatch.setattr(t_traverse, "traverse",
                         _unguarded(t_traverse.traverse))
     monkeypatch.setattr(t_traverse, "traverse_any",
@@ -375,14 +426,21 @@ def test_culled_frame_and_step_read_nothing_back_outside_cond(monkeypatch,
     target = torch.zeros_like(want)
     want_loss = inverse.loss_fn(inverse.init_params(scene), scene, cam,
                                 target, cfg)
-    monkeypatch.setattr(graphs, "cond", _select_cond)
-    monkeypatch.setattr(graphs, "capturing", lambda: True)
+    loops = []
+    counted = _count_on_the_host(graphs.while_loop)
+    monkeypatch.setattr(graphs, "while_loop",
+                        lambda *a: loops.append(a[0]) or counted(*a))
     params = inverse.init_params(scene)
     with _NoHostReads():
         got = T.render_frame(scene, cam, cfg)
         loss = inverse.loss_fn(params, scene, cam, target, cfg)
         loss.backward()
     assert torch.equal(got, want) and torch.equal(loss, want_loss)
+    bvh, rays, _ = tp.frame_inputs(scene, cam, cfg)
+    rays = tp.tile_frame_rays(rays, cfg, cfg.width, cfg.height)
+    _, any_hit = tp.trace_chunks(tp.shade_setup(scene, bvh, cfg)[0], rays,
+                                 cfg)
+    assert [int(c) for c in loops] == [int(any_hit.sum())] * 3
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in params)
 

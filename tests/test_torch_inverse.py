@@ -15,7 +15,10 @@ seeded alike) and the same parameters (``params_from_numpy`` of the JAX
   * finite differences on the port in float64: rtol 1e-4, as
     tests/test_grad.py;
   * chunked and culled gradients against unchunked and unculled ones:
-    tests/test_ray_chunk.py's rtol 1e-6 with atol 1e-7 and 1e-8;
+    tests/test_ray_chunk.py's rtol 1e-6 with atol 1e-7 and 1e-8; the
+    culled chunk loop's against the unculled one's bit for bit (the
+    trips add the tables' gradients in chunk order, and a culled chunk's
+    are zeros, which a sum leaves as it is);
   * Adam against optax on the same gradients: atol 5e-7 on parameters
     of magnitude up to ~4 (two float32 ulps; the two round the update's
     terms in another order) at lr 1e-2; the
@@ -51,14 +54,18 @@ def _scenes(dtype="float32", num_tris=40, **kw):
     js = scene_to_device(j_random(num_tris, **kw), dtype=jdt)
     ts = t_random(num_tris, device="cpu", **kw)
     if dtype == "float64":
-        m = ts.materials
-        ts = ts.replace(
-            verts=ts.verts.double(), normals=ts.normals.double(),
-            uv=ts.uv.double(), textures=ts.textures.double(),
-            materials=m.replace(**{f: getattr(m, f).double() for f in (
-                "ambient", "diffuse", "specular", "shininess",
-                "optical_density", "alpha")}))
+        ts = _float64(ts)
     return js, ts
+
+
+def _float64(ts):
+    m = ts.materials
+    return ts.replace(
+        verts=ts.verts.double(), normals=ts.normals.double(),
+        uv=ts.uv.double(), textures=ts.textures.double(),
+        materials=m.replace(**{f: getattr(m, f).double() for f in (
+            "ambient", "diffuse", "specular", "shininess",
+            "optical_density", "alpha")}))
 
 
 def _jax_value_and_grad(js, cfg, target, dtype=jnp.float32, jit=False):
@@ -187,7 +194,9 @@ def test_ray_chunk_grads_match():
 
 def test_cull_empty_chunks_grads_identical():
     """tests/test_ray_chunk.py::test_cull_empty_chunks_identical's
-    gradients on the port: shadows on, most chunks all-miss."""
+    gradients on the port: shadows on, most chunks all-miss.  The culled
+    loop's equal the unculled loop's bit for bit: both add the chunks'
+    gradients in chunk order, the culled chunks' zeros left out."""
     ts = t_random(60, device="cpu", seed=11, with_texture=True)
     target = torch.zeros((32, 32, 4))
     base = T.RenderConfig(width=32, height=32, bounces=2, ortho_scale=0.05,
@@ -196,23 +205,22 @@ def test_cull_empty_chunks_grads_identical():
     g1 = _port_grads(ts, base.replace(cull_empty_chunks=True), target)
     assert max(np.abs(a).max() for a in g0) > 0
     for a, b in zip(g0, g1):
-        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+        np.testing.assert_array_equal(a, b)
     g2 = _port_grads(ts, base.replace(ray_chunk=0), target)
     for a, b in zip(g2, g1):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_culled_chunk_vjp_matches_jax_grad(dtype):
-    """The culled chunk loop's gradient (graphs.cond's backward: each hit
-    chunk's shading recomputed and its vector-Jacobian product, zeros for
-    the culled chunks) against the JAX package's jax.grad through
-    lax.map of lax.cond, on tests/test_ray_chunk.py::
+def _chunk_loop_grads_against_jax(dtype, cull):
+    """The chunk loop's gradients (pipeline._ChunkMap: each chunk's
+    shading recomputed in a second loop and its vector-Jacobian product;
+    with ``cull`` the hit chunks alone) and JAX's jax.grad through lax.map
+    (of lax.cond with ``cull``), on tests/test_ray_chunk.py::
     test_cull_empty_chunks_identical's scene and config, at that test's
     rtol 1e-6 and atol 1e-8."""
     cfg_kw = dict(width=32, height=32, bounces=2, ortho_scale=0.05,
                   enable_shadows=True, ray_chunk=128, dtype=dtype,
-                  texture_dtype="float32")
+                  texture_dtype="float32", cull_empty_chunks=cull)
     jdt = jnp.float64 if dtype == "float64" else jnp.float32
     target = np.zeros((32, 32, 4))
     with jax.enable_x64(dtype == "float64"):
@@ -224,7 +232,6 @@ def test_culled_chunk_vjp_matches_jax_grad(dtype):
         want = [np.asarray(getattr(g, f)) for f in FIELDS]
         params = ti.params_from_numpy(ji.init_params(js), device="cpu")
     tcfg = T.RenderConfig(**cfg_kw)
-    assert tcfg.cull_empty_chunks
     with torch.no_grad():
         img = T.render_frame(ts, T.Camera.default("cpu", params.diffuse.dtype),
                              tcfg)
@@ -236,6 +243,52 @@ def test_culled_chunk_vjp_matches_jax_grad(dtype):
     assert max(np.abs(a).max() for a in want) > 0
     for f, a, b in zip(FIELDS, got, want):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8, err_msg=f)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_culled_chunk_vjp_matches_jax_grad(dtype):
+    """The culled chunk loop's gradient against JAX's through lax.map of
+    lax.cond (``_chunk_loop_grads_against_jax``)."""
+    _chunk_loop_grads_against_jax(dtype, cull=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_unculled_chunk_vjp_matches_jax_grad(dtype):
+    """The unculled chunk loop's gradient (every chunk a trip of both
+    loops) against JAX's through lax.map (``_chunk_loop_grads_against_jax``)."""
+    _chunk_loop_grads_against_jax(dtype, cull=False)
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["unculled", "culled"])
+def test_chunk_loop_ray_gradients_match_unchunked(cull):
+    """The chunk loop's gradient with respect to the rays themselves (each
+    trip writes its chunk's rows; a culled chunk's stay zero) against the
+    unchunked frame's, in float64: a ray's gradient takes only its own
+    operations, so they agree to rtol 1e-12."""
+    from raytracebvh_tpu_torch import pipeline as tp
+
+    ts = _float64(t_random(60, device="cpu", seed=11, with_texture=True))
+    cfg = T.RenderConfig(width=32, height=32, bounces=1, ortho_scale=0.05,
+                         ray_chunk=128, dtype="float64",
+                         texture_dtype="float32", cull_empty_chunks=cull)
+    cam = T.Camera.default("cpu", torch.float64)
+    bvh, rays, _ = tp.frame_inputs(ts, cam, cfg)
+    w = torch.randn(32 * 32, 4, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5))
+    out = []
+    for run in (cfg, cfg.replace(ray_chunk=0)):
+        o, d = (x.detach().clone().requires_grad_(True)
+                for x in (rays.origin, rays.direction))
+        color = tp.shade_rays(ts, bvh, T.Rays(o, d), run)
+        (color * w).sum().backward()
+        out.append((color.detach(), o.grad, d.grad))
+    (c1, o1, d1), (c0, o0, d0) = out
+    assert torch.equal(c1, c0)
+    hit = (c0 - torch.tensor(cfg.background, dtype=c0.dtype)).abs().ge(
+        1e-6).any(-1)
+    assert bool(hit.any()) and float(o0[hit].abs().max()) > 0
+    for a, b in ((o1, o0), (d1, d0)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=0)
 
 
 # tests/test_grad.py::test_train_step_lr_takes_effect's scene and frame
