@@ -46,11 +46,14 @@ Phases (one line of output each, or more):
      through K5/K7/K8, held to the plain path given its kernels' float32
      casts); every
      kernel's launch count over each frame (counts set to 0 just before
-     it, read just after; a culled frame's a walk a chunk and a loop
-     body's trip a shaded chunk); frame ms and Mrays/s (median of 5 after one
-     warm-up); each image but sparse's and large's against the
+     it, read just after; a culled frame's one walk for every chunk and a
+     loop body's trip a shaded chunk); frame ms and Mrays/s (median of 5
+     after one warm-up); each image but sparse's and large's against the
      all-plain-PyTorch render, and dense_onchip's against the same config
-     through K1/K4/K2/lax, bit for bit
+     through K1/K4/K2/lax, bit for bit; the dense frame with
+     traversal_chunk 25 600 and 1 000 (which does not divide the rays),
+     eager and through render_frame_jit, each bit for bit the dense image
+     with its launches (K1 2: a kernel route ignores the chunk)
   5. training: models.inverse.loss_fn + backward() and train_step on
      sparse_train (bench.py:319-320's cfg_bwd), dense_train, onchip_train
      and sparse_train_culled (the sparse frame's config: the chunk loop
@@ -133,7 +136,10 @@ Phases (one line of output each, or more):
      GRAPHED_LOSS_RTOL; K3 twice a replayed step, twice a shaded chunk;
      the culled step's two loops' trip counters the hit chunks);
      graphed and eager ms side by side (median of 5 after a warm-up),
-     capture ms, graph-pool bytes and peak device memory
+     capture ms, graph-pool bytes and peak device memory; then the
+     optimizer dropped and the step captured for a second one: the
+     device memory reserved with each graph and after each drop (the
+     graph goes with its optimizer: both drops leave the same bytes)
  12. culled replays: the seven culled graphs of phases 8, 10 and 11
      (render_frame_jit, render_sharded and render_geo_sharded on the
      sparse frames, train_step_jit and train_step_sharded on
@@ -158,6 +164,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -299,8 +306,9 @@ def train_frames(frames):
     aimed with ortho_scale=27 (frames_on says why); onchip_train is
     dense_train through the on-chip kernels K5, K7 and K8;
     sparse_train_culled is the step on the sparse frame itself
-    (bench.py:76-77: ray_chunk=25600, culling on, default backends: K5 a
-    chunk, K2 and K3 on the shaded chunks, in the chunk loop)."""
+    (bench.py:76-77: ray_chunk=25600, culling on, default backends: one K5
+    launch for every chunk's primary walk, then K5, K2 and K3 on the
+    shaded chunks, in the chunk loop)."""
     small, cam, sparse = frames["sparse"]
     _, aimed, dense = frames["dense"]
     cfg_bwd = sparse.replace(ray_chunk=0, ray_tile=16, texture_dtype="uint8",
@@ -1235,19 +1243,19 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # 'shared'), and those that also gather with K7 and sort with K8
 ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
                 "dense_bf16_onchip", "onchip_train", "sparse_train_culled")
-# the culled chunk loop's kernels: K5 a chunk (its primary walk,
-# pipeline.trace_chunks) and a body a shaded chunk; a step's body is its
-# forward's trip and its backward's (pipeline._ChunkMap: the chunk's
+# the culled chunk loop's kernels: one K5 launch for every chunk's primary
+# walk (pipeline.trace_chunks) and a body a shaded chunk; a step's body is
+# its forward's trip and its backward's (pipeline._ChunkMap: the chunk's
 # forward recomputed and its VJP)
 CHUNK_BODY = {"sparse": dict(K5=1, K2=4), "sparse_shadows": dict(K6=1, K2=2),
               "sparse_train_culled": dict(K5=2, K2=8, K3=2)}
 
 
-def culled_routes(name, nchunks, shaded):
-    """K -> launches of the culled config ``name`` over ``nchunks`` chunks
-    of which ``shaded`` are shaded."""
+def culled_routes(name, shaded):
+    """K -> launches of the culled config ``name`` of whose chunks
+    ``shaded`` are shaded."""
     want = dict.fromkeys(KERNELS, 0)
-    want["K5"] = nchunks
+    want["K5"] = 1
     for k, v in CHUNK_BODY[name].items():
         want[k] += shaded * v
     return want
@@ -1271,7 +1279,7 @@ def check_trips(what, captured, name, want):
     return trips
 
 
-def culled_replay_routes(call, captured, name, want, nchunks, tries=5):
+def culled_replay_routes(call, captured, name, want, tries=5):
     """(K -> launches, trip counters, kernel records) of one replay of the
     graph of the culled config ``name`` (``call``; ``captured`` its
     graphs.Captured), whose eager call launches ``want``.  torch.profiler
@@ -1284,7 +1292,7 @@ def culled_replay_routes(call, captured, name, want, nchunks, tries=5):
     replay) give the trips; the launches, the trace's and, where it held
     one trip a loop, the further trips' bodies, are held to ``want``."""
     shaded = want["K2"] // CHUNK_BODY[name]["K2"]
-    once = culled_routes(name, nchunks, min(shaded, 1))
+    once = culled_routes(name, min(shaded, 1))
     seen, total, _ = replay_routes(call, (want, once), tries)
     trips = check_trips(name, captured, name, want)
     ran = seen
@@ -1295,13 +1303,13 @@ def culled_replay_routes(call, captured, name, want, nchunks, tries=5):
     return ran, trips, total
 
 
-def capture_routes(name, want, in_graph, nchunks):
+def capture_routes(name, want, in_graph):
     """K -> launches of a capture of the case ``name`` whose call launches
     ``want``: its eager warm-up's (which shades at least one chunk of a
     culled loop) and the graph's, ``in_graph``."""
     warm = want
     if name in CHUNK_BODY:
-        warm = culled_routes(name, nchunks, max(
+        warm = culled_routes(name, max(
             want["K2"] // CHUNK_BODY[name]["K2"], 1))
     return {k: warm[k] + in_graph[k] for k in KERNELS}
 
@@ -1310,7 +1318,7 @@ def shaded_chunks(name, n, nchunks):
     """The shaded chunks that the launch counts ``n`` of the culled config
     ``name`` show; fails unless ``n`` is ``culled_routes`` of them."""
     shaded = n["K2"] // CHUNK_BODY[name]["K2"]
-    want = culled_routes(name, nchunks, shaded)
+    want = culled_routes(name, shaded)
     check(n == want and 0 < shaded < nchunks,
           f"{name}: launches {n}, not {shaded} shaded of {nchunks} chunks' "
           f"{want}")
@@ -1396,10 +1404,9 @@ def phase_main_path(frames):
         else:
             check(n[anyk] == 1, f"{name}: {n[anyk]} {anyk} launches, not 1")
         if cfg.ray_chunk:
-            # a primary walk a chunk, a body a shaded chunk
-            nchunks = W * H // cfg.ray_chunk
+            # one primary walk for every chunk, a body a shaded chunk
             shaded = int(hits.reshape(-1, cfg.ray_chunk).any(-1).sum())
-            want = culled_routes(name, nchunks, shaded)
+            want = culled_routes(name, shaded)
             check(n == want, f"{name}: launches {n}, {shaded} shaded "
                   f"chunks' {want}")
         if cfg.enable_refraction:
@@ -1455,6 +1462,49 @@ def phase_main_path(frames):
     return totals, images, per_frame
 
 
+# traversal_chunk on the dense frame: one that divides the 2 073 600 rays
+# and one that does not; a kernel route walks a pass in one launch
+# whatever the chunk (pipeline._traverse_ids)
+TRAVERSAL_CHUNKS = (25600, 1000)
+
+
+def phase_traversal_chunk(frames, images, frame_counts):
+    """The dense frame with each of TRAVERSAL_CHUNKS, eager and through
+    render_frame_jit (captured, then replayed): every image bit for bit
+    phase 4's dense image, the eager frame's launches the dense frame's
+    (K1 2: a launch a pass) and the capture's twice them (its warm-up
+    and its graph).  Returns the launch counts."""
+    from raytracebvh_tpu_torch import pipeline, render_frame_jit
+
+    scene, cam, cfg = frames["dense"]
+    want = frame_counts["dense"]
+    check(want["K1"] == 2, f"dense: K1 {want['K1']}, not a launch a pass")
+    totals = dict.fromkeys(KERNELS, 0)
+    for chunk in TRAVERSAL_CHUNKS:
+        run = cfg.replace(traversal_chunk=chunk)
+        img, n, _ = render_counted("dense", scene, cam, run)
+        pipeline.FRAME_GRAPHS.clear()
+        with torch.inference_mode():
+            graphed, n_capture = counted(
+                lambda: render_frame_jit(scene, cam, run))
+            replayed = render_frame_jit(scene, cam, run)
+        torch.cuda.synchronize()
+        pipeline.FRAME_GRAPHS.clear()
+        ndiff = [int((x != images["dense"]).any(-1).sum())
+                 for x in (img, graphed, replayed)]
+        log(f"  dense, traversal_chunk {chunk} ({W * H / chunk:g} chunks): "
+            f"pixels off phase 4's image {ndiff} (eager, capture, replay); "
+            f"launches eager {n}, capture {n_capture}")
+        check(ndiff == [0, 0, 0], f"dense, traversal_chunk {chunk}: pixels "
+              f"off phase 4's image {ndiff}")
+        check(n == want and n_capture == {k: 2 * v for k, v in want.items()},
+              f"dense, traversal_chunk {chunk}: launches eager {n}, capture "
+              f"{n_capture}, not {want} and twice it")
+        for k in totals:
+            totals[k] += n[k] + n_capture[k]
+    return totals
+
+
 def phase_train(train, shaded):
     """loss_fn + backward() and train_step at 1080p on each training
     frame (``shaded``: the culled step's shaded chunks, the sparse
@@ -1482,10 +1532,9 @@ def phase_train(train, shaded):
             # the same step with every chunk shaded and differentiated:
             # both loops visit every chunk
             unculled = cfg.replace(cull_empty_chunks=False)
-            nchunks = W * H // cfg.ray_chunk
             (loss_u, grads_u), n_u = counted(lambda: value_and_grad(
                 init_params(scene), scene, cam, target, unculled))
-            want_u = culled_routes(name, nchunks, nchunks)
+            want_u = culled_routes(name, W * H // cfg.ray_chunk)
             check(n_u == want_u, f"{name} unculled: launches {n_u}, not "
                   f"{want_u}")
             check(torch.equal(loss, loss_u),
@@ -1837,7 +1886,6 @@ def phase_culled_stage(frames):
     from raytracebvh_tpu_torch.utils import profiling
 
     scene, cam, cfg = frames["sparse"]
-    nchunks = W * H // cfg.ray_chunk
     reset_counts()
     with torch.no_grad():
         stages = profiling._graphed_stages(scene, cam, cfg)
@@ -1848,11 +1896,10 @@ def phase_culled_stage(frames):
         _, ne = counted(eager["trace_shade"])
     torch.cuda.synchronize()
     shaded = ne["K2"] // CHUNK_BODY["sparse"]["K2"]
-    check(ne == culled_routes("sparse", nchunks, shaded),
+    check(ne == culled_routes("sparse", shaded),
           f"trace_shade: eager launches {ne}")
     # trace_shade's and frame_total's warm-ups and captures
-    each = capture_routes("sparse", ne, culled_routes("sparse", nchunks, 1),
-                          nchunks)
+    each = capture_routes("sparse", ne, culled_routes("sparse", 1))
     check(n == {k: 2 * v for k, v in each.items()},
           f"trace_shade and frame_total: captures' launches {n}, not twice "
           f"{each}")
@@ -1976,9 +2023,9 @@ def no_host_reads(what):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def graph_routes(entry, case, name, want, call, nodes_want, nrays):
+def graph_routes(entry, case, name, want, call, nodes_want):
     """The hand-written kernels in the graph of ``case`` on the config
-    ``name`` over ``nrays`` rays: from its own kernel nodes
+    ``name``: from its own kernel nodes
     (CUDAGraph.debug_dump), held to ``nodes_want`` (a culled chunk loop's
     graph holds one loop body: ``check_culled_nodes``), and by
     torch.profiler over a replay (``call``), held to ``want``
@@ -1991,27 +2038,26 @@ def graph_routes(entry, case, name, want, call, nodes_want, nrays):
     if name not in CHUNK_BODY:
         check(not conds, f"{case}: conditional nodes {conds}")
         return replay_routes(call, want)[1], nk, []
-    check_culled_nodes(case, name, per, conds, nrays // SPARSE_CHUNK)
+    check_culled_nodes(case, name, per, conds)
     CULLED_WANT[case] = want
     return None, nk, check_trips(case, entry, name, want)
 
 
-def case_routes(name, n_eager, nrays, builds=1):
+def case_routes(name, n_eager, builds=1):
     """(the kernels a call of the case ``name`` launches, those its graph
     holds): ``SHARDED_LAUNCHES`` or ``step_routes`` ``builds`` times, or
-    for a culled chunk loop over ``nrays`` rays its eager body's, held to
-    ``culled_routes`` (a rank's shaded chunks are its own), and in the
-    graph one chunk's loop body."""
+    for a culled chunk loop its eager body's, held to ``culled_routes`` (a
+    rank's shaded chunks are its own), and in the graph one chunk's loop
+    body."""
     if name not in CHUNK_BODY:
         want = dict.fromkeys(KERNELS, 0)
         for k, v in (SHARDED_LAUNCHES.get(name) or step_routes(name)).items():
             want[k] = v * builds
         return want, want
-    nchunks = nrays // SPARSE_CHUNK
     check(n_eager == culled_routes(
-        name, nchunks, n_eager["K2"] // CHUNK_BODY[name]["K2"]),
+        name, n_eager["K2"] // CHUNK_BODY[name]["K2"]),
         f"{name}: eager launches {n_eager}")
-    return n_eager, culled_routes(name, nchunks, 1)
+    return n_eager, culled_routes(name, 1)
 
 
 def sharded_cases(frames, train, mesh, images, steps):
@@ -2045,18 +2091,17 @@ def sharded_cases(frames, train, mesh, images, steps):
         for k in totals:
             totals[k] += n[k]
 
-    def captured(what, name, n, n_replay, n_eager, cfg, builds=1):
+    def captured(what, name, n, n_replay, n_eager, builds=1):
         """The case's one capture after its two calls, its counts held;
-        returns it, the case's (want, nodes_want) and its rays."""
+        returns it and the case's (want, nodes_want)."""
         (entry,) = cache.entries.values()
-        nrays = prender._ray_rows(cfg, mesh) * W
-        want, in_graph = case_routes(name, n_eager, nrays, builds)
-        n_capture = capture_routes(name, want, in_graph, nrays // SPARSE_CHUNK)
+        want, in_graph = case_routes(name, n_eager, builds)
+        n_capture = capture_routes(name, want, in_graph)
         check(n_eager == want and n == n_capture
               and not any(n_replay.values()),
               f"{what}: launches eager {n_eager}, capture {n}, replay "
               f"{n_replay}; the case's {want}, its capture's {n_capture}")
-        return entry, want, in_graph, nrays
+        return entry, want, in_graph
 
     cache.debug = True
     try:
@@ -2069,8 +2114,8 @@ def sharded_cases(frames, train, mesh, images, steps):
                 img, n = counted(lambda: fn(scene, cam, cfg, mesh))
                 img2, n2 = counted(lambda: fn(scene, cam, cfg, mesh))
                 img_e, ne = counted(lambda: body(scene, cam, cfg, mesh))
-            entry, want, in_graph, nrays = captured(f"{fn_name} {name}", name,
-                                                    n, n2, ne, cfg)
+            entry, want, in_graph = captured(f"{fn_name} {name}", name, n,
+                                             n2, ne)
             ndiff = [int((x != images[name]).any(-1).sum())
                      for x in (img, img2, img_e)]
 
@@ -2081,8 +2126,7 @@ def sharded_cases(frames, train, mesh, images, steps):
             with no_host_reads(f"{fn_name} {name}"):
                 replay()
             kernels, nodes, trips = graph_routes(
-                entry, f"{fn_name} {name}", name, want, replay, in_graph,
-                nrays)
+                entry, f"{fn_name} {name}", name, want, replay, in_graph)
             log(f"  {fn_name} {name} (world {world}): pixels off "
                 f"render_frame's {ndiff} (capture's replay, a replay, eager "
                 f"body); launches eager {ne}, capture {n}; one graph, "
@@ -2112,8 +2156,7 @@ def sharded_cases(frames, train, mesh, images, steps):
             (loss_e, grads_e), ne = counted(
                 lambda: step(prender._train_step_sharded))
             what = f"train_step_sharded {name} grad_chunks={chunks}"
-            entry, want, in_graph, nrays = captured(what, name, n, n2, ne,
-                                                    cfg, chunks)
+            entry, want, in_graph = captured(what, name, n, n2, ne, chunks)
             loss_r, grads_r = steps[name] if chunks == 1 else ref[name]
             against = "loss_fn" if chunks == 1 else "grad_chunks=1"
             log(f"  {what} (world {world}): loss {float(loss)!r} (a replay "
@@ -2140,7 +2183,7 @@ def sharded_cases(frames, train, mesh, images, steps):
                 step()
             kernels, nodes, trips = graph_routes(
                 entry, f"train_step_sharded {name}", name, want, step,
-                in_graph, nrays)
+                in_graph)
             check(torch.equal(step()[0], loss2),
                   f"{what}: a later replay's loss off the first replays'")
             if name in CHUNK_BODY:
@@ -2346,7 +2389,7 @@ def dump_routes(graph):
     return routes({n: 1 for n in kernels}), len(kernels), per, conds
 
 
-def check_culled_nodes(what, name, per_graph, conds, nchunks):
+def check_culled_nodes(what, name, per_graph, conds):
     """The graph of the culled config ``name`` from its own nodes
     (``dump_routes``): the captured graph holds the primary walks alone,
     its loop bodies (WHILE nodes' body graphs: a frame's one, a step's
@@ -2359,9 +2402,9 @@ def check_culled_nodes(what, name, per_graph, conds, nchunks):
         if g != top:
             for k in KERNELS:
                 bodies[k] += r[k]
-    front = culled_routes(name, nchunks, 0)
-    one = {k: v - front[k] for k, v in culled_routes(name, nchunks, 1).items()}
-    loops = len(loop_trips(name, culled_routes(name, nchunks, 1)))
+    front = culled_routes(name, 0)
+    one = {k: v - front[k] for k, v in culled_routes(name, 1).items()}
+    loops = len(loop_trips(name, culled_routes(name, 1)))
     check(per_graph[top] == front and bodies == one
           and len(per_graph) == 1 + loops and conds == ["WHILE"] * loops,
           f"{what}: graph {per_graph[top]} and {len(per_graph) - 1} loop "
@@ -2376,7 +2419,7 @@ def step_routes(name, shaded=None):
     it; for the culled step, ``culled_routes`` with ``shaded`` of its
     chunks shaded."""
     if name in CHUNK_BODY:
-        return culled_routes(name, W * H // SPARSE_CHUNK, shaded)
+        return culled_routes(name, shaded)
     want = dict.fromkeys(KERNELS, 0)
     if name in ONCHIP_ALL:
         want.update(K5=2, K7=2, K2=2, K3=2, K8=1)
@@ -2429,10 +2472,9 @@ def graphed_frame(name, frame_args, image, want):
     # loop's trip counter, the shaded chunks)
     in_graph, trips = want, []
     if cfg.ray_chunk:
-        nchunks = W * H // cfg.ray_chunk
-        in_graph = culled_routes(name, nchunks, 1)
+        in_graph = culled_routes(name, 1)
         trips = check_trips(f"graphed {name}", frame, name, want)
-        check(n == capture_routes(name, want, in_graph, nchunks),
+        check(n == capture_routes(name, want, in_graph),
               f"graphed {name}: warm-up and capture launches {n}")
 
     def call():
@@ -2443,7 +2485,7 @@ def graphed_frame(name, frame_args, image, want):
     check(nodes == in_graph,
           f"graphed {name}: graph nodes {nodes}, not {in_graph}")
     if cfg.ray_chunk:
-        check_culled_nodes(f"graphed {name}", name, per, conds, nchunks)
+        check_culled_nodes(f"graphed {name}", name, per, conds)
         CULLED_WANT[f"render_frame_jit {name}"] = want
         seen, kernels, device_ms = "in phase 12", None, cuda_ms(call)
         check_trips(f"graphed {name}", frame, name, want)
@@ -2482,7 +2524,6 @@ def graphed_step(name, step_args, shaded):
     sync-debug mode "error"; peak device memory of a graphed and an eager
     step.  Returns its row and
     the launch counts of its warm-up and capture."""
-    from raytracebvh_tpu_torch import graphs
     from raytracebvh_tpu_torch.models import inverse
 
     scene, cam, cfg = step_args
@@ -2503,7 +2544,7 @@ def graphed_step(name, step_args, shaded):
     pg = inverse.init_params(scene)
     og = inverse.make_optimizer(pg, 1e-2, capturable=True)
     # keep the step's graph for its dump (CUDAGraph.debug_dump)
-    inverse._STEP_GRAPHS.setdefault(og, graphs.Cache()).debug = True
+    inverse.step_graphs(og).debug = True
     reset_counts()
     lg, sg = [], []
     for _ in range(TRAIN_STEPS):
@@ -2539,20 +2580,20 @@ def graphed_step(name, step_args, shaded):
     check(all(abs(float(a) - float(b)) <= GRAPHED_LOSS_RTOL * abs(float(b))
               for a, b in zip(lg, le)),
           f"graphed {name}: losses off the default Adam's eager losses")
-    (entry,) = inverse._STEP_GRAPHS[og].entries.values()
+    (entry,) = inverse.step_graphs(og).entries.values()
     want = step_routes(name, shaded)
-    in_graph, nchunks, trips = want, W * H // max(cfg.ray_chunk, 1), []
+    in_graph, trips = want, []
     if name in CHUNK_BODY:
-        in_graph = culled_routes(name, nchunks, 1)
+        in_graph = culled_routes(name, 1)
         trips = check_trips(f"graphed {name}", entry.captured, name, want)
-    n_capture = capture_routes(name, want, in_graph, nchunks)
+    n_capture = capture_routes(name, want, in_graph)
     check(n == n_capture, f"graphed {name}: warm-up and capture launches "
           f"{n}, not {n_capture}")
     nodes, nk, per, conds = dump_routes(entry.captured.graph)
     check(nodes == in_graph,
           f"graphed {name}: graph nodes {nodes}, not {in_graph}")
     if name in CHUNK_BODY:
-        check_culled_nodes(f"graphed {name}", name, per, conds, nchunks)
+        check_culled_nodes(f"graphed {name}", name, per, conds)
         CULLED_WANT[f"train_step_jit {name}"] = want
         seen = "in phase 12"
 
@@ -2590,7 +2631,56 @@ def graphed_step(name, step_args, shaded):
         f"{peak['graphed']}; {nk} kernel nodes, trip counters {trips}; a "
         f"replay {kernels} kernels, {device_ms:.3f} ms (CUDA events for the "
         f"culled step, else device time)")
+    # the caller drops the optimizer: its graph goes with it
+    held = released()
+    del entry, cap, call, fn, pg, og
+    row["reserved_bytes"] = optimizer_lifetime(name, step_args, lg[0], held)
     return row, n
+
+
+def released() -> int:
+    """The device memory reserved once unreachable objects are collected
+    (an optimizer and its step graphs are a reference cycle) and the
+    allocator's free blocks given back."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def optimizer_lifetime(name, step_args, loss0, held):
+    """train_step_jit for a second optimizer on ``name``, after the
+    caller (graphed_step) dropped the first, which held ``held`` bytes
+    reserved with its graph: the bytes reserved once the first is
+    collected, with the second's graph, and once that is dropped.  Each
+    graph goes with its optimizer, so the first drop gives bytes back and
+    the two drops leave the same bytes; the second step's loss is the
+    first optimizer's first loss (``loss0``) bit for bit."""
+    from raytracebvh_tpu_torch.models import inverse
+
+    scene, cam, cfg = step_args
+    target = torch.zeros((H, W, 4), device=scene.device)
+    reserved = [held, released()]
+    params = inverse.init_params(scene)
+    opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+    loss = inverse.train_step_jit(params, opt, scene, cam, target, cfg,
+                                  lr=1e-2)
+    same = torch.equal(loss, loss0)
+    reserved.append(released())
+    del loss, params, opt
+    reserved.append(released())
+    log(f"  graphed {name}, a second optimizer: reserved bytes with the "
+        f"first's graph {reserved[0]}, after it was dropped {reserved[1]}, "
+        f"with "
+        f"the second's graph {reserved[2]}, after it was dropped "
+        f"{reserved[3]}; its first loss "
+        f"{'the first optimizer' if same else 'NOT the first optimizer'}'s "
+        "bits")
+    check(same, f"graphed {name}: a second optimizer's first loss off")
+    check(reserved[0] > reserved[1] == reserved[3] < reserved[2],
+          f"graphed {name}: reserved bytes {reserved} (first held, dropped, "
+          "second held, dropped): a dropped optimizer's graph kept")
+    return reserved
 
 
 def phase_graphed(frames, train, images, frame_counts, shaded):
@@ -2651,7 +2741,7 @@ def culled_call(case: str, frames, train, mesh):
     elif fn_name == "train_step_jit":
         params = inverse.init_params(scene)
         opt = inverse.make_optimizer(params, 1e-2, capturable=True)
-        caches = lambda: inverse._STEP_GRAPHS[opt]  # noqa: E731
+        caches = lambda: inverse.step_graphs(opt)  # noqa: E731
 
         def call():
             inverse.train_step_jit(params, opt, scene, cam, target, cfg,
@@ -2692,7 +2782,7 @@ def replay_kernels(case: str, want: dict) -> int:
             mesh = pmesh.make_mesh()
         call, captured = culled_call(case, frames, train_frames(frames), mesh)
         ran, trips, records = culled_replay_routes(
-            call, captured, case.split()[1], want, W * H // SPARSE_CHUNK)
+            call, captured, case.split()[1], want)
         ms = cuda_ms(call)
     except SmokeFailure as e:
         return fail(str(e))
@@ -2855,6 +2945,9 @@ def main() -> int:
         launches, images, frame_counts = phase_main_path(frames)
         shaded = shaded_chunks("sparse", frame_counts["sparse"],
                                W * H // SPARSE_CHUNK)
+        for k, v in phase_traversal_chunk(frames, images,
+                                          frame_counts).items():
+            launches[k] += v
         phase_done(4)
         log("phase 5 training:")
         counts, steps = phase_train(train, shaded)

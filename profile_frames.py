@@ -25,16 +25,19 @@ frame's.  A culled chunked frame (sparse, sparse_shadows: 81 ray chunks
 of 25 600) is first replayed without the profiler at three shares of its
 chunks hit (``culled_replays``).  ``--culled`` times only that, and the
 culled training step beside the unculled chunked one (``culled_steps``),
-without the profiler: give each config a process of its own
-(``--culled --configs sparse``), since a graph captured after a
-torch.profiler trace in the same process can replay slower.  Run from
-another checkout's root, with this script and chip_smoke.py copied
-there, to measure that commit.  Exits non-zero without a CUDA device.
+and the dense frame with ``traversal_chunk`` 25 600 beside the unchunked
+one (``chunked_walks``), without the profiler: give each config a
+process of its own (``--culled --configs sparse``), since a graph
+captured after a torch.profiler trace in the same process can replay
+slower.  Run from another checkout's root, with this script and
+chip_smoke.py copied there, to measure that commit.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -66,6 +69,8 @@ KERNELS = {"K1": ("traverse_kernel<false>",),
 PASSES = {"K3": 3}
 # culled_replays: captures a case, and timed replays a capture
 CULLED_CAPTURES, CULLED_REPS = 3, 20
+# chunked_walks: the dense frame's traversal_chunk (81 chunks at 1080p)
+TRAVERSAL_CHUNK = 25600
 
 
 def kernel_events(trace_path):
@@ -121,7 +126,7 @@ def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
                     f", build alone {build_ms:.2f} ms")
         profile_run(f"{name} graphed", graphed, nframes, top)
         if train:
-            (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+            (entry,) = step_graphs(opt).entries.values()
             entry = entry.captured
         else:
             (entry,) = pipeline.FRAME_GRAPHS.entries.values()
@@ -201,6 +206,17 @@ def trips_of(entry):
     return [int(t) for t in getattr(entry, "trips", ())]
 
 
+def step_graphs(opt):
+    """``train_step_jit``'s captures for ``opt``: ``inverse.step_graphs``,
+    or on a commit before it the module-global dictionary."""
+    from raytracebvh_tpu_torch import graphs
+    from raytracebvh_tpu_torch.models import inverse
+
+    if hasattr(inverse, "step_graphs"):
+        return inverse.step_graphs(opt)
+    return inverse._STEP_GRAPHS.setdefault(opt, graphs.Cache())
+
+
 def kernel_nodes(entry):
     """(kernel nodes in all, graphs) of a graphs.Captured made with
     ``debug``: the captured graph and each conditional node's body."""
@@ -216,7 +232,6 @@ def culled_steps(name, scene, cam, cfg):
     counters; one more capture kept for its kernel nodes; eager
     ``loss_fn`` + ``backward()`` (host clock, median of 5), and the peak
     device memory of an eager and a graphed step."""
-    from raytracebvh_tpu_torch import graphs
     from raytracebvh_tpu_torch.models import inverse
 
     target = torch.zeros((H, W, 4), device=scene.device)
@@ -224,18 +239,19 @@ def culled_steps(name, scene, cam, cfg):
                       ("unculled", cfg.replace(cull_empty_chunks=False))):
         rows = []
         for k in range(CULLED_CAPTURES + 1):
+            gc.collect()  # the last capture's optimizer and its graph
             torch.cuda.empty_cache()
             params = inverse.init_params(scene)
             opt = inverse.make_optimizer(params, 1e-2, capturable=True)
             debug = k == CULLED_CAPTURES
-            inverse._STEP_GRAPHS.setdefault(opt, graphs.Cache()).debug = debug
+            step_graphs(opt).debug = debug
 
             def step():
                 inverse.train_step_jit(params, opt, scene, cam, target, run,
                                        lr=1e-2)
 
             step()
-            (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+            (entry,) = step_graphs(opt).entries.values()
             entry = entry.captured
             if debug:
                 nodes = kernel_nodes(entry)
@@ -262,6 +278,46 @@ def culled_steps(name, scene, cam, cfg):
               f"{eager_ms:.2f} ms, peak {peak} bytes; graphed "
               f"({nodes[0]} kernel nodes in {nodes[1]} graphs) replay by "
               f"capture: " + "; ".join(rows), flush=True)
+
+
+def chunked_walks(name, scene, cam, cfg):
+    """The frame ``cfg`` with ``traversal_chunk`` TRAVERSAL_CHUNK and
+    without: eager ``render_frame`` (host clock, median of 5) and
+    ``render_frame_jit`` (``CULLED_CAPTURES`` captures, each replayed
+    ``CULLED_REPS`` times, median ms by CUDA events), the graph's kernel
+    nodes, and whether the chunked image is the unchunked one's bits."""
+    from raytracebvh_tpu_torch import pipeline, render_frame, render_frame_jit
+
+    images = []
+    for chunk in (TRAVERSAL_CHUNK, 0):
+        run = cfg.replace(traversal_chunk=chunk)
+        with torch.inference_mode():
+            images.append(render_frame(scene, cam, run))
+            eager_ms = wall_ms(lambda: render_frame(scene, cam, run))
+        rows = []
+        for k in range(CULLED_CAPTURES + 1):
+            pipeline.FRAME_GRAPHS.clear()
+            torch.cuda.empty_cache()
+            pipeline.FRAME_GRAPHS.debug = k == CULLED_CAPTURES
+            with torch.inference_mode():
+                render_frame_jit(scene, cam, run)
+            (entry,) = pipeline.FRAME_GRAPHS.entries.values()
+            if pipeline.FRAME_GRAPHS.debug:  # one more, for its nodes
+                nodes = kernel_nodes(entry)
+                break
+            with torch.inference_mode():
+                ms = replay_ms(lambda: render_frame_jit(scene, cam, run),
+                               CULLED_REPS)
+            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
+                        f"pool {entry.pool_bytes} bytes)")
+        pipeline.FRAME_GRAPHS.debug = False
+        pipeline.FRAME_GRAPHS.clear()
+        print(f"   {name}, traversal_chunk {chunk}: eager {eager_ms:.2f} ms; "
+              f"graphed ({nodes[0]} kernel nodes) replay by capture: "
+              + "; ".join(rows), flush=True)
+    same = torch.equal(images[0], images[1])
+    print(f"   {name}: the chunked image is "
+          f"{'' if same else 'NOT '}the unchunked one's bits", flush=True)
 
 
 def profile_run(name, run, nframes, top, extra=""):
@@ -318,7 +374,8 @@ def main(argv=None) -> int:
                         "(default: all)")
     p.add_argument("--culled", action="store_true",
                    help="only the culled configs' graphed replays and "
-                        "steps, without the profiler")
+                        "steps and the dense frame's traversal_chunk, "
+                        "without the profiler")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device visible", file=sys.stderr)
@@ -345,6 +402,8 @@ def main(argv=None) -> int:
             elif cfg.ray_chunk and cfg.cull_empty_chunks:
                 (culled_steps if is_train else culled_replays)(
                     name, scene, cam, cfg)
+            elif name == "dense":
+                chunked_walks(name, scene, cam, cfg)
     return 0
 
 

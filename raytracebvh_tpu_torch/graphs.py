@@ -491,6 +491,13 @@ def _abandon(device: torch.device, pool, bodies: _Bodies) -> None:
     bodies.release()
 
 
+# the side stream that every cache warms up and captures on, one a
+# device: a stream that has run a cuBLAS call keeps its workspace (32 MiB
+# on an H100) for the life of the process, so a stream a cache would keep
+# one a cache, also after the cache and its graphs are gone
+_capture_streams: dict = {}
+
+
 class Cache:
     """Captured calls by key (``signature``), the least recently used
     dropped beyond ``max_entries`` (a 1080p frame's graph holds about its
@@ -504,7 +511,6 @@ class Cache:
         self.debug = False
         self.capture_error_mode = capture_error_mode
         self.entries = collections.OrderedDict()
-        self._stream = {}
 
     def options(self) -> dict:
         """``Captured``'s keyword arguments for this cache's captures."""
@@ -512,10 +518,11 @@ class Cache:
                     capture_error_mode=self.capture_error_mode)
 
     def stream(self, device: torch.device) -> torch.cuda.Stream:
-        """The side stream this cache warms up and captures on."""
-        if device not in self._stream:
-            self._stream[device] = torch.cuda.Stream(device)
-        return self._stream[device]
+        """The side stream this cache warms up and captures on, every
+        cache's on ``device`` (``_capture_streams``)."""
+        if device not in _capture_streams:
+            _capture_streams[device] = torch.cuda.Stream(device)
+        return _capture_streams[device]
 
     def call(self, key, fn, inputs: tuple):
         """``fn(*inputs)`` replayed from the capture for ``key``, made on a

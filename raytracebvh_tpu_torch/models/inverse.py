@@ -31,7 +31,6 @@ the graphed step's bits.
 
 from __future__ import annotations
 
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -160,8 +159,17 @@ def train_step(params: InverseParams, optimizer, scene: Scene,
     return loss.detach()
 
 
-# train_step_jit's captures: per optimizer (dropped with it), by signature
-_STEP_GRAPHS = weakref.WeakKeyDictionary()
+def step_graphs(optimizer) -> graphs.Cache:
+    """``train_step_jit``'s captures for ``optimizer``, by signature, held by
+    the optimizer itself: a captured step closes over its optimizer, so a
+    cache held anywhere else would keep the optimizer alive, and with it
+    every graph and pool it captured.  Held here they form one cycle with
+    it, which the collector frees once the caller drops the optimizer."""
+    cache = getattr(optimizer, "_raytracebvh_step_graphs", None)
+    if cache is None:
+        cache = graphs.Cache()
+        optimizer._raytracebvh_step_graphs = cache
+    return cache
 
 
 class _GraphedStep:
@@ -243,7 +251,7 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
             "lr, capturable=True) over these parameters")
     key = graphs.signature(cfg, scene, camera, target,
                            tuple(p.data_ptr() for p in params))
-    cache = _STEP_GRAPHS.setdefault(optimizer, graphs.Cache())
+    cache = step_graphs(optimizer)
     step = cache.get(key, lambda: _GraphedStep(
         params, optimizer, scene, camera, target, cfg,
         cache.stream(params.vert_offsets.device), **cache.options()))

@@ -164,24 +164,31 @@ def resolve_traversal_backend(cfg: RenderConfig, n_leaves: int,
 
 
 def _walks(bvh: BVH, cfg: RenderConfig):
-    """The (nearest-hit, any-hit) traversals that cfg's backend resolves
-    to for ``bvh``."""
+    """(the backend cfg resolves to for ``bvh``, its nearest-hit walk, its
+    any-hit walk)."""
     backend = resolve_traversal_backend(cfg, bvh.n_leaves, bvh.prim.device)
     if backend == "shared":
-        return traverse_shared_cuda.traverse, traverse_shared_cuda.traverse_any
-    return (traverse_cuda.traverse_for(backend),
+        return (backend, traverse_shared_cuda.traverse,
+                traverse_shared_cuda.traverse_any)
+    return (backend, traverse_cuda.traverse_for(backend),
             traverse_cuda.traverse_any_for(backend))
 
 
 def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig) -> HitRecord:
-    """Traversal behind a detach boundary: the ids are discrete."""
+    """Traversal behind a detach boundary: the ids are discrete.  The plain
+    lock-step walk ('torch') runs in sequential chunks of
+    ``cfg.traversal_chunk`` rays, which must divide the ray count, as the
+    JAX package's ``jnp`` walk does: a chunk bounds the lock-step penalty
+    and the walk's live state.  A kernel walk ('cuda', 'shared') takes
+    every ray in one call and ignores ``traversal_chunk``, as the JAX
+    package's Pallas walks do: its rays are independent."""
     bvh = bvh.detach()
     rays = Rays(origin=rays.origin.detach().contiguous(),
                 direction=rays.direction.detach().contiguous())
-    traverse = _walks(bvh, cfg)[0]
+    backend, traverse, _ = _walks(bvh, cfg)
     nrays = rays.origin.shape[0]
     chunk = cfg.traversal_chunk
-    if chunk > 0 and nrays > chunk:
+    if backend == "torch" and chunk > 0 and nrays > chunk:
         if nrays % chunk:
             raise ValueError(
                 f"traversal_chunk {chunk} must divide ray count {nrays}")
@@ -225,7 +232,7 @@ def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
     max_t = dist * (1.0 - 1e-4)
     # dead lanes (primary misses) start far outside every box
     so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
-    traverse_any = _walks(bvh, cfg)[1]
+    traverse_any = _walks(bvh, cfg)[2]
     occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
                        max_t.contiguous(), cfg.max_traversal_steps)
     occ = occ & rec.hit
@@ -488,13 +495,24 @@ def chunk_rays(rays: Rays, i: int, chunk: int) -> Rays:
 
 
 def trace_chunks(bvh: BVH, rays: Rays, cfg: RenderConfig):
-    """Every ray chunk's primary traversal (a launch a chunk) -> (the
-    chunks' hit records stacked as [chunks, ray_chunk] tensors, [chunks]
-    bool device tensor: whether any of the chunk's rays hits)."""
-    recs = [_traverse_ids(bvh, chunk_rays(rays, i, cfg.ray_chunk), cfg)
-            for i in range(rays.origin.shape[0] // cfg.ray_chunk)]
-    rec = HitRecord(*(torch.stack([getattr(r, f) for r in recs])
-                      for f in ("hit", "distance", "leaf")))
+    """Every ray chunk's primary traversal -> (the chunks' hit records as
+    [chunks, ray_chunk] tensors, [chunks] bool device tensor: whether any
+    of the chunk's rays hits).  A kernel walk's rays are independent, so
+    on a kernel route one launch walks every chunk (the JAX package walks
+    a chunk in its ``lax.map`` body, which on the TPU also holds the
+    ``lax.cond``); the plain lock-step walk keeps a walk a chunk, which
+    bounds what the chunks bound."""
+    chunk = cfg.ray_chunk
+    nchunks = rays.origin.shape[0] // chunk
+    if _walks(bvh, cfg)[0] == "torch":
+        recs = [_traverse_ids(bvh, chunk_rays(rays, i, chunk), cfg)
+                for i in range(nchunks)]
+        rec = HitRecord(*(torch.stack([getattr(r, f) for r in recs])
+                          for f in ("hit", "distance", "leaf")))
+    else:
+        whole = _traverse_ids(bvh, rays, cfg)
+        rec = HitRecord(*(getattr(whole, f).reshape(nchunks, chunk)
+                          for f in ("hit", "distance", "leaf")))
     return rec, rec.hit.any(-1)
 
 

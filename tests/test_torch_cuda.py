@@ -1002,7 +1002,7 @@ def test_profiled_culled_replays_after_traces(dev):
         call()
         (entry,) = pipeline.FRAME_GRAPHS.entries.values()
         ran, trips, _ = cs.culled_replay_routes(call, entry, name, want,
-                                                nchunks, tries=1)
+                                                tries=1)
         assert ran == want and 0 < trips[0] < nchunks, (name, ran, trips)
     pipeline.FRAME_GRAPHS.clear()
 
@@ -1024,10 +1024,10 @@ def test_profiled_culled_replays_after_traces(dev):
                                              target, cfg, lr=1e-2))
 
     step()
-    (entry,) = inverse._STEP_GRAPHS[opt].entries.values()
+    (entry,) = inverse.step_graphs(opt).entries.values()
     for _ in range(3):
         ran, trips, _ = cs.culled_replay_routes(step, entry.captured, name,
-                                                want, nchunks, tries=1)
+                                                want, tries=1)
         assert ran == want and trips == [want["K3"] // 2] * 2, (ran, trips)
     step()
     assert cs.check_trips(name, entry.captured, name, want)
@@ -1063,6 +1063,123 @@ def test_culled_graph_gives_its_memory_back(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() == before, (before, held)
+
+
+def _walk_launches() -> dict:
+    from raytracebvh_tpu_torch.ops import traverse_cuda, traverse_shared_cuda
+
+    return {"K1": traverse_cuda.launches, "K4": traverse_cuda.any_launches,
+            "K5": traverse_shared_cuda.launches,
+            "K6": traverse_shared_cuda.any_launches}
+
+
+def _walks_since(start: dict) -> dict:
+    """The walk kernels launched since ``start`` (``_walk_launches``),
+    those launched at all."""
+    return {k: v - start[k] for k, v in _walk_launches().items()
+            if v != start[k]}
+
+
+@pytest.mark.parametrize("backend,walk", [("cuda", "K1"), ("shared", "K5")])
+def test_traversal_chunk_frame_is_the_unchunked_frame(dev, backend, walk):
+    """A kernel route walks each pass in one launch and ignores
+    traversal_chunk, as the JAX package's Pallas walks do: at 64x64 with a
+    bounce, a chunk that divides the 4 096 rays (512) and one that does
+    not (1 000) give the unchunked frame's bits, eager (two walk launches:
+    primary and bounce) and through render_frame_jit (its capture four:
+    warm-up and graph; its replay the same bits).  The plain walk still
+    refuses the chunk that does not divide."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+
+    scene, cam, cfg = _graph_frame_args(dev, traversal_backend=backend)
+    want = T.render_frame(scene, cam, cfg)
+    for chunk in (512, 1000):
+        run = cfg.replace(traversal_chunk=chunk)
+        start = _walk_launches()
+        got = T.render_frame(scene, cam, run)
+        assert torch.equal(got, want) and _walks_since(start) == {walk: 2}
+        pipeline.FRAME_GRAPHS.clear()
+        start = _walk_launches()
+        got = T.render_frame_jit(scene, cam, run)
+        assert torch.equal(got, want) and _walks_since(start) == {walk: 4}
+        assert torch.equal(T.render_frame_jit(scene, cam, run), want)
+        assert _walks_since(start) == {walk: 4}
+    pipeline.FRAME_GRAPHS.clear()
+    with pytest.raises(ValueError, match="must divide"):
+        T.render_frame(scene, cam, cfg.replace(traversal_backend="torch",
+                                               traversal_chunk=1000))
+
+
+def test_culled_frame_walks_its_chunks_in_one_launch(dev):
+    """trace_chunks walks every ray chunk in one K5 launch, with the plain
+    walk's records a chunk bit for bit; a culled frame with a bounce then
+    launches K5 once and once a shaded chunk (its bounce)."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch import pipeline
+
+    scene, cam, cfg = _graph_frame_args(dev, ray_chunk=256, ortho_scale=3.0)
+    bvh, rays, _ = pipeline.frame_inputs(scene, cam, cfg)
+    bvh = pipeline.shade_setup(scene, bvh, cfg)[0]
+    want, want_hit = pipeline.trace_chunks(
+        bvh, rays, cfg.replace(traversal_backend="torch"))
+    start = _walk_launches()
+    got, hit = pipeline.trace_chunks(bvh, rays, cfg)
+    assert _walks_since(start) == {"K5": 1}
+    _assert_same(got, want)
+    assert torch.equal(hit, want_hit)
+    shaded = int(hit.sum())
+    assert 0 < shaded < hit.shape[0]
+    start = _walk_launches()
+    T.render_frame(scene, cam, cfg)
+    assert _walks_since(start) == {"K5": 1 + shaded}
+
+
+def test_step_graph_goes_with_its_optimizer(dev):
+    """train_step_jit's graph is held by its optimizer: once the caller
+    drops the optimizer and its parameters, a collection gives back every
+    byte reserved for the capture (the graph's pool and its loops'
+    bodies'), as test_culled_graph_gives_its_memory_back has it for a
+    frame; a culled step, so that both pools are made.  A first
+    optimizer's capture makes what the capture stream keeps for the
+    process (its cuBLAS workspace), so a second one is measured."""
+    import gc
+    import weakref
+
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models import inverse
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+
+    scene = random_triangles(40, seed=11, extent=8.0, tri_size=2.0,
+                             with_texture=True, device=dev)
+    cam = T.Camera.default(dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=1.0,
+                         ray_chunk=32)
+    target = T.render_frame(scene, cam, cfg) * 0.8
+
+    def reserved():
+        gc.collect()  # the optimizer's cycle with its graphs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def capture():
+        """A step graph for a new optimizer: (a weak reference to the
+        optimizer, the bytes reserved while the caller holds it)."""
+        params = inverse.init_params(scene)
+        opt = inverse.make_optimizer(params, 1e-2, capturable=True)
+        inverse.train_step_jit(params, opt, scene, cam, target, cfg, lr=1e-2)
+        (entry,) = inverse.step_graphs(opt).entries.values()
+        assert entry.captured.pool_bytes > 0 and entry.captured.trips
+        return weakref.ref(opt), reserved()
+
+    gone, _ = capture()
+    before = reserved()
+    assert gone() is None
+    gone, held = capture()
+    after = reserved()
+    assert gone() is None
+    assert held > before and after == before, (before, held, after)
 
 
 def test_graphed_frame_recaptures_on_a_new_size(dev):
@@ -1149,7 +1266,7 @@ def test_graphed_steps_match_eager_steps(dev, chunk):
     p1, o1, l1 = run(inverse.train_step_jit, True, n=1, lr=1e-2)
     # one step, at the scene's own vertices: each loop ran a trip a hit
     # chunk of the frame there
-    (step,) = inverse._STEP_GRAPHS[o1].entries.values()
+    (step,) = inverse.step_graphs(o1).entries.values()
     trips = [int(t) for t in step.captured.trips]
     assert trips == ([int(chunk_hits.sum())] * 2 if chunk else []), trips
     pe, oe, le = run(inverse.train_step, False, n=1)
@@ -1159,7 +1276,7 @@ def test_graphed_steps_match_eager_steps(dev, chunk):
     before = [p.detach().clone() for p in pg]
     inverse.train_step_jit(pg, og, scene, cam, target, cfg, lr=0.0)
     assert all(torch.equal(p.detach(), b) for p, b in zip(pg, before))
-    assert len(inverse._STEP_GRAPHS[og].entries) == 1
+    assert len(inverse.step_graphs(og).entries) == 1
     with pytest.raises(ValueError, match="capturable"):
         inverse.train_step_jit(pe, oe, scene, cam, target, cfg)
 

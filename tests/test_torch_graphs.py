@@ -24,9 +24,10 @@ the CPU can show is held here:
   * the unchunked frame issuing no host read and no tensor literal
     outside the plain walks (a ``TorchDispatchMode`` guard), and the
     culled frame and step none but the chunk loop's count;
-  * ``train_step_jit`` equal to ``train_step`` (also culled), and a
+  * ``train_step_jit`` equal to ``train_step`` (also culled), a
     capturable Adam's state through ``adam_state`` /
-    ``optimizer_from_numpy``.
+    ``optimizer_from_numpy``, and its captures held by the optimizer,
+    freed with it (``inverse.step_graphs``).
 """
 
 import numpy as np
@@ -574,6 +575,31 @@ def test_capturable_optimizer_state_round_trips():
     fresh = inverse.make_optimizer(params, 0.05, capturable=True)
     count = inverse.adam_state(fresh, params)[0].count
     assert count == 0 and count.dtype == np.int32
+
+
+def test_step_graphs_let_their_optimizer_die():
+    """train_step_jit's captures are held by their optimizer
+    (``inverse.step_graphs``): an entry that closes over the optimizer, as
+    a captured step does, does not keep it alive once the caller drops
+    it; each optimizer has a cache of its own."""
+    import gc
+    import weakref
+
+    params = inverse.init_params(t_random(20, device="cpu", seed=1))
+    opt = inverse.make_optimizer(params, 0.05, capturable=True)
+    cache = inverse.step_graphs(opt)
+
+    def step_of(optimizer):
+        return lambda: optimizer.param_groups
+
+    entry = cache.get("step", lambda: step_of(opt))
+    assert inverse.step_graphs(opt) is cache and entry() is opt.param_groups
+    other = inverse.make_optimizer(params, 0.05, capturable=True)
+    assert inverse.step_graphs(other) is not cache
+    gone, held = weakref.ref(opt), weakref.ref(entry)
+    del opt, cache, entry
+    gc.collect()
+    assert gone() is None and held() is None
 
 
 def test_graph_signature_keys_like_jit():

@@ -13,9 +13,11 @@ import torch
 import raytracebvh_tpu as J
 from raytracebvh_tpu.core.types import scene_to_device
 from raytracebvh_tpu.models.procedural import random_triangles as j_random
+from raytracebvh_tpu.pipeline import render_frame as j_render_frame
 import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models.procedural import random_triangles as t_random
-from raytracebvh_tpu_torch.ops import gather_cuda, traverse_cuda
+from raytracebvh_tpu_torch.ops import (gather_cuda, traverse_cuda,
+                                       traverse_shared_cuda)
 
 W, H = 48, 32
 BASE = dict(width=W, height=H, bounces=1, ortho_scale=2.0)
@@ -73,6 +75,104 @@ def test_backends_agree_on_cpu_without_launching():
         texture_gather_backend="torch"))
     assert torch.equal(a, b)
     assert (traverse_cuda.launches, gather_cuda.launches) == (k1, k2)
+
+
+@pytest.mark.parametrize("num,w,h,chunk,ortho", [
+    (60, 16, 12, 7, 1.0),    # 7 does not divide the 192 rays
+    (300, 48, 32, 48, 2.0),  # 48 divides the 1 536 rays
+], ids=["chunk7_16x12", "chunk48_48x32"])
+@pytest.mark.parametrize("route,jax_route", [("cuda", "hbm"),
+                                             ("shared", "pallas")])
+def test_kernel_routes_ignore_traversal_chunk_as_jax(num, w, h, chunk, ortho,
+                                                     route, jax_route):
+    """traversal_chunk chunks the plain lock-step walk alone: the JAX
+    package's Pallas walks ('hbm', 'pallas'; interpret mode) take every
+    ray in one call whatever the chunk, and so do the port's kernel
+    routes ('cuda', 'shared'), so a chunk that does not divide the ray
+    count renders.  Against the eager JAX frame at atol 1e-5, the rule of
+    tests/test_torch_graphs.py (the jitted frame's FMAs move textured
+    pixels by up to 1e-4); the port's frame is also its unchunked frame
+    bit for bit."""
+    kw = dict(seed=1, with_texture=True)
+    js = scene_to_device(j_random(num, **kw))
+    ts = t_random(num, device="cpu", **kw)
+    base = dict(width=w, height=h, bounces=1, ortho_scale=ortho)
+    want = np.asarray(j_render_frame(js, J.Camera.default(), J.RenderConfig(
+        **base, traversal_chunk=chunk, traversal_backend=jax_route)))
+    cfg = T.RenderConfig(**base, traversal_backend=route)
+    got = T.render_frame(ts, T.Camera.default("cpu"),
+                         cfg.replace(traversal_chunk=chunk))
+    assert got.shape == (h, w, 4) and want.shape == (h, w, 4)
+    assert 0.05 < _hit_mask(want).mean() < 0.95
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert torch.equal(got, T.render_frame(ts, T.Camera.default("cpu"), cfg))
+
+
+def test_plain_route_chunk_must_divide_as_jax():
+    """The plain walk ('torch', JAX's 'jnp') runs in traversal_chunk
+    chunks, which must divide the ray count: both packages refuse 7 at
+    16x12."""
+    js, ts = _scenes()
+    kw = dict(width=16, height=12, bounces=0, traversal_chunk=7)
+    with pytest.raises(AssertionError, match="must divide"):
+        J.render_frame_jit(js, J.Camera.default(),
+                           J.RenderConfig(**kw, traversal_backend="jnp"))
+    with pytest.raises(ValueError, match="must divide ray count 192"):
+        T.render_frame(ts, T.Camera.default("cpu"),
+                       T.RenderConfig(**kw, traversal_backend="torch"))
+
+
+def _counted(monkeypatch, module, name, calls):
+    """Count the calls of ``module.name`` into ``calls[name]``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*args, **kw)
+
+    monkeypatch.setattr(module, name, wrapper)
+
+
+@pytest.mark.parametrize("route", ["cuda", "shared"])
+def test_kernel_route_walks_a_pass_in_one_call(monkeypatch, route):
+    """On a kernel route every pass is one call of the route's walk:
+    _traverse_ids whatever traversal_chunk, trace_chunks over every ray
+    chunk, and each pass of a frame (primary, bounce, shadow).  The
+    records equal the plain walk's, a walk a chunk, bit for bit."""
+    from raytracebvh_tpu_torch import pipeline as tp
+    from raytracebvh_tpu_torch.config import traversal_passes
+
+    module = traverse_shared_cuda if route == "shared" else traverse_cuda
+    _, ts = _scenes()
+    cfg = T.RenderConfig(**BASE, traversal_chunk=48, ray_chunk=96,
+                         enable_shadows=True, traversal_backend=route)
+    plain = cfg.replace(traversal_backend="torch")
+    bvh, rays, _ = tp.frame_inputs(ts, T.Camera.default("cpu"), cfg)
+    bvh = tp.shade_setup(ts, bvh, cfg)[0]
+    want = tp._traverse_ids(bvh, rays, plain)
+    want_recs, want_any = tp.trace_chunks(bvh, rays, plain)
+    calls = {}
+    _counted(monkeypatch, module, "traverse", calls)
+    _counted(monkeypatch, module, "traverse_any", calls)
+    got = tp._traverse_ids(bvh, rays, cfg)
+    assert calls == {"traverse": 1}
+    recs, any_hit = tp.trace_chunks(bvh, rays, cfg)
+    assert calls == {"traverse": 2}
+    for f in ("hit", "distance", "leaf"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert getattr(recs, f).shape == (W * H // 96, 96)
+        assert torch.equal(getattr(recs, f), getattr(want_recs, f)), f
+    assert torch.equal(any_hit, want_any)
+    assert bool(want_any.any()) and bool(want.hit.any())
+    calls.clear()
+    frame = cfg.replace(ray_chunk=0)
+    img = T.render_frame(ts, T.Camera.default("cpu"), frame)
+    assert calls == {"traverse": traversal_passes(frame) - 1,
+                     "traverse_any": 1}
+    monkeypatch.undo()
+    assert torch.equal(img, T.render_frame(ts, T.Camera.default("cpu"),
+                                           frame.replace(
+                                               traversal_backend="torch")))
 
 
 @pytest.mark.parametrize("scene_kw,cfg_kw", [
