@@ -29,8 +29,9 @@ and the dense frame with ``traversal_chunk`` 25 600 beside the unchunked
 one (``chunked_walks``), without the profiler: give each config a
 process of its own (``--culled --configs sparse``), since a graph
 captured after a torch.profiler trace in the same process can replay
-slower.  Run from another checkout's root, with this script and
-chip_smoke.py copied there, to measure that commit.  Exits non-zero
+slower.  Run from another checkout's root, with this script, chip_smoke.py
+and rtbench/tracing.py (its kernel names and busy union) copied there, to
+measure that commit.  Exits non-zero
 without a CUDA device.
 """
 
@@ -51,21 +52,11 @@ import torch
 
 from chip_smoke import (W, H, dump_routes, frames_on, train_frames,
                         value_and_grad, wall_ms)
+from rtbench.tracing import KERNELS, union_us
 
-# csrc/traverse.cu's walk is a template: <false> is K1, <true> is K4, and
-# so is csrc/traverse_shared.cu's for K5 and K6; K3 is csrc/scatter.cu's
-# three kernels (partials, fixed point, finish), one launch of its wrapper
-# each; K7 is one kernel, a template on its vector width; K8 is one kernel
-# a sort up to 16 384 codes (csrc/sort.cu), so its count is of kernels
-KERNELS = {"K1": ("traverse_kernel<false>",),
-           "K2": ("gather_f32_kernel", "gather_u8_kernel"),
-           "K3": ("scatter_partials_kernel", "scatter_fixed_kernel",
-                  "scatter_finish_kernel"),
-           "K4": ("traverse_kernel<true>",),
-           "K5": ("traverse_shared_kernel<false",),
-           "K6": ("traverse_shared_kernel<true",),
-           "K7": ("gather_cols_f32_kernel",),
-           "K8": ("::sort_tile_kernel<", "::merge_kernel<")}
+# K3 is csrc/scatter.cu's three kernels (partials, fixed point, finish),
+# one launch of its wrapper each
+
 PASSES = {"K3": 3}
 # culled_replays: captures a case, and timed replays a capture
 CULLED_CAPTURES, CULLED_REPS = 3, 20
@@ -80,17 +71,6 @@ def kernel_events(trace_path):
         events = json.load(f)["traceEvents"]
     return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
             if e.get("cat") == "kernel" and "dur" in e]
-
-
-def busy_us(kernels):
-    """Length of the union of the kernels' intervals."""
-    total, end = 0.0, float("-inf")
-    for _, ts, dur in sorted(kernels, key=lambda k: k[1]):
-        lo, hi = max(ts, end), ts + dur
-        if hi > lo:
-            total += hi - lo
-        end = max(end, hi)
-    return total
 
 
 def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
@@ -137,8 +117,9 @@ def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
             fn()
             torch.cuda.synchronize()
             peak.append(torch.cuda.max_memory_allocated())
-        print(f"   {name} graphed: capture {entry.capture_ms:.1f} ms, graph "
-              f"pool {entry.pool_bytes} bytes; peak device memory eager "
+        log = capture_of(entry)
+        print(f"   {name} graphed: capture {log.capture_ms:.1f} ms, graph "
+              f"pool {log.pool_bytes} bytes; peak device memory eager "
               f"{peak[0]} bytes, graphed {peak[1]}", flush=True)
     pipeline.FRAME_GRAPHS.clear()
 
@@ -187,8 +168,9 @@ def culled_replays(name, scene, cam, cfg):
             with torch.inference_mode():
                 ms = replay_ms(lambda: render_frame_jit(scene, c, run),
                                CULLED_REPS)
-            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
-                        f"pool {entry.pool_bytes} bytes, trips "
+            log = capture_of(entry)
+            rows.append(f"{ms:.2f} ms (capture {log.capture_ms:.0f} ms, "
+                        f"pool {log.pool_bytes} bytes, trips "
                         f"{trips_of(entry)})")
         pipeline.FRAME_GRAPHS.debug = False
         pipeline.FRAME_GRAPHS.clear()
@@ -198,6 +180,19 @@ def culled_replays(name, scene, cam, cfg):
         print(f"   {name} graphed, {case}: {hit} of {chunks.shape[0]} chunks "
               f"hit; {nodes[0]} kernel nodes in {nodes[1]} graphs; replay by "
               "capture: " + "; ".join(rows), flush=True)
+
+
+def capture_of(entry):
+    """The capture log's record of a ``graphs.Captured``
+    (``profiling.captures``: its capture and warm-up ms, its pool bytes);
+    on a commit before the log, the graph itself, which holds the first
+    two."""
+    from raytracebvh_tpu_torch.utils import profiling
+
+    if not hasattr(profiling, "captures"):
+        return entry
+    return next(r for r in reversed(profiling.captures(live=True))
+                if r.owner() is entry)
 
 
 def trips_of(entry):
@@ -262,8 +257,9 @@ def culled_steps(name, scene, cam, cfg):
             step()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
-            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
-                        f"pool {entry.pool_bytes} bytes, peak {peak} bytes, "
+            log = capture_of(entry)
+            rows.append(f"{ms:.2f} ms (capture {log.capture_ms:.0f} ms, "
+                        f"pool {log.pool_bytes} bytes, peak {peak} bytes, "
                         f"trips {trips_of(entry)})")
             del entry, step, params, opt
         eager = lambda: value_and_grad(inverse.init_params(scene), scene,
@@ -308,8 +304,9 @@ def chunked_walks(name, scene, cam, cfg):
             with torch.inference_mode():
                 ms = replay_ms(lambda: render_frame_jit(scene, cam, run),
                                CULLED_REPS)
-            rows.append(f"{ms:.2f} ms (capture {entry.capture_ms:.0f} ms, "
-                        f"pool {entry.pool_bytes} bytes)")
+            log = capture_of(entry)
+            rows.append(f"{ms:.2f} ms (capture {log.capture_ms:.0f} ms, "
+                        f"pool {log.pool_bytes} bytes)")
         pipeline.FRAME_GRAPHS.debug = False
         pipeline.FRAME_GRAPHS.clear()
         print(f"   {name}, traversal_chunk {chunk}: eager {eager_ms:.2f} ms; "
@@ -340,7 +337,7 @@ def profile_run(name, run, nframes, top, extra=""):
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             one = kernel_events(path)
-        busy += busy_us(one) / 1e3 / nframes
+        busy += union_us((ts, dur) for _, ts, dur in one) / 1e3 / nframes
         kernels += one
     per = defaultdict(lambda: [0.0, 0])
     for kname, _, dur in kernels:

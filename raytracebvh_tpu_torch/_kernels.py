@@ -75,6 +75,11 @@ _SIGNATURES = {
     "rtbvh_while_end": [ctypes.c_ulonglong, _P, _P, _P],
     # the new stream (out)
     "rtbvh_stream_create": [ctypes.POINTER(_P)],
+    # record buffer, span code, trip counter (int32, nullable), index,
+    # stream
+    "rtbvh_mark": [_P, _I, _P, _I, _P],
+    # record buffer, call id, stream
+    "rtbvh_mark_call": [_P, _L, _P],
 }
 
 _lib = None

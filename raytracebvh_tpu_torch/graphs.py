@@ -45,6 +45,13 @@ on it.
 ``Captured``'s warm-up runs both branches of every ``cond`` and every
 loop's body at least once, so that the bodies the capture records have
 run once eagerly (their lazily made constants made outside the capture).
+
+While ``utils.profiling.spans()`` is open, ``signature`` keys a
+spans-on graph apart (its capture holds the spans' marks), and the host's
+work around a replay is spanned: ``graphs.key``, ``graphs.copy_in``,
+``graphs.launch`` and ``graphs.copy_out``.  Spans off, each of those is
+a no-op ``with`` and the key is what it was without spans.  Every
+capture is logged (``profiling.captures``).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import weakref
 import torch
 
 from . import _kernels
+from .utils import profiling
 
 
 def tensors(tree) -> list:
@@ -92,8 +100,12 @@ def structure(tree):
 def signature(cfg, *inputs):
     """The cache key of a call: the frozen config and the structure of its
     inputs, as ``jax.jit`` keys a trace on static arguments and abstract
-    values."""
-    return (cfg, tuple(structure(x) for x in inputs))
+    values.  While ``profiling.spans()`` is open the key says so (a
+    spans-on call replays a graph of its own, with the span marks), and
+    the host span ``graphs.key`` records its making."""
+    with profiling.host_span("graphs.key"):
+        key = (cfg, tuple(structure(x) for x in inputs))
+        return key if profiling.active is None else key + ("spans",)
 
 
 def static_copy(tree):
@@ -422,8 +434,13 @@ class Captured:
     the graph.  A capture that fails raises, and leaves the allocator as
     it found it (``_abandon``).  ``capture_ms`` is the capture's host
     time, ``pool_bytes`` the device memory the allocator reserved during
-    it, ``trips`` the trip counters of its loops (``while_loop``), which
-    each replay rewrites: a witness of the trips the device ran.
+    it, ``peak_bytes`` the most bytes its allocations held at once
+    (``_held_peak``: the share of ``torch.cuda.max_memory_allocated``
+    that the capture adds to what was allocated at its start), ``trips``
+    the trip counters of its loops (``while_loop``), which each replay
+    rewrites: a witness of the trips the device ran.  ``record`` is its
+    entry in the capture log (``profiling.captures``, under ``name``),
+    which holds those three and the warm-up's ms.
     ``debug`` keeps the graph for ``CUDAGraph.debug_dump`` (which prints
     it once).  ``capture_error_mode`` is ``torch.cuda.graph``'s: the
     collectives' captures take ``"thread_local"`` (``parallel/render.py``).
@@ -432,7 +449,8 @@ class Captured:
 
     def __init__(self, fn, inputs: tuple, stream: torch.cuda.Stream,
                  debug: bool = False, warmup=None, prepare=None,
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global", name: str = "graph"):
+        begin_ns = time.perf_counter_ns()
         self.inputs = static_copy(inputs)
         # the graph reads the tensors ``fn`` closes over (constants made
         # outside the capture) at their addresses: they live as long as it
@@ -449,6 +467,7 @@ class Captured:
         if debug:
             self.graph.enable_debug_mode()
         torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter_ns() - begin_ns) / 1e6
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         pool = torch.cuda.graph_pool_handle()
@@ -456,6 +475,8 @@ class Captured:
         global _bodies
         t0 = time.perf_counter()
         _bodies = bodies
+        torch.cuda.memory._record_memory_history(
+            context=None, stacks="python", clear_history=True)
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode=capture_error_mode):
@@ -465,19 +486,60 @@ class Captured:
             raise
         finally:
             _bodies = None
+            peak_bytes = _held_peak(stream.device)
         # the bodies' pool goes with the graph that replays them
         weakref.finalize(self.graph, bodies.release).atexit = False
         self.trips = bodies.trips
         if debug:
             self.graph.instantiate()
         torch.cuda.synchronize()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.record = profiling.log_capture(
+            self, name=name, warmup_ms=warmup_ms,
+            capture_ms=(time.perf_counter() - t0) * 1e3,
+            pool_bytes=torch.cuda.memory_reserved() - reserved,
+            peak_bytes=peak_bytes, spans=profiling.active is not None,
+            begin_ns=begin_ns, end_ns=time.perf_counter_ns())
+
+    @property
+    def capture_ms(self) -> float:
+        return self.record.capture_ms
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.record.pool_bytes
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.record.peak_bytes
 
     def __call__(self, *args):
-        copy_into(self.inputs, args)
-        self.graph.replay()
+        with profiling.host_span("graphs.copy_in"):
+            copy_into(self.inputs, args)
+        with profiling.host_span("graphs.launch"):
+            self.graph.replay()
         return self.output
+
+
+def _held_peak(device: torch.device) -> int:
+    """The most bytes the allocations on ``device`` held at once since the
+    allocator's history was turned on (``Captured``, at its capture), above
+    what they held then: its allocs and frees summed in order.  Turns the
+    history off (a caller's own recording of it too).  A replay allocates nothing, so this is all that
+    ``torch.cuda.max_memory_allocated`` sees of a graph beyond its live
+    outputs; the pool's reserved bytes (``pool_bytes``) also hold what the
+    allocator could not reuse inside the capture."""
+    try:
+        trace = torch.cuda.memory._snapshot()["device_traces"][device.index]
+    finally:
+        torch.cuda.memory._record_memory_history(None)
+    held = peak = 0
+    for entry in trace:
+        if entry["action"] == "alloc":
+            held += entry["size"]
+            peak = max(peak, held)
+        elif entry["action"] == "free_requested":
+            held -= entry["size"]
+    return peak
 
 
 def _abandon(device: torch.device, pool, bodies: _Bodies) -> None:
@@ -501,21 +563,24 @@ _capture_streams: dict = {}
 class Cache:
     """Captured calls by key (``signature``), the least recently used
     dropped beyond ``max_entries`` (a 1080p frame's graph holds about its
-    eager peak memory, 1-1.4 GB on an H100).  ``debug`` and
-    ``capture_error_mode`` are handed to the captures it makes
-    (``options``)."""
+    eager peak memory, 1-1.4 GB on an H100).  ``debug``,
+    ``capture_error_mode`` and ``name`` (the capture log's) are handed to
+    the captures it makes (``options``)."""
 
     max_entries = 8
 
-    def __init__(self, capture_error_mode: str = "global"):
+    def __init__(self, capture_error_mode: str = "global",
+                 name: str = "graph"):
         self.debug = False
         self.capture_error_mode = capture_error_mode
+        self.name = name
         self.entries = collections.OrderedDict()
 
     def options(self) -> dict:
         """``Captured``'s keyword arguments for this cache's captures."""
         return dict(debug=self.debug,
-                    capture_error_mode=self.capture_error_mode)
+                    capture_error_mode=self.capture_error_mode,
+                    name=self.name)
 
     def stream(self, device: torch.device) -> torch.cuda.Stream:
         """The side stream this cache warms up and captures on, every
@@ -524,17 +589,26 @@ class Cache:
             _capture_streams[device] = torch.cuda.Stream(device)
         return _capture_streams[device]
 
-    def call(self, key, fn, inputs: tuple):
+    def call(self, key, fn, inputs: tuple, name: str = None):
         """``fn(*inputs)`` replayed from the capture for ``key``, made on a
         miss (a ``Captured`` on the inputs' device, with ``options``, in
-        the caller's grad mode); its output cloned, so the caller's result
-        outlives the next replay."""
+        the caller's grad mode, logged under ``name`` where given); its
+        output cloned (the host span ``graphs.copy_out``), so the caller's
+        result outlives the next replay."""
         device = tensors(inputs)[0].device
+
+        def make():
+            options = self.options()
+            if name is not None:
+                options["name"] = name
+            return Captured(fn, inputs, self.stream(device), **options)
+
         with torch.inference_mode(False):
-            entry = self.get(key, lambda: Captured(
-                fn, inputs, self.stream(device), **self.options()))
+            entry = self.get(key, make)
         with torch.no_grad():
-            return _map(torch.clone, entry(*inputs))
+            out = entry(*inputs)
+            with profiling.host_span("graphs.copy_out"):
+                return _map(torch.clone, out)
 
     def get(self, key, make):
         """The entry for ``key``, made by ``make()`` on a miss."""

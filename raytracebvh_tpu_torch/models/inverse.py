@@ -40,6 +40,7 @@ from .. import graphs
 from ..config import RenderConfig
 from ..core.types import Camera, Scene
 from ..pipeline import render_frame
+from ..utils import profiling
 
 
 class InverseParams(NamedTuple):
@@ -153,10 +154,22 @@ def train_step(params: InverseParams, optimizer, scene: Scene,
     """One step: the loss, its gradient, one optimizer update of
     ``params`` in place.  Returns the loss (before the update), detached."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, scene, camera, target, cfg)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    return _step(params, optimizer, scene, camera, target, cfg)
+
+
+def _step(params: InverseParams, optimizer, scene: Scene, camera: Camera,
+          target, cfg: RenderConfig):
+    """The loss, ``backward()`` and the update: the span ``step``, with
+    ``forward``, ``backward`` and ``optimizer`` inside it."""
+    ref = params.vert_offsets
+    with profiling.span("step", ref):
+        with profiling.span("forward", ref):
+            loss = loss_fn(params, scene, camera, target, cfg)
+        with profiling.span("backward", ref):
+            loss.backward()
+        with profiling.span("optimizer", ref):
+            optimizer.step()
+        return loss.detach()
 
 
 def step_graphs(optimizer) -> graphs.Cache:
@@ -167,7 +180,7 @@ def step_graphs(optimizer) -> graphs.Cache:
     it, which the collector frees once the caller drops the optimizer."""
     cache = getattr(optimizer, "_raytracebvh_step_graphs", None)
     if cache is None:
-        cache = graphs.Cache()
+        cache = graphs.Cache(name="step")
         optimizer._raytracebvh_step_graphs = cache
     return cache
 
@@ -194,10 +207,7 @@ class _GraphedStep:
             train_step(InverseParams(*params), optimizer, s, c, t, cfg)
 
         def step(s, c, t):
-            loss = loss_fn(InverseParams(*params), s, c, t, cfg)
-            loss.backward()
-            optimizer.step()
-            return loss.detach()
+            return _step(InverseParams(*params), optimizer, s, c, t, cfg)
 
         def restore():
             with torch.no_grad():
@@ -218,7 +228,9 @@ class _GraphedStep:
 
     def __call__(self, scene, camera, target, lr: float):
         self.lr.fill_(lr)
-        return self.captured(scene, camera, target).clone()
+        loss = self.captured(scene, camera, target)
+        with profiling.host_span("graphs.copy_out"):
+            return loss.clone()
 
 
 def train_step_jit(params: InverseParams, optimizer, scene: Scene,
@@ -237,7 +249,8 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
     chunked frame shades and differentiates its chunks (a culled one its
     hit chunks) in two WHILE nodes of the graph, the forward's and the
     backward's (``graphs.while_loop``).  On CPU tensors it is
-    ``train_step`` at learning rate ``lr``."""
+    ``train_step`` at learning rate ``lr``.  While ``profiling.spans()``
+    is open the call is one call id, its key a spans-on graph's."""
     if params.vert_offsets.device.type != "cuda":
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -249,10 +262,11 @@ def train_step_jit(params: InverseParams, optimizer, scene: Scene,
         raise ValueError(
             "train_step_jit: the optimizer must be make_optimizer(params, "
             "lr, capturable=True) over these parameters")
-    key = graphs.signature(cfg, scene, camera, target,
-                           tuple(p.data_ptr() for p in params))
-    cache = step_graphs(optimizer)
-    step = cache.get(key, lambda: _GraphedStep(
-        params, optimizer, scene, camera, target, cfg,
-        cache.stream(params.vert_offsets.device), **cache.options()))
-    return step(scene, camera, target, lr)
+    with profiling.call(params.vert_offsets):
+        key = graphs.signature(cfg, scene, camera, target,
+                               tuple(p.data_ptr() for p in params))
+        cache = step_graphs(optimizer)
+        step = cache.get(key, lambda: _GraphedStep(
+            params, optimizer, scene, camera, target, cfg,
+            cache.stream(params.vert_offsets.device), **cache.options()))
+        return step(scene, camera, target, lr)

@@ -15,6 +15,7 @@ import torch
 
 from . import gather_cuda
 from .ieee import sqrt
+from ..utils import profiling
 
 
 def cross3(a, b):
@@ -137,7 +138,8 @@ def sample_texture_quads(tex_quads, tex_hw, tex_id, u, v, hmax, wmax,
     xi = torch.where(xi < 0, xi + w.to(torch.int32), xi)
     yi = torch.where(yi < 0, yi + h.to(torch.int32), yi)
     flat = (tid * hmax + yi) * wmax + xi
-    q = gather_cuda.gather_for(backend)(tex_quads, flat)  # [16, R] float32
+    with profiling.span("gather", flat):
+        q = gather_cuda.gather_for(backend)(tex_quads, flat)  # [16, R] f32
     if tex_quads.dtype == torch.uint8:
         # UNORM8 samples take the uv dtype; a float table promotes the
         # colour instead (a float32 table lifts a bfloat16 frame to float32)

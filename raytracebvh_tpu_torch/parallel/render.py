@@ -76,6 +76,7 @@ from ..pipeline import (
     shade_rays,
     shade_tiled,
 )
+from ..utils import profiling
 from .mesh import (GEO_AXIS, axis_size, geo_shard, mesh_graphs, ray_axes,
                    ray_shard, replicated)
 
@@ -131,7 +132,16 @@ def _graphed_frame(name: str, fn, inputs, cfg: RenderConfig, mesh):
     """``fn(*inputs)`` replayed from the mesh's capture for
     ``signature``."""
     graphs.check_no_grad(inputs, name)
-    return mesh_graphs(mesh).call(signature(name, cfg, inputs), fn, inputs)
+    return _replayed(name, fn, inputs, cfg, mesh)
+
+
+def _replayed(name: str, fn, inputs, cfg: RenderConfig, mesh, *static):
+    """``fn(*inputs)`` replayed from the mesh's capture for
+    ``signature``, logged under ``name``; one call id while
+    ``profiling.spans()`` is open."""
+    with profiling.call(graphs.tensors(inputs)[0]):
+        return mesh_graphs(mesh).call(signature(name, cfg, inputs, *static),
+                                      fn, inputs, name)
 
 
 def _ray_inputs(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
@@ -189,25 +199,28 @@ def _check_geo(scene: Scene, cfg: RenderConfig, mesh) -> None:
 
 def _geo_inputs(scene: Scene, camera: Camera, cfg: RenderConfig, mesh):
     """(scene, bvh, this rank's rays in row order, light3) of
-    ``render_geo_sharded``: the sharded leaf stage and the tree."""
+    ``render_geo_sharded``: the sharded leaf stage and the tree (the span
+    ``build``)."""
     group = mesh.get_group(GEO_AXIS)
     wvp, m, mv = build_transforms(camera, cfg)
     dtype = cfg.torch_dtype
-    vt_l = transform_points(geo_shard(scene.verts, mesh).to(dtype),
-                            m.to(dtype))
-    nt_l = transform_normals(geo_shard(scene.normals, mesh).to(dtype),
-                             mv.to(dtype))
-    smin, smax = morton_ops.scene_aabb(vt_l)
-    dist.all_reduce(smin, op=dist.ReduceOp.MIN, group=group)
-    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
-    verts_t = _all_gather(vt_l, mesh, GEO_AXIS)
-    normals_t = _all_gather(nt_l, mesh, GEO_AXIS)
+    with profiling.span("build", scene.verts):
+        vt_l = transform_points(geo_shard(scene.verts, mesh).to(dtype),
+                                m.to(dtype))
+        nt_l = transform_normals(geo_shard(scene.normals, mesh).to(dtype),
+                                 mv.to(dtype))
+        smin, smax = morton_ops.scene_aabb(vt_l)
+        dist.all_reduce(smin, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+        verts_t = _all_gather(vt_l, mesh, GEO_AXIS)
+        normals_t = _all_gather(nt_l, mesh, GEO_AXIS)
 
-    codes_l, lmin_l, lmax_l, _ = morton_ops.triangle_leaves(
-        verts_t, geo_shard(scene.indices, mesh), smin, smax)
-    codes, lmin, lmax = (_all_gather(x, mesh, GEO_AXIS)
-                         for x in (codes_l, lmin_l, lmax_l))
-    bvh = assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax, cfg)
+        codes_l, lmin_l, lmax_l, _ = morton_ops.triangle_leaves(
+            verts_t, geo_shard(scene.indices, mesh), smin, smax)
+        codes, lmin, lmax = (_all_gather(x, mesh, GEO_AXIS)
+                             for x in (codes_l, lmin_l, lmax_l))
+        bvh = assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax,
+                           cfg)
     rays = _local_rays(make_rays(camera, cfg), mesh)
     return scene, bvh, rays, _light3(cfg, wvp)
 
@@ -274,12 +287,11 @@ def train_step_sharded(params, scene_fn, scene: Scene, camera: Camera,
         return _train_step_sharded(params, scene_fn, scene, camera, target,
                                    cfg, mesh, grad_chunks)
     _check_chunks(cfg, mesh, grad_chunks)
-    inputs = (params, scene, camera, target)
-    return mesh_graphs(mesh).call(
-        signature("train_step_sharded", cfg, inputs, grad_chunks, scene_fn),
+    return _replayed(
+        "train_step_sharded",
         lambda p, s, c, t: _train_step_sharded(p, scene_fn, s, c, t, cfg,
                                                mesh, grad_chunks),
-        inputs)
+        (params, scene, camera, target), cfg, mesh, grad_chunks, scene_fn)
 
 
 def _check_chunks(cfg: RenderConfig, mesh, grad_chunks: int) -> int:

@@ -47,6 +47,7 @@ from .ops import morton as morton_ops
 from .ops import shade as shade_ops
 from .ops import sort as sort_ops
 from .ops import sort_cuda, traverse_cuda, traverse_shared_cuda
+from .utils import profiling
 
 I32 = torch.int32
 
@@ -57,14 +58,19 @@ def _pad_count(nf: int, multiple: int) -> int:
 
 
 def build_bvh(scene: Scene, wvp, wv, cfg: RenderConfig) -> BVH:
-    """Per-frame LBVH rebuild in ray space."""
+    """Per-frame LBVH rebuild in ray space (the span ``build``, its stages
+    ``morton`` ... ``links`` inside it)."""
     dtype = cfg.torch_dtype
-    verts_t = transform_points(scene.verts.to(dtype), wvp.to(dtype))
-    normals_t = transform_normals(scene.normals.to(dtype), wv.to(dtype))
-    smin, smax = morton_ops.scene_aabb(verts_t)
-    codes, lmin, lmax, _ = morton_ops.triangle_leaves(
-        verts_t, scene.indices, smin, smax)
-    return assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax, cfg)
+    with profiling.span("build", scene.verts):
+        with profiling.span("morton", scene.verts):
+            verts_t = transform_points(scene.verts.to(dtype), wvp.to(dtype))
+            normals_t = transform_normals(scene.normals.to(dtype),
+                                          wv.to(dtype))
+            smin, smax = morton_ops.scene_aabb(verts_t)
+            codes, lmin, lmax, _ = morton_ops.triangle_leaves(
+                verts_t, scene.indices, smin, smax)
+        return assemble_bvh(scene, verts_t, normals_t, codes, lmin, lmax,
+                            cfg)
 
 
 def sort_codes(codes, sort_backend: str):
@@ -81,7 +87,8 @@ def sort_codes(codes, sort_backend: str):
 def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
                  cfg: RenderConfig) -> BVH:
     """Sort + Karras + AABB fit + links + leaf-attribute pack from per-face
-    leaf data in face-id order."""
+    leaf data in face-id order: the spans ``sort``, ``topology``, ``fit``
+    and ``links`` (inside the caller's ``build``)."""
     dtype = cfg.torch_dtype
     dev = verts_t.device
     sort_backend = resolve_sort_backend(cfg, dev)
@@ -99,13 +106,18 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
     prim = torch.cat([torch.arange(nf, dtype=I32, device=dev),
                       torch.full((pad,), -1, dtype=I32, device=dev)])
 
-    sorted_codes, order = sort_codes(codes, sort_backend)
+    with profiling.span("sort", codes):
+        sorted_codes, order = sort_codes(codes, sort_backend)
     order = order.long()
     prim, lmin, lmax = prim[order], lmin[order], lmax[order]
 
-    topo = bvh_ops.build_topology(sorted_codes)
-    bbmin, bbmax = bvh_ops.fit_aabbs(topo.node_lo, topo.node_hi, lmin, lmax)
-    entry, skip = bvh_ops.compute_links(topo, n)
+    with profiling.span("topology", codes):
+        topo = bvh_ops.build_topology(sorted_codes)
+    with profiling.span("fit", codes):
+        bbmin, bbmax = bvh_ops.fit_aabbs(topo.node_lo, topo.node_hi, lmin,
+                                         lmax)
+    with profiling.span("links", codes):
+        entry, skip = bvh_ops.compute_links(topo, n)
 
     # leaf triangle data in morton order, gathered once per build
     safe_prim = torch.clamp(prim, min=0).long()
@@ -174,32 +186,35 @@ def _walks(bvh: BVH, cfg: RenderConfig):
             traverse_cuda.traverse_any_for(backend))
 
 
-def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig) -> HitRecord:
-    """Traversal behind a detach boundary: the ids are discrete.  The plain
+def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig,
+                  walk: str = "walk.primary") -> HitRecord:
+    """Traversal behind a detach boundary (the span ``walk``, a primary or
+    a bounce pass's walk): the ids are discrete.  The plain
     lock-step walk ('torch') runs in sequential chunks of
     ``cfg.traversal_chunk`` rays, which must divide the ray count, as the
     JAX package's ``jnp`` walk does: a chunk bounds the lock-step penalty
     and the walk's live state.  A kernel walk ('cuda', 'shared') takes
     every ray in one call and ignores ``traversal_chunk``, as the JAX
     package's Pallas walks do: its rays are independent."""
-    bvh = bvh.detach()
-    rays = Rays(origin=rays.origin.detach().contiguous(),
-                direction=rays.direction.detach().contiguous())
-    backend, traverse, _ = _walks(bvh, cfg)
-    nrays = rays.origin.shape[0]
-    chunk = cfg.traversal_chunk
-    if backend == "torch" and chunk > 0 and nrays > chunk:
-        if nrays % chunk:
-            raise ValueError(
-                f"traversal_chunk {chunk} must divide ray count {nrays}")
-        recs = [traverse(bvh, Rays(rays.origin[s:s + chunk],
-                                   rays.direction[s:s + chunk]),
-                         cfg.epsilon, cfg.max_traversal_steps)
-                for s in range(0, nrays, chunk)]
-        return HitRecord(hit=torch.cat([r.hit for r in recs]),
-                         distance=torch.cat([r.distance for r in recs]),
-                         leaf=torch.cat([r.leaf for r in recs]))
-    return traverse(bvh, rays, cfg.epsilon, cfg.max_traversal_steps)
+    with profiling.span(walk, rays.origin):
+        bvh = bvh.detach()
+        rays = Rays(origin=rays.origin.detach().contiguous(),
+                    direction=rays.direction.detach().contiguous())
+        backend, traverse, _ = _walks(bvh, cfg)
+        nrays = rays.origin.shape[0]
+        chunk = cfg.traversal_chunk
+        if backend == "torch" and chunk > 0 and nrays > chunk:
+            if nrays % chunk:
+                raise ValueError(
+                    f"traversal_chunk {chunk} must divide ray count {nrays}")
+            recs = [traverse(bvh, Rays(rays.origin[s:s + chunk],
+                                       rays.direction[s:s + chunk]),
+                             cfg.epsilon, cfg.max_traversal_steps)
+                    for s in range(0, nrays, chunk)]
+            return HitRecord(hit=torch.cat([r.hit for r in recs]),
+                             distance=torch.cat([r.distance for r in recs]),
+                             leaf=torch.cat([r.leaf for r in recs]))
+        return traverse(bvh, rays, cfg.epsilon, cfg.max_traversal_steps)
 
 
 def light_in_ray_space(cfg: RenderConfig, wvp, dtype):
@@ -217,26 +232,28 @@ def light_in_ray_space(cfg: RenderConfig, wvp, dtype):
 def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
     """Per-ray visibility factor from one any-hit shadow ray toward the
     light: ``cfg.shadow_factor`` where a primary hit is occluded, else 1.
-    Discrete, and computed under ``.detach()``, like the hit ids."""
-    t = rec.distance.detach()
-    o3 = tuple(o.detach() for o in o3)
-    d3 = tuple(d.detach() for d in d3)
-    light3 = tuple(x.detach() for x in light3)
-    hx = tuple(o3[i] + d3[i] * t for i in range(3))
-    L = tuple(light3[i] - hx[i] for i in range(3))
-    dist = sqrt(shade_ops.dot3(L, L))
-    invd = 1.0 / torch.clamp(dist, min=1e-30)
-    dirn = tuple(L[i] * invd for i in range(3))
-    # offset along the shadow direction; stop just short of the light
-    so = tuple(hx[i] + dirn[i] * cfg.ray_offset for i in range(3))
-    max_t = dist * (1.0 - 1e-4)
-    # dead lanes (primary misses) start far outside every box
-    so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
-    traverse_any = _walks(bvh, cfg)[2]
-    occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
-                       max_t.contiguous(), cfg.max_traversal_steps)
-    occ = occ & rec.hit
-    return torch.where(occ, t.new_full((), cfg.shadow_factor), 1.0)
+    Discrete, and computed under ``.detach()``, like the hit ids (the span
+    ``walk.shadow``: the shadow rays made and walked)."""
+    with profiling.span("walk.shadow", rec.distance):
+        t = rec.distance.detach()
+        o3 = tuple(o.detach() for o in o3)
+        d3 = tuple(d.detach() for d in d3)
+        light3 = tuple(x.detach() for x in light3)
+        hx = tuple(o3[i] + d3[i] * t for i in range(3))
+        L = tuple(light3[i] - hx[i] for i in range(3))
+        dist = sqrt(shade_ops.dot3(L, L))
+        invd = 1.0 / torch.clamp(dist, min=1e-30)
+        dirn = tuple(L[i] * invd for i in range(3))
+        # offset along the shadow direction; stop just short of the light
+        so = tuple(hx[i] + dirn[i] * cfg.ray_offset for i in range(3))
+        max_t = dist * (1.0 - 1e-4)
+        # dead lanes (primary misses) start far outside every box
+        so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
+        traverse_any = _walks(bvh, cfg)[2]
+        occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
+                           max_t.contiguous(), cfg.max_traversal_steps)
+        occ = occ & rec.hit
+        return torch.where(occ, t.new_full((), cfg.shadow_factor), 1.0)
 
 
 def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
@@ -247,13 +264,15 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
     One [40]-channel gather per ray fetches everything: a row gather from
     the leaf-attribute table (K2 on CUDA), or for 'shared' a column gather
     from its channel-major transpose (K7 on CUDA), as the JAX 'pallas'
-    gathers from ``leaf_attrs.T``."""
+    gathers from ``leaf_attrs.T``: the span ``gather``, as is the texture
+    sample's."""
     backend = resolve_backend(cfg, "shade_gather_backend")
-    if backend == "shared":
-        A = gather_cols_cuda.gather_cols(bvh.leaf_attrs.t().contiguous(),
-                                         rec.leaf)
-    else:
-        A = gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
+    with profiling.span("gather", rec.leaf):
+        if backend == "shared":
+            A = gather_cols_cuda.gather_cols(
+                bvh.leaf_attrs.t().contiguous(), rec.leaf)
+        else:
+            A = gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
     a = lambda k: A[k]
     t0 = (a(0), a(1), a(2))
     t1 = (a(3), a(4), a(5))
@@ -306,61 +325,70 @@ def _launch_soa(scene: Scene, bvh: BVH, o3, d3, cfg: RenderConfig,
                 tex_quads, light3=None, rec=None):
     """Primary-ray pass: (color4, (refl_o3, refl_d3), refl_intensity,
     (refr_o3, refr_d3), refr_intensity).  Shadow rays are fired when
-    ``cfg.enable_shadows`` and ``light3`` is given."""
+    ``cfg.enable_shadows`` and ``light3`` is given.  The spans
+    ``walk.primary`` (where ``rec`` is not given), ``walk.shadow``, then
+    ``shade.primary``."""
     if rec is None:
         rec = _traverse_ids(bvh, _rays_of(o3, d3), cfg)
     vis = None
     if cfg.enable_shadows and light3 is not None:
         vis = _shadow_vis(bvh, o3, d3, rec, light3, cfg)
-    hit_loc, normal, hit_color, shininess, alpha, optical = _shade_hit_soa(
-        scene, bvh, o3, d3, rec, tex_quads, cfg, vis)
-    hit = rec.hit
-    bg = cfg.background
-    color = tuple(torch.where(hit, hit_color[c], bg[c]) for c in range(4))
+    with profiling.span("shade.primary", o3[0]):
+        hit_loc, normal, hit_color, shininess, alpha, optical = _shade_hit_soa(
+            scene, bvh, o3, d3, rec, tex_quads, cfg, vis)
+        hit = rec.hit
+        bg = cfg.background
+        color = tuple(torch.where(hit, hit_color[c], bg[c]) for c in range(4))
 
-    # reflection spawn
-    intensity = torch.where(
-        hit, div(shininess, 1000.0) * cfg.reflection_decay, 0.0)
-    refl_dir = shade_ops.normalize3(shade_ops.reflect3(d3, normal))
-    refl_o = tuple(torch.where(hit, hit_loc[i] + normal[i] * cfg.ray_offset,
-                               o3[i]) for i in range(3))
-    refl_d = tuple(torch.where(hit, refl_dir[i], d3[i]) for i in range(3))
+        # reflection spawn
+        intensity = torch.where(
+            hit, div(shininess, 1000.0) * cfg.reflection_decay, 0.0)
+        refl_dir = shade_ops.normalize3(shade_ops.reflect3(d3, normal))
+        refl_o = tuple(torch.where(hit, hit_loc[i]
+                                   + normal[i] * cfg.ray_offset, o3[i])
+                       for i in range(3))
+        refl_d = tuple(torch.where(hit, refl_dir[i], d3[i]) for i in range(3))
 
-    # refraction spawn: into the surface; total internal reflection
-    # spawns nothing
-    refr_dir, tir = _refracted(d3, normal, optical)
-    live_q = hit & ~tir
-    refr_intensity = torch.where(
-        live_q, (1.0 - alpha) * cfg.refraction_decay, 0.0)
-    refr_o = tuple(torch.where(hit, hit_loc[i] - normal[i] * cfg.ray_offset,
-                               o3[i]) for i in range(3))
-    refr_d = tuple(torch.where(live_q, refr_dir[i], d3[i]) for i in range(3))
-    return (color, (refl_o, refl_d), intensity, (refr_o, refr_d),
-            refr_intensity)
+        # refraction spawn: into the surface; total internal reflection
+        # spawns nothing
+        refr_dir, tir = _refracted(d3, normal, optical)
+        live_q = hit & ~tir
+        refr_intensity = torch.where(
+            live_q, (1.0 - alpha) * cfg.refraction_decay, 0.0)
+        refr_o = tuple(torch.where(hit, hit_loc[i]
+                                   - normal[i] * cfg.ray_offset, o3[i])
+                       for i in range(3))
+        refr_d = tuple(torch.where(live_q, refr_dir[i], d3[i])
+                       for i in range(3))
+        return (color, (refl_o, refl_d), intensity, (refr_o, refr_d),
+                refr_intensity)
 
 
 def _bounce_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
                 cfg: RenderConfig, tex_quads):
     """One reflection pass: live rays (intensity > intensity_min)
     re-trace; hits lerp the carried colour toward the new surface colour
-    and respawn; misses lerp toward the background and die."""
+    and respawn; misses lerp toward the background and die.  The spans
+    ``walk.bounce`` and ``shade.bounce``."""
     live = intensity > cfg.intensity_min
     # dead rays start far outside every box: their walk ends on step one
     o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
-    rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg)
-    hit_loc, normal, hit_color, shininess, _, _ = _shade_hit_soa(
-        scene, bvh, o3, d3, rec, tex_quads, cfg)
-    hit = rec.hit & live
-    new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
-    upd = live & hit
-    new_intensity = torch.where(
-        upd, div(intensity * shininess, 1000.0) * cfg.reflection_decay, 0.0)
-    new_dir = shade_ops.normalize3(shade_ops.reflect3(d3, normal))
-    new_o = tuple(torch.where(upd, hit_loc[i] + normal[i]
-                              * cfg.bounce_ray_offset, o3[i])
-                  for i in range(3))
-    new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
-    return new_color, new_o, new_d, new_intensity
+    rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg, "walk.bounce")
+    with profiling.span("shade.bounce", intensity):
+        hit_loc, normal, hit_color, shininess, _, _ = _shade_hit_soa(
+            scene, bvh, o3, d3, rec, tex_quads, cfg)
+        hit = rec.hit & live
+        new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
+        upd = live & hit
+        new_intensity = torch.where(
+            upd, div(intensity * shininess, 1000.0) * cfg.reflection_decay,
+            0.0)
+        new_dir = shade_ops.normalize3(shade_ops.reflect3(d3, normal))
+        new_o = tuple(torch.where(upd, hit_loc[i] + normal[i]
+                                  * cfg.bounce_ray_offset, o3[i])
+                      for i in range(3))
+        new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
+        return new_color, new_o, new_d, new_intensity
 
 
 def _bounce_refract_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
@@ -369,24 +397,25 @@ def _bounce_refract_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
     the surface.  The same colour lerp; the intensity decays by the hit
     material's transparency (1 - alpha); the respawn is offset into the
     surface with a refracted direction; total internal reflection kills
-    the ray."""
+    the ray.  The spans ``walk.bounce`` and ``shade.bounce``."""
     live = intensity > cfg.intensity_min
     o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
-    rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg)
-    hit_loc, normal, hit_color, _, alpha, optical = _shade_hit_soa(
-        scene, bvh, o3, d3, rec, tex_quads, cfg)
-    hit = rec.hit & live
-    new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
+    rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg, "walk.bounce")
+    with profiling.span("shade.bounce", intensity):
+        hit_loc, normal, hit_color, _, alpha, optical = _shade_hit_soa(
+            scene, bvh, o3, d3, rec, tex_quads, cfg)
+        hit = rec.hit & live
+        new_color = _lerp_color(color, intensity, live, hit, hit_color, cfg)
 
-    new_dir, tir = _refracted(d3, normal, optical)
-    upd = live & hit & ~tir
-    new_intensity = torch.where(
-        upd, intensity * (1.0 - alpha) * cfg.refraction_decay, 0.0)
-    new_o = tuple(torch.where(upd, hit_loc[i] - normal[i]
-                              * cfg.bounce_ray_offset, o3[i])
-                  for i in range(3))
-    new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
-    return new_color, new_o, new_d, new_intensity
+        new_dir, tir = _refracted(d3, normal, optical)
+        upd = live & hit & ~tir
+        new_intensity = torch.where(
+            upd, intensity * (1.0 - alpha) * cfg.refraction_decay, 0.0)
+        new_o = tuple(torch.where(upd, hit_loc[i] - normal[i]
+                                  * cfg.bounce_ray_offset, o3[i])
+                      for i in range(3))
+        new_d = tuple(torch.where(upd, new_dir[i], d3[i]) for i in range(3))
+        return new_color, new_o, new_d, new_intensity
 
 
 def _refracted(d3, normal, eta):
@@ -441,13 +470,15 @@ def _shade_rays_one(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
                     tex_quads, light3=None, rec=None):
     """Launch + bounce chain (+ the refraction chain) for one batch of
     rays -> [R, 4] colour.  Shadow rays apply to primary hits; the
-    bounces keep the unshadowed lerp chain."""
+    bounces keep the unshadowed lerp chain.  Each pass after the primary
+    one is the span ``bounce``, its index the trip."""
     o3, d3 = _split_rays(rays)
     color, (ro, rd), intensity, (qo, qd), refr_int = _launch_soa(
         scene, bvh, o3, d3, cfg, tex_quads, light3, rec)
-    for _ in range(cfg.bounces):
-        color, ro, rd, intensity = _bounce_soa(
-            scene, bvh, color, ro, rd, intensity, cfg, tex_quads)
+    for k in range(cfg.bounces):
+        with profiling.span("bounce", intensity, k):
+            color, ro, rd, intensity = _bounce_soa(
+                scene, bvh, color, ro, rd, intensity, cfg, tex_quads)
     if cfg.enable_refraction:
         # the chain carries "the colour seen through the surface": it
         # starts white at intensity 1 (the spawn's transparency is applied
@@ -456,9 +487,10 @@ def _shade_rays_one(scene: Scene, bvh: BVH, rays: Rays, cfg: RenderConfig,
         chain_int = torch.where(refr_int > 0.0, torch.ones_like(refr_int),
                                 0.0)
         rcolor = tuple(torch.ones_like(color[c]) for c in range(4))
-        for _ in range(cfg.bounces):
-            rcolor, qo, qd, chain_int = _bounce_refract_soa(
-                scene, bvh, rcolor, qo, qd, chain_int, cfg, tex_quads)
+        for k in range(cfg.bounces):
+            with profiling.span("bounce", chain_int, cfg.bounces + k):
+                rcolor, qo, qd, chain_int = _bounce_refract_soa(
+                    scene, bvh, rcolor, qo, qd, chain_int, cfg, tex_quads)
         # present: blend it over the reflection result by the primary
         # transparency
         color = tuple(color[c] + refr_int * (rcolor[c] - color[c])
@@ -568,6 +600,18 @@ class _ChunkLoop:
         return HitRecord(*(x.index_select(0, c).reshape(-1) for x in (
             self.recs.hit, self.recs.distance, self.recs.leaf)))
 
+    def loop(self, trip) -> None:
+        """``trip(j)`` for every trip (``graphs.while_loop``): the span
+        ``chunks``, whose end records the trips run, and a ``chunk`` a
+        trip, which records its trip number."""
+        def body(j):
+            with profiling.span("chunk", self.order, j):
+                trip(j)
+
+        profiling.mark("chunks", self.order, False)
+        trips = graphs.while_loop(self.count, body, self.order.device)
+        profiling.mark("chunks", self.order, True, trips)
+
     def run(self, leaf_attrs, origin, direction, tex_quads):
         """The colours of every ray: each trip shades its chunk and writes
         it into the chunk's rows."""
@@ -580,7 +624,7 @@ class _ChunkLoop:
             out.index_copy_(0, rows, self.shade(leaf_attrs, rays, tex_quads,
                                                 self.record(c)))
 
-        graphs.while_loop(self.count, trip, self.order.device)
+        self.loop(trip)
         return out
 
     def vjp(self, needs, grad, leaf_attrs, origin, direction, tex_quads):
@@ -615,7 +659,7 @@ class _ChunkLoop:
                 else:
                     out[k].add_(g)
 
-        graphs.while_loop(self.count, trip, self.order.device)
+        self.loop(trip)
         return tuple(out)
 
 
@@ -756,14 +800,16 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     ``cfg.enable_shadows``), run ``cfg.bounces`` reflection passes (and
     refraction passes when ``cfg.enable_refraction``), present.
     ``scene`` and ``camera`` must be on the same device; the frame is
-    rendered there."""
-    bvh, rays, light3 = frame_inputs(scene, camera, cfg)
-    color = shade_tiled(scene, bvh, rays, cfg, light3, cfg.width, cfg.height)
-    return color.reshape(cfg.height, cfg.width, 4)
+    rendered there.  The span ``frame``."""
+    with profiling.span("frame", scene.verts):
+        bvh, rays, light3 = frame_inputs(scene, camera, cfg)
+        color = shade_tiled(scene, bvh, rays, cfg, light3, cfg.width,
+                            cfg.height)
+        return color.reshape(cfg.height, cfg.width, 4)
 
 
 # render_frame_jit's captures, by signature (graphs.Cache)
-FRAME_GRAPHS = graphs.Cache()
+FRAME_GRAPHS = graphs.Cache(name="frame")
 
 
 def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
@@ -776,10 +822,12 @@ def render_frame_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
     scene and camera copied in.  It returns a new image, the eager
     frame's bits.  On CPU tensors it is ``render_frame``.  It does not
     differentiate: with grad mode on, an input that requires grad
-    raises."""
+    raises.  While ``profiling.spans()`` is open the call is one call id,
+    its key a spans-on graph's."""
     graphs.check_no_grad((scene, camera), "render_frame_jit")
     if scene.device.type != "cuda":
         return render_frame(scene, camera, cfg)
-    return FRAME_GRAPHS.call(graphs.signature(cfg, scene, camera),
-                             lambda s, c: render_frame(s, c, cfg),
-                             (scene, camera))
+    with profiling.call(scene.verts):
+        return FRAME_GRAPHS.call(graphs.signature(cfg, scene, camera),
+                                 lambda s, c: render_frame(s, c, cfg),
+                                 (scene, camera))

@@ -27,7 +27,7 @@ from ..pipeline import _traverse_ids, build_bvh
 MISS_RGB = np.array([0, 0, 255], np.uint8)  # char3(255,0,0) in BMP order
 
 # render_depth_bmp's captures on the card, by signature
-DEPTH_GRAPHS = graphs.Cache()
+DEPTH_GRAPHS = graphs.Cache(name="depth")
 
 
 def _depth_walk(scene: Scene, width: int, height: int, stride: int):
@@ -98,7 +98,8 @@ def render_depth_bmp(
                 graph = DEPTH_GRAPHS.get(
                     graphs.signature((width, height, stride), scene),
                     lambda: graphs.Captured(
-                        run, (scene,), DEPTH_GRAPHS.stream(scene.device)))
+                        run, (scene,), DEPTH_GRAPHS.stream(scene.device),
+                        **DEPTH_GRAPHS.options()))
             hit, distance = graph(scene)
         else:
             hit, distance = run(scene)
