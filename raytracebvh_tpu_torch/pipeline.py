@@ -273,10 +273,13 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
                 bvh.leaf_attrs.t().contiguous(), rec.leaf)
         else:
             A = gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
-    a = lambda k: A[k]
-    t0 = (a(0), a(1), a(2))
-    t1 = (a(3), a(4), a(5))
-    t2 = (a(6), a(7), a(8))
+    # the rows as one unbind: its backward stacks the rows' gradients
+    # once, where a select a row would fill and add a whole [40, R]
+    # gradient for each
+    a = A.unbind(0)
+    t0 = (a[0], a[1], a[2])
+    t1 = (a[3], a[4], a[5])
+    t2 = (a[6], a[7], a[8])
 
     # the hit distance, recomputed op for op as Moeller-Trumbore
     e1 = shade_ops.sub3(t1, t0)
@@ -297,16 +300,16 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
     hit_loc = tuple(o3[i] + d3[i] * t for i in range(3))
 
     w0, w1, w2 = shade_ops.barycentric_weights3(t0, t1, t2, hit_loc)
-    n0 = (a(9), a(10), a(11))
-    n1 = (a(12), a(13), a(14))
-    n2 = (a(15), a(16), a(17))
+    n0 = (a[9], a[10], a[11])
+    n1 = (a[12], a[13], a[14])
+    n2 = (a[15], a[16], a[17])
     normal = tuple(n0[i] * w0 + n1[i] * w1 + n2[i] * w2 for i in range(3))
-    uvu = a(18) * w0 + a(20) * w1 + a(22) * w2
-    uvv = a(19) * w0 + a(21) * w1 + a(23) * w2
+    uvu = a[18] * w0 + a[20] * w1 + a[22] * w2
+    uvv = a[19] * w0 + a[21] * w1 + a[23] * w2
 
     # texture sample; miss lanes are pinned to texel (0, 0) so they do not
     # gather random rows of the quad table
-    tex_id = a(39).to(I32)
+    tex_id = a[39].to(I32)
     hmax, wmax = scene.textures.shape[1], scene.textures.shape[2]
     uvu = torch.where(rec.hit, uvu, 0.0)
     uvv = torch.where(rec.hit, uvv, 0.0)
@@ -314,11 +317,11 @@ def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
         tex_quads, scene.tex_hw, tex_id, uvu, uvv, hmax, wmax,
         backend=resolve_backend(cfg, "texture_gather_backend"))
     # saturate(ambient + vis * diffuse * tex) * specular
-    diffuse = [a(28 + c) if vis is None else vis * a(28 + c) for c in range(4)]
+    diffuse = [a[28 + c] if vis is None else vis * a[28 + c] for c in range(4)]
     color = tuple(
-        torch.clamp(a(24 + c) + diffuse[c] * tex[c], 0.0, 1.0) * a(32 + c)
+        torch.clamp(a[24 + c] + diffuse[c] * tex[c], 0.0, 1.0) * a[32 + c]
         for c in range(4))
-    return hit_loc, normal, color, a(36), a(38), a(37)
+    return hit_loc, normal, color, a[36], a[38], a[37]
 
 
 def _launch_soa(scene: Scene, bvh: BVH, o3, d3, cfg: RenderConfig,

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from gathered_blocks import block_takers
 from walk_edge_rays import corner_edge_rays
 
 pytestmark = pytest.mark.gpu
@@ -458,6 +459,33 @@ def test_loss_and_grads_64x64_kernels_match_plain(dev):
         scale = float(gp.abs().max())
         assert scale > 0 and bool(torch.isfinite(g).all())
         assert float((g - gp).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("gather", ["cuda", "shared"], ids=["K2", "K7"])
+def test_gathered_rows_have_one_backward_node_on_the_card(dev, monkeypatch,
+                                                         gather):
+    """On K2's and K7's routes each shading call's gathered [40, R] block
+    reaches the loss through one UnbindBackward0 alone (two calls: the
+    primary and one bounce), and K3 takes the stacked gradient once a
+    call."""
+    import raytracebvh_tpu_torch as T
+    from raytracebvh_tpu_torch.models.inverse import init_params, loss_fn
+    from raytracebvh_tpu_torch.models.procedural import random_triangles
+    from raytracebvh_tpu_torch.ops import gather_cuda
+
+    scene = random_triangles(300, seed=6, with_texture=True, device=dev)
+    cfg = T.RenderConfig(width=64, height=64, bounces=1, ortho_scale=2.0,
+                         ray_tile=16, texture_dtype="uint8",
+                         shade_gather_backend=gather)
+    target = torch.zeros((64, 64, 4), device=dev)
+    params = init_params(scene)
+    loss, takers = block_takers(monkeypatch, lambda: loss_fn(
+        params, scene, T.Camera.default(dev), target, cfg))
+    assert takers == [["UnbindBackward0"]] * 2
+    k3 = gather_cuda.scatter_launches
+    loss.backward()
+    assert gather_cuda.scatter_launches - k3 == 2
+    assert all(bool(torch.isfinite(p.grad).all()) for p in params)
 
 
 def _dead_and_live(dev, nrays, seed):

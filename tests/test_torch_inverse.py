@@ -42,6 +42,8 @@ import raytracebvh_tpu_torch as T
 from raytracebvh_tpu_torch.models import inverse as ti
 from raytracebvh_tpu_torch.models.procedural import random_triangles as t_random
 
+from gathered_blocks import block_takers
+
 FIELDS = ti.InverseParams._fields
 # tests/test_grad.py's scene: the 24x24 window sees ~1/3 hit pixels, and
 # the texture makes vertex positions matter (through the uv lookup)
@@ -178,6 +180,21 @@ def _port_grads(ts, cfg, target):
     params = ti.init_params(ts)
     ti.loss_fn(params, ts, T.Camera.default("cpu"), target, cfg).backward()
     return [getattr(params, f).grad.numpy() for f in FIELDS]
+
+
+@pytest.mark.parametrize("bounces", [0, 1])
+def test_gathered_rows_have_one_backward_node(bounces, monkeypatch):
+    """Each shading call's gathered [40, R] leaf-row block reaches the
+    loss through one UnbindBackward0 alone, whose backward stacks the
+    rows' gradients once, and through no SelectBackward0 a row, whose
+    backward fills and adds a whole block's gradient: one block a pass,
+    the primary and each bounce."""
+    _, ts = _scenes(**GRAD_SCENE)
+    cfg = T.RenderConfig(width=24, height=24, bounces=bounces)
+    target = torch.zeros((24, 24, 4))
+    _, takers = block_takers(monkeypatch, lambda: ti.loss_fn(
+        ti.init_params(ts), ts, T.Camera.default("cpu"), target, cfg))
+    assert takers == [["UnbindBackward0"]] * (bounces + 1)
 
 
 def test_ray_chunk_grads_match():
