@@ -186,6 +186,17 @@ def _walks(bvh: BVH, cfg: RenderConfig):
             traverse_cuda.traverse_any_for(backend))
 
 
+def _counted(walk: str, traverse, *args):
+    """``traverse(*args)``, a nearest-hit or any-hit walk; while spans are
+    on, with its per-ray node steps, whose sum is counted as the walk span
+    ``walk``'s (``profiling.count``).  With spans off, the call alone."""
+    if profiling.active is None:
+        return traverse(*args)
+    out, steps = traverse(*args, return_steps=True)
+    profiling.count(walk, steps)
+    return out
+
+
 def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig,
                   walk: str = "walk.primary") -> HitRecord:
     """Traversal behind a detach boundary (the span ``walk``, a primary or
@@ -195,7 +206,8 @@ def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig,
     JAX package's ``jnp`` walk does: a chunk bounds the lock-step penalty
     and the walk's live state.  A kernel walk ('cuda', 'shared') takes
     every ray in one call and ignores ``traversal_chunk``, as the JAX
-    package's Pallas walks do: its rays are independent."""
+    package's Pallas walks do: its rays are independent.  While spans are
+    on, each walk's node steps are counted (``_counted``)."""
     with profiling.span(walk, rays.origin):
         bvh = bvh.detach()
         rays = Rays(origin=rays.origin.detach().contiguous(),
@@ -207,14 +219,16 @@ def _traverse_ids(bvh: BVH, rays: Rays, cfg: RenderConfig,
             if nrays % chunk:
                 raise ValueError(
                     f"traversal_chunk {chunk} must divide ray count {nrays}")
-            recs = [traverse(bvh, Rays(rays.origin[s:s + chunk],
-                                       rays.direction[s:s + chunk]),
+            recs = [_counted(walk, traverse, bvh,
+                             Rays(rays.origin[s:s + chunk],
+                                  rays.direction[s:s + chunk]),
                              cfg.epsilon, cfg.max_traversal_steps)
                     for s in range(0, nrays, chunk)]
             return HitRecord(hit=torch.cat([r.hit for r in recs]),
                              distance=torch.cat([r.distance for r in recs]),
                              leaf=torch.cat([r.leaf for r in recs]))
-        return traverse(bvh, rays, cfg.epsilon, cfg.max_traversal_steps)
+        return _counted(walk, traverse, bvh, rays, cfg.epsilon,
+                        cfg.max_traversal_steps)
 
 
 def light_in_ray_space(cfg: RenderConfig, wvp, dtype):
@@ -233,7 +247,8 @@ def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
     """Per-ray visibility factor from one any-hit shadow ray toward the
     light: ``cfg.shadow_factor`` where a primary hit is occluded, else 1.
     Discrete, and computed under ``.detach()``, like the hit ids (the span
-    ``walk.shadow``: the shadow rays made and walked)."""
+    ``walk.shadow``: the shadow rays made and walked, the walk's node steps
+    counted while spans are on)."""
     with profiling.span("walk.shadow", rec.distance):
         t = rec.distance.detach()
         o3 = tuple(o.detach() for o in o3)
@@ -250,8 +265,9 @@ def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
         # dead lanes (primary misses) start far outside every box
         so = tuple(torch.where(rec.hit, so[i], 1.0e30) for i in range(3))
         traverse_any = _walks(bvh, cfg)[2]
-        occ = traverse_any(bvh.detach(), _rays_of(so, dirn), cfg.epsilon,
-                           max_t.contiguous(), cfg.max_traversal_steps)
+        occ = _counted("walk.shadow", traverse_any, bvh.detach(),
+                       _rays_of(so, dirn), cfg.epsilon, max_t.contiguous(),
+                       cfg.max_traversal_steps)
         occ = occ & rec.hit
         return torch.where(occ, t.new_full((), cfg.shadow_factor), 1.0)
 

@@ -25,7 +25,12 @@ replay) and ``graphs.copy_out``.  A compiled call (``render_frame_jit``,
 ``train_step_jit``) is one call id, which its host spans and the marks
 of its replay share.  ``records()`` copies the buffers out and pairs the
 marks into spans; ``clock_offset()`` maps a card's ``%globaltimer`` onto
-the host clock.  With ``spans()`` closed nothing is recorded, and a
+the host clock.  Each walk inside a walk span (``walk.primary``,
+``walk.bounce``, ``walk.shadow``) also counts its node steps: one record
+(call, walk, the steps of all its rays, its rays) in a counter table on
+the walk's device, written there by tensor ops that a capture takes into
+the graph, so that every replay counts with nothing read back; ``counts()``
+copies the tables out.  With ``spans()`` closed nothing is recorded, and a
 compiled call finds the graph it would find without spans: a spans-on
 call's key differs (``graphs.signature``), so it captures a graph of its
 own, with the marks.
@@ -69,6 +74,11 @@ _calls = 0
 _last = None
 # ``clock_offset``'s one-record buffers, by device
 _probes: dict = {}
+# walk counts a device's counter table holds (32 bytes each: 2 MiB)
+COUNTS = 1 << 16
+# counter tables by device (made at the first count on the device, outside
+# any capture, as the record buffers are)
+_counters: dict = {}
 
 
 class Span(NamedTuple):
@@ -89,6 +99,17 @@ class Span(NamedTuple):
     trip: Optional[int]
     parent: Optional[int]
     clock: str
+
+
+class WalkCount(NamedTuple):
+    """One walk's count: ``name``, its walk span; ``call``, the id of the
+    compiled call (or of the outermost span) it ran in; ``steps``, the node
+    steps of all its rays; ``rays``, the rays it walked."""
+
+    name: str
+    call: Optional[int]
+    steps: int
+    rays: int
 
 
 class ClockOffset(NamedTuple):
@@ -132,6 +153,41 @@ def _buffer(device: torch.device) -> torch.Tensor:
                                "before a capture (a warm-up marks first)")
         _buffers[device] = _new_buffer(device, CAPACITY)
     return _buffers[device]
+
+
+def _counter(device: torch.device) -> torch.Tensor:
+    """The counter table of ``device``, made at its first count, never in
+    a capture: int64 [COUNTS + 2, 4], row 0 its header (the next slot, the
+    counts that found no slot, 0, the capacity), then COUNTS records
+    (call, walk's span id, steps, rays), then a row that the counts past
+    the end write and nothing reads."""
+    if device not in _counters:
+        if _capturing():
+            raise RuntimeError("spans: the counter table is made eagerly, "
+                               "before a capture (a warm-up counts first)")
+        with torch.inference_mode(False):
+            table = torch.zeros((COUNTS + 2, 4), dtype=torch.int64,
+                                device=device)
+            table[0, 3].fill_(COUNTS)
+        _counters[device] = table
+    return _counters[device]
+
+
+def _append(table: torch.Tensor, call: torch.Tensor, code: int,
+            steps: torch.Tensor) -> None:
+    """One record (call, code, the sum of ``steps``, its length) into
+    ``table`` at its next slot, or into its last row when it is full, with
+    tensor ops on its device: nothing read on the host, no tensor copied
+    from it."""
+    head = table[0, 0]
+    full = head >= table[0, 3]
+    slot = torch.clamp(head + 1, max=table.shape[0] - 1)
+    row = torch.stack([call, table.new_full((), code),
+                       steps.sum(dtype=torch.int64),
+                       table.new_full((), steps.numel())])
+    table.index_copy_(0, slot.reshape(1), row.reshape(1, 4))
+    table[0, 1].add_(full.to(torch.int64))
+    table[0, 0].add_(1)
 
 
 def _launch(buf: torch.Tensor, code: int, trip, device) -> None:
@@ -193,6 +249,16 @@ class _Recorder:
             yield
             self._mark(ref, code + 1, trip)
 
+    def count(self, name: str, steps: torch.Tensor) -> None:
+        device = steps.device
+        table = _counter(device)
+        if device.type == "cuda":
+            call = _buffer(device)[2]  # the id the card's marks copy
+        else:
+            call = table.new_full((), -1 if self.call_id is None
+                                  else self.call_id)
+        _append(table, call, _code(name), steps)
+
     @contextlib.contextmanager
     def host_span(self, name: str):
         code = 2 * _code(name)
@@ -212,6 +278,8 @@ def spans():
     with torch.inference_mode(False):
         for buf in _buffers.values():
             buf[:2].zero_()
+        for table in _counters.values():
+            table[0, :2].zero_()
     recorder = _last = _Recorder()
     active = recorder
     try:
@@ -255,10 +323,22 @@ def call(ref: torch.Tensor):
     return active.call(ref)
 
 
+def count(name: str, steps: torch.Tensor) -> None:
+    """Count one walk of walk span ``name``: ``steps`` are its [R] per-ray
+    node steps (int32, on the walk's device), recorded as (call, ``name``,
+    their sum, R) in the device's counter table by tensor ops there
+    (captured into a graph, every replay counts).  A no-op while spans are
+    off."""
+    if active is not None:
+        active.count(name, steps)
+
+
 def dropped() -> int:
-    """Marks that found the cards' buffers full since ``spans()`` last
-    opened (counted on the card, not written)."""
-    return sum(int(buf[1]) for buf in _buffers.values())
+    """Marks and walk counts that found the cards' buffers and the
+    counter tables full since ``spans()`` last opened (counted, not
+    written)."""
+    return (sum(int(buf[1]) for buf in _buffers.values())
+            + sum(int(table[0, 1]) for table in _counters.values()))
 
 
 def _pair(marks) -> list:
@@ -315,6 +395,24 @@ def records() -> list:
         spans_ = _pair([(clock, c, k, t, ns) for c, k, t, ns in rows])
         out += [s._replace(parent=None if s.parent is None
                            else s.parent + base) for s in spans_]
+    return out
+
+
+def counts() -> list:
+    """The walk counts (``WalkCount``) of the open or the last
+    ``spans()``, each device's in the order its walks ran (a card
+    synchronized first)."""
+    if _last is None:
+        return []
+    out = []
+    for device, table in _counters.items():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        head = table[0].tolist()
+        n = min(head[0], head[3])
+        out += [WalkCount(_NAMES[code], call if call >= 0 else None, steps,
+                          rays)
+                for call, code, steps, rays in table[1:1 + n].tolist()]
     return out
 
 
