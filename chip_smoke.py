@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
-NVIDIA GPU: builds the hand-written kernels K1-K8, holds each against its
-plain PyTorch version at the main path's shapes, renders nine 1920x1080
+NVIDIA GPU: builds the hand-written kernels K1-K8 and S (the frames'
+shading), holds each against its plain PyTorch version at the main path's shapes, renders nine 1920x1080
 frames through ``render_frame`` (forward, shadowed, refractive, the
 small-scene on-chip configuration and bfloat16), runs the
 inverse-rendering training step at 1920x1080 on three frames, runs
@@ -47,7 +47,8 @@ Phases (one line of output each, or more):
      casts); every
      kernel's launch count over each frame (counts set to 0 just before
      it, read just after; a culled frame's one walk for every chunk and a
-     loop body's trip a shaded chunk); frame ms and Mrays/s (median of 5
+     loop body's trip a shaded chunk; S two a shading pass in float32,
+     none in bfloat16); frame ms and Mrays/s (median of 5
      after one warm-up); each image but sparse's and large's against the
      all-plain-PyTorch render, and dense_onchip's against the same config
      through K1/K4/K2/lax, bit for bit; the dense frame with
@@ -101,8 +102,8 @@ Phases (one line of output each, or more):
      sparse_shadows frames, each one CUDA graph with its collectives
      inside (a culled frame's chunk loop one WHILE node), its capture's
      replay, a second replay (under sync-debug mode "error") and its
-     eager body each bit for bit phase 4's image (K1 2 + K2 4; K1 1 + K2
-     2; K1 1 + K2 2 + K4 1; the sparse frames phase 4's in the eager body,
+     eager body each bit for bit phase 4's image (K1 2 + K2 4 + S 4; K1
+     1 + K2 2 + S 2; K1 1 + K2 2 + K4 1 + S 2; the sparse frames phase 4's in the eager body,
      one loop body in the graph's nodes, its trip counter the hit chunks
      after each replay, a replay's kernels in phase 12);
      train_step_sharded on sparse_train with grad_chunks 1 (loss phase 5's
@@ -121,7 +122,9 @@ Phases (one line of output each, or more):
      chunk loop one WHILE node of the graph), each bit for bit phase 4's
      eager image, and again at orbit(camera, 0.1, 0), bit for bit the
      eager frame there (inputs are copied in, not baked in), the replays
-     under torch.cuda.set_sync_debug_mode("error"); the hand-written
+     under torch.cuda.set_sync_debug_mode("error"); the warm-up's and
+     capture's launches (phase 4's twice, S included; a culled frame's
+     warm-up shades its hit chunks, its capture one); the hand-written
      kernels counted from the graph's own kernel nodes
      (CUDAGraph.debug_dump: phase 4's launches, for a culled frame the
      primary walks and one loop body, a WHILE node's, no other
@@ -134,6 +137,7 @@ Phases (one line of output each, or more):
      same capturable Adam; with the default Adam the first loss
      bit-equal, the rest within GRAPHED_STEP1_TOL / GRAPHED_PARAM_TOL /
      GRAPHED_LOSS_RTOL; K3 twice a replayed step, twice a shaded chunk;
+     no S in a dense step, S in the culled step's forward loop alone;
      the culled step's two loops' trip counters the hit chunks);
      graphed and eager ms side by side (median of 5 after a warm-up),
      capture ms, graph-pool bytes and peak device memory; then the
@@ -149,6 +153,13 @@ Phases (one line of output each, or more):
      kernels the eager call's launches (the shaded chunks' bodies only;
      K3 twice a shaded chunk in the steps), from the trace and its
      loops' trip counters, the hit chunks
+ 13. shading kernels: the frames' shading (ops/shade_cuda.py,
+     csrc/shade.cu) against the plain shading on the dense, dense_shadows,
+     large_shadows, refract and dense_onchip frames, bit for bit, two
+     launches a pass (counts set to 0 before each frame); the dense
+     frame's primary and bounce passes timed, kernels against plain (CUDA
+     events, the profiler's device time), and the kernels' bound: the
+     kernel line's row S
 
 Launch counts include phases 10's and 11's (not phase 12's, whose
 processes count their own).  The Python launch counters count a graph's
@@ -1238,7 +1249,8 @@ def render_counted(name, scene, cam, cfg):
     return img, counts, refr
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+# K1-K8 and S, the frames' shading (ops/shade_cuda.py: two kernels a pass)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "S")
 # the configs whose walks are K5/K6 (a 3 072-leaf tree through 'auto' or
 # 'shared'), and those that also gather with K7 and sort with K8
 ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
@@ -1246,9 +1258,12 @@ ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
 # the culled chunk loop's kernels: one K5 launch for every chunk's primary
 # walk (pipeline.trace_chunks) and a body a shaded chunk; a step's body is
 # its forward's trip and its backward's (pipeline._ChunkMap: the chunk's
-# forward recomputed and its VJP)
-CHUNK_BODY = {"sparse": dict(K5=1, K2=4), "sparse_shadows": dict(K6=1, K2=2),
-              "sparse_train_culled": dict(K5=2, K2=8, K3=2)}
+# forward recomputed and its VJP).  S, two a shading pass, in the frames'
+# bodies and the step's forward trip (grad mode off); the VJP's recompute
+# needs gradients and shades on the plain path
+CHUNK_BODY = {"sparse": dict(K5=1, K2=4, S=4),
+              "sparse_shadows": dict(K6=1, K2=2, S=2),
+              "sparse_train_culled": dict(K5=2, K2=8, K3=2, S=4)}
 
 
 def culled_routes(name, shaded):
@@ -1328,26 +1343,38 @@ ONCHIP_ALL = ("dense_onchip", "dense_bf16_onchip", "onchip_train")
 
 def reset_counts():
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
-                                           sort_cuda, traverse_cuda,
-                                           traverse_shared_cuda)
+                                           shade_cuda, sort_cuda,
+                                           traverse_cuda, traverse_shared_cuda)
 
     traverse_cuda.launches = traverse_cuda.any_launches = 0
     gather_cuda.launches = gather_cuda.scatter_launches = 0
     traverse_shared_cuda.launches = traverse_shared_cuda.any_launches = 0
-    gather_cols_cuda.launches = sort_cuda.launches = 0
+    gather_cols_cuda.launches = sort_cuda.launches = shade_cuda.launches = 0
 
 
 def read_counts():
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
-                                           sort_cuda, traverse_cuda,
-                                           traverse_shared_cuda)
+                                           shade_cuda, sort_cuda,
+                                           traverse_cuda, traverse_shared_cuda)
 
     return {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
             "K3": gather_cuda.scatter_launches,
             "K4": traverse_cuda.any_launches,
             "K5": traverse_shared_cuda.launches,
             "K6": traverse_shared_cuda.any_launches,
-            "K7": gather_cols_cuda.launches, "K8": sort_cuda.launches}
+            "K7": gather_cols_cuda.launches, "K8": sort_cuda.launches,
+            "S": shade_cuda.launches}
+
+
+def shade_launches(cfg):
+    """S's launches in one unchunked frame of ``cfg``: two a shading pass
+    (the primary pass, each bounce and each refraction; a shadow walk
+    shades nothing) in float32, none in bfloat16 (the plain shading)."""
+    from raytracebvh_tpu_torch.config import traversal_passes
+
+    if cfg.dtype != "float32":
+        return 0
+    return 2 * (traversal_passes(cfg) - int(cfg.enable_shadows))
 
 
 def check_routes(name, n, builds=1):
@@ -1389,6 +1416,9 @@ def phase_main_path(frames):
         check(rate > 0, f"{name}: no ray hit")
         near, anyk = check_routes(name, n)
         check(n["K2"] > 0, f"{name}: K2 was not launched")
+        if not cfg.ray_chunk:  # a culled frame's S: culled_routes below
+            check(n["S"] == shade_launches(cfg),
+                  f"{name}: {n['S']} S launches, not {shade_launches(cfg)}")
         check(n["K3"] == 0, f"{name}: K3 launched in a forward frame")
         if not cfg.enable_shadows:
             check(n[anyk] == 0, f"{name}: {anyk} launched without shadows")
@@ -1994,8 +2024,9 @@ SHARDED_FRAMES = (("render_sharded", "dense"), ("render_geo_sharded", "large"),
                   ("render_geo_sharded", "dense_shadows"),
                   ("render_sharded", "sparse"),
                   ("render_geo_sharded", "sparse_shadows"))
-SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4), "large": dict(K1=1, K2=2),
-                    "dense_shadows": dict(K1=1, K2=2, K4=1)}
+SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4, S=4),
+                    "large": dict(K1=1, K2=2, S=2),
+                    "dense_shadows": dict(K1=1, K2=2, K4=1, S=2)}
 # the sharded steps: (config, grad_chunks)
 SHARDED_STEPS = (("sparse_train", 1), ("sparse_train", 4),
                  ("sparse_train_culled", 1))
@@ -2336,7 +2367,8 @@ GRAPHED_LOSS_RTOL = 1e-5
 def kernel_of(name):
     """The K of a hand-written kernel's name, demangled (the profiler's)
     or mangled (a graph's dump), counting each wrapper's call once (K3 by
-    its last kernel, K8 by its tile kernel); None for any other kernel."""
+    its last kernel, K8 by its tile kernel) and S by each of its two
+    kernels, as its counter does; None for any other kernel."""
     false = "<false>" in name or "ILb0E" in name
     if "traverse_shared_kernel" in name:
         return "K5" if false else "K6"
@@ -2350,6 +2382,8 @@ def kernel_of(name):
         return "K3"
     if "sort_tile_kernel" in name:
         return "K8"
+    if "shade_surface_kernel" in name or "shade_finish_kernel" in name:
+        return "S"
     return None
 
 
@@ -2416,7 +2450,7 @@ def step_routes(name, shaded=None):
     """K -> calls of one training step of ``name``: a walk and a leaf
     gather a pass (2), K2 for the texture quads (2), K3 twice (the two
     leaf gathers' backward), K8 once a build where the config sorts with
-    it; for the culled step, ``culled_routes`` with ``shaded`` of its
+    it, no S (every pass is differentiated); for the culled step, ``culled_routes`` with ``shaded`` of its
     chunks shaded."""
     if name in CHUNK_BODY:
         return culled_routes(name, shaded)
@@ -2474,8 +2508,9 @@ def graphed_frame(name, frame_args, image, want):
     if cfg.ray_chunk:
         in_graph = culled_routes(name, 1)
         trips = check_trips(f"graphed {name}", frame, name, want)
-        check(n == capture_routes(name, want, in_graph),
-              f"graphed {name}: warm-up and capture launches {n}")
+    check(n == capture_routes(name, want, in_graph),
+          f"graphed {name}: warm-up and capture launches {n}, not "
+          f"{capture_routes(name, want, in_graph)}")
 
     def call():
         with torch.inference_mode():
@@ -2857,6 +2892,113 @@ def run_sharded_ranks(world: int) -> None:
     log(f"  {world} ranks, geo=2: every case passed")
 
 
+# the shading kernels' phase: the dense frames of frames_on
+SHADE_FRAMES = ("dense", "dense_shadows", "large_shadows", "refract",
+                "dense_onchip")
+
+
+def shade_bytes(kind: str, nrays: int, vis: bool) -> int:
+    """Bytes the two shading kernels of one pass must move, each read and
+    write once: shade_surface reads 25 of the leaf block's 40 channels,
+    the ray (24 B) and the hit flag, and writes the position, normal,
+    quad row and fractions (9 x 4 B); shade_finish reads the 16 quad
+    channels, 16 leaf channels, the first kernel's 8 floats, the ray, the
+    flag, the shadow factor where given and a bounce's colour and
+    intensity, and writes the colour, spawns and intensities (18 floats
+    a launch, 11 a bounce)."""
+    surface = 25 * 4 + 24 + 1 + 9 * 4
+    finish = (16 + 16 + 8) * 4 + 24 + 1 + 4 * int(vis)
+    finish += 18 * 4 if kind == "launch" else (5 + 11) * 4
+    return nrays * (surface + finish)
+
+
+def phase_shade(frames) -> dict:
+    """The frames' shading kernels (ops/shade_cuda.py) against the plain
+    shading: each SHADE_FRAMES frame at 1080p bit for bit the frame with
+    every pass on the plain path (max |diff| 0, NaN nowhere), S's
+    launches (counts set to 0 just before the frame) two a pass; then the
+    dense frame's primary and bounce passes timed, kernels against plain
+    on the same inputs: CUDA events around the pass (median of 5) and the
+    profiler's device time of the pass's kernels (median of 10), beside
+    the kernels' bound.  A pass is its gathers and shading, and a
+    bounce's dead-ray select and ray stack too; its walk is walked once
+    beforehand and left out.  Returns the kernel line's row S: the
+    primary pass's numbers, the bounce pass's under "bounce"."""
+    from raytracebvh_tpu_torch import pipeline, render_frame
+    from raytracebvh_tpu_torch.ops import shade_cuda
+
+    plain_shading = mock.patch.object(shade_cuda, "engages",
+                                      return_value=False)
+    worst = 0.0
+    for name in SHADE_FRAMES:
+        scene, cam, cfg = frames[name]
+        with torch.inference_mode():
+            with plain_shading:
+                want = render_frame(scene, cam, cfg)
+            got, n = counted(lambda: render_frame(scene, cam, cfg))
+        diff = float((got - want).abs().max())
+        worst = max(worst, diff)
+        check(not bool(torch.isnan(got).any() or torch.isnan(want).any()),
+              f"shade {name}: NaN in the frame")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"shade {name}: kernel frame off the plain shading's, max "
+              f"|diff| {diff}")
+        check(n["S"] == shade_launches(cfg),
+              f"shade {name}: {n['S']} launches, want {shade_launches(cfg)}")
+        log(f"  shade {name}: max |diff| {diff} against the plain "
+            f"shading, {n['S']} launches ({n['S'] // 2} passes)")
+
+    scene, cam, cfg = frames["dense"]
+    out = {}
+    with torch.inference_mode():
+        bvh, rays, _ = pipeline.frame_inputs(scene, cam, cfg)
+        rays = pipeline.tile_frame_rays(rays, cfg, W, H)
+        bvh, tq = pipeline.shade_setup(scene, bvh, cfg)
+        rec = pipeline._traverse_ids(bvh, rays, cfg)
+        o3, d3 = pipeline._split_rays(rays)
+        color, (ro, rd), inten, _, _ = pipeline._launch_soa(
+            scene, bvh, o3, d3, cfg, tq, None, rec)
+        # the bounce's walk, once: the timed bounce passes reuse it
+        live = inten > cfg.intensity_min
+        rec_b = pipeline._traverse_ids(bvh, pipeline._rays_of(
+            tuple(torch.where(live, x, 1.0e30) for x in ro), rd), cfg)
+        walked = mock.patch.object(pipeline, "_traverse_ids",
+                                   lambda *a, **k: rec_b)
+        calls = {"launch": lambda: pipeline._launch_soa(
+                     scene, bvh, o3, d3, cfg, tq, None, rec),
+                 "bounce": lambda: pipeline._bounce_soa(
+                     scene, bvh, color, ro, rd, inten, cfg, tq)}
+        for kind, pass_call in calls.items():
+            def call(pass_call=pass_call):
+                with walked:
+                    pass_call()
+
+            def plain(call=call):
+                with plain_shading:
+                    call()
+            row = {"ms": cuda_ms(call), "plain_ms": cuda_ms(plain)}
+            split = kernel_split(call)
+            row["device_ms"] = sum(v for k, v in split.items()
+                                   if k.startswith("shade_"))
+            row["device_split"] = split
+            row["plain_kernels"], row["plain_device_ms"] = profiled(plain)
+            row["kernels"], row["pass_device_ms"] = profiled(call)
+            nbytes = shade_bytes(kind, W * H, False)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+            row["bytes"] = nbytes
+            out[kind] = row
+            log(f"  shade {kind} pass, {W * H} rays: kernels {row['ms']:.3f}"
+                f" ms (device: shading kernels {row['device_ms']:.4f}, the "
+                f"pass's {row['kernels']} kernels {row['pass_device_ms']:.4f})"
+                f"; plain {row['plain_ms']:.3f} ms ({row['plain_kernels']} "
+                f"kernels, device {row['plain_device_ms']:.4f}); bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{nbytes / 1e6:.1f} MB); split {split}")
+    log(json.dumps({"shade": out}))
+    return dict(max_abs_err=worst, library_ms=None, **out["launch"],
+                bounce=out["bounce"])
+
+
 def sharded_rank() -> int:
     """One rank of run_sharded_ranks: the cases of sharded_cases on a
     geo=2 mesh over all ranks, against this card's own render_frame and
@@ -2992,6 +3134,9 @@ def main() -> int:
         log("phase 12 culled replays' kernels:")
         phase_culled_replays(CULLED_WANT)
         phase_done(12)
+        log("phase 13 shading kernels:")
+        kern["S"] = phase_shade(frames)
+        phase_done(13)
     except SmokeFailure as e:
         return fail(str(e))
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",
@@ -3009,7 +3154,9 @@ def main() -> int:
                "K7": ("raytracebvh_tpu_torch/csrc/gather_cols.cu",
                       "raytracebvh_tpu/ops/gather_pallas.py:130"),
                "K8": ("raytracebvh_tpu_torch/csrc/sort.cu",
-                      "raytracebvh_tpu/ops/sort_pallas.py:139")}
+                      "raytracebvh_tpu/ops/sort_pallas.py:139"),
+               # no TPU kernel: the JAX package leaves the shading to XLA
+               "S": ("raytracebvh_tpu_torch/csrc/shade.cu", None)}
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         return fail(f"{missing} never launched on the main path")

@@ -80,6 +80,20 @@ _SIGNATURES = {
     "rtbvh_mark": [_P, _I, _P, _I, _P],
     # record buffer, call id, stream
     "rtbvh_mark_call": [_P, _L, _P],
+    # leaf block, origin x y z + stride, direction x y z + stride, hit,
+    # tex_hw, textures, hmax, wmax, nrays, pos, normal, quad row, fractions,
+    # stream
+    "rtbvh_shade_surface": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I,
+                            _I, _I, _I, _P, _P, _P, _P, _P],
+    # kind, leaf block, quad block, pos, normal, fractions, origin x y z +
+    # stride, direction x y z + stride, hit, vis (nullable), colour 4 and
+    # intensity (nullable), nrays, background 4, reflection and refraction
+    # decay, ray offset, intensity_min, colour, origin, direction,
+    # intensity, refraction origin, direction, intensity (nullable), stream
+    "rtbvh_shade_finish": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P,
+                           _P, _L, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _F, _F, _F, _F, _F, _F, _F, _F,
+                           _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -10,7 +10,11 @@ traversal is kernel K5 with the tree in shared memory
 (``ops.gather_cuda``) or, for ``shade_gather_backend='shared'``, K7 on the
 channel-major table (``ops.gather_cols_cuda``); the texture-quad gather
 is K2; the build's sort is K8 (``ops.sort_cuda``) for
-``sort_backend`` ``bitonic`` or ``auto``.  The ``*_backend`` fields of
+``sort_backend`` ``bitonic`` or ``auto``.  A shading pass that needs no
+gradient, on the card, in float32 and on a kernel gather, runs its
+arithmetic as two hand-written kernels around the texture gather
+(``ops.shade_cuda``); the plain tensor code is the reference and the
+differentiable path.  The ``*_backend`` fields of
 the config pick them (see ``config.py``).  Shadow rays
 (``enable_shadows``) go through the any-hit traversal, kernel K6 or K4 on
 CUDA tensors; occlusion is discrete and computed under ``.detach()``,
@@ -46,7 +50,7 @@ from .ops.ieee import div, sqrt
 from .ops import morton as morton_ops
 from .ops import shade as shade_ops
 from .ops import sort as sort_ops
-from .ops import sort_cuda, traverse_cuda, traverse_shared_cuda
+from .ops import shade_cuda, sort_cuda, traverse_cuda, traverse_shared_cuda
 from .utils import profiling
 
 I32 = torch.int32
@@ -272,23 +276,28 @@ def _shadow_vis(bvh: BVH, o3, d3, rec: HitRecord, light3, cfg: RenderConfig):
         return torch.where(occ, t.new_full((), cfg.shadow_factor), 1.0)
 
 
-def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
-                   tex_quads, cfg: RenderConfig, vis=None):
-    """Re-evaluation of a hit from its leaf id: position, normal, surface
-    colour (renderPixel * specular, the diffuse term scaled by the shadow
-    factor ``vis`` when given), shininess, alpha and optical density.
-    One [40]-channel gather per ray fetches everything: a row gather from
-    the leaf-attribute table (K2 on CUDA), or for 'shared' a column gather
+def _leaf_block(bvh: BVH, rec: HitRecord, cfg: RenderConfig):
+    """The [40, R] leaf-attribute block of the hits: one [40]-channel
+    gather per ray fetches everything, a row gather from the
+    leaf-attribute table (K2 on CUDA), or for 'shared' a column gather
     from its channel-major transpose (K7 on CUDA), as the JAX 'pallas'
-    gathers from ``leaf_attrs.T``: the span ``gather``, as is the texture
-    sample's."""
+    gathers from ``leaf_attrs.T``: the span ``gather``."""
     backend = resolve_backend(cfg, "shade_gather_backend")
     with profiling.span("gather", rec.leaf):
         if backend == "shared":
-            A = gather_cols_cuda.gather_cols(
+            return gather_cols_cuda.gather_cols(
                 bvh.leaf_attrs.t().contiguous(), rec.leaf)
-        else:
-            A = gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
+        return gather_cuda.gather_for(backend)(bvh.leaf_attrs, rec.leaf)
+
+
+def _shade_hit_soa(scene: Scene, bvh: BVH, o3, d3, rec: HitRecord,
+                   tex_quads, cfg: RenderConfig, vis=None):
+    """Re-evaluation of a hit from its leaf id, in plain PyTorch:
+    position, normal, surface colour (renderPixel * specular, the diffuse
+    term scaled by the shadow factor ``vis`` when given), shininess,
+    alpha and optical density, from the leaf block (``_leaf_block``) and
+    a texture sample (its gather the span ``gather`` too)."""
+    A = _leaf_block(bvh, rec, cfg)
     # the rows as one unbind: its backward stacks the rows' gradients
     # once, where a select a row would fill and add a whole [40, R]
     # gradient for each
@@ -346,13 +355,18 @@ def _launch_soa(scene: Scene, bvh: BVH, o3, d3, cfg: RenderConfig,
     (refr_o3, refr_d3), refr_intensity).  Shadow rays are fired when
     ``cfg.enable_shadows`` and ``light3`` is given.  The spans
     ``walk.primary`` (where ``rec`` is not given), ``walk.shadow``, then
-    ``shade.primary``."""
+    ``shade.primary``: the shading kernels where ``shade_cuda.engages``
+    (the frames on the card), else plain PyTorch."""
     if rec is None:
         rec = _traverse_ids(bvh, _rays_of(o3, d3), cfg)
     vis = None
     if cfg.enable_shadows and light3 is not None:
         vis = _shadow_vis(bvh, o3, d3, rec, light3, cfg)
     with profiling.span("shade.primary", o3[0]):
+        if shade_cuda.engages(cfg, (bvh.leaf_attrs, tex_quads, *o3, *d3,
+                                    vis)):
+            return shade_cuda.launch(_leaf_block(bvh, rec, cfg), rec.hit, o3,
+                                     d3, scene, tex_quads, cfg, vis)
         hit_loc, normal, hit_color, shininess, alpha, optical = _shade_hit_soa(
             scene, bvh, o3, d3, rec, tex_quads, cfg, vis)
         hit = rec.hit
@@ -388,12 +402,18 @@ def _bounce_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
     """One reflection pass: live rays (intensity > intensity_min)
     re-trace; hits lerp the carried colour toward the new surface colour
     and respawn; misses lerp toward the background and die.  The spans
-    ``walk.bounce`` and ``shade.bounce``."""
+    ``walk.bounce`` and ``shade.bounce`` (its shading as
+    ``_launch_soa``'s)."""
     live = intensity > cfg.intensity_min
     # dead rays start far outside every box: their walk ends on step one
     o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
     rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg, "walk.bounce")
     with profiling.span("shade.bounce", intensity):
+        if shade_cuda.engages(cfg, (bvh.leaf_attrs, tex_quads, *o3, *d3,
+                                    *color, intensity)):
+            return shade_cuda.bounce(_leaf_block(bvh, rec, cfg), rec.hit, o3,
+                                     d3, color, intensity, scene, tex_quads,
+                                     cfg)
         hit_loc, normal, hit_color, shininess, _, _ = _shade_hit_soa(
             scene, bvh, o3, d3, rec, tex_quads, cfg)
         hit = rec.hit & live
@@ -421,6 +441,11 @@ def _bounce_refract_soa(scene: Scene, bvh: BVH, color, o3, d3, intensity,
     o3m = tuple(torch.where(live, o3[i], 1.0e30) for i in range(3))
     rec = _traverse_ids(bvh, _rays_of(o3m, d3), cfg, "walk.bounce")
     with profiling.span("shade.bounce", intensity):
+        if shade_cuda.engages(cfg, (bvh.leaf_attrs, tex_quads, *o3, *d3,
+                                    *color, intensity)):
+            return shade_cuda.bounce_refract(
+                _leaf_block(bvh, rec, cfg), rec.hit, o3, d3, color,
+                intensity, scene, tex_quads, cfg)
         hit_loc, normal, hit_color, _, alpha, optical = _shade_hit_soa(
             scene, bvh, o3, d3, rec, tex_quads, cfg)
         hit = rec.hit & live

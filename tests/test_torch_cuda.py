@@ -1233,14 +1233,16 @@ def test_failed_capture_raises(dev, monkeypatch):
     from raytracebvh_tpu_torch import pipeline
 
     scene, cam, cfg = _graph_frame_args(dev)
-    real = pipeline._shade_hit_soa
+    # the leaf gather: every shading pass calls it, on the shading kernels'
+    # route and the plain one alike
+    real = pipeline._leaf_block
 
-    def reads_back(scene, bvh, o3, d3, rec, *a, **k):
+    def reads_back(bvh, rec, cfg):
         int(rec.hit.sum())  # a host read: fine eagerly, not in a capture
-        return real(scene, bvh, o3, d3, rec, *a, **k)
+        return real(bvh, rec, cfg)
 
     pipeline.FRAME_GRAPHS.clear()
-    monkeypatch.setattr(pipeline, "_shade_hit_soa", reads_back)
+    monkeypatch.setattr(pipeline, "_leaf_block", reads_back)
     with pytest.raises(RuntimeError):
         T.render_frame_jit(scene, cam, cfg)
     assert not pipeline.FRAME_GRAPHS.entries
