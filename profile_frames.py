@@ -29,10 +29,7 @@ and the dense frame with ``traversal_chunk`` 25 600 beside the unchunked
 one (``chunked_walks``), without the profiler: give each config a
 process of its own (``--culled --configs sparse``), since a graph
 captured after a torch.profiler trace in the same process can replay
-slower.  Run from another checkout's root, with this script, chip_smoke.py
-and rtbench/tracing.py (its kernel names and busy union) copied there, to
-measure that commit.  Exits non-zero
-without a CUDA device.
+slower.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -106,7 +103,7 @@ def profile_frame(name, scene, cam, cfg, nframes, top, train=False):
                     f", build alone {build_ms:.2f} ms")
         profile_run(f"{name} graphed", graphed, nframes, top)
         if train:
-            (entry,) = step_graphs(opt).entries.values()
+            (entry,) = inverse.step_graphs(opt).entries.values()
             entry = entry.captured
         else:
             (entry,) = pipeline.FRAME_GRAPHS.entries.values()
@@ -184,32 +181,17 @@ def culled_replays(name, scene, cam, cfg):
 
 def capture_of(entry):
     """The capture log's record of a ``graphs.Captured``
-    (``profiling.captures``: its capture and warm-up ms, its pool bytes);
-    on a commit before the log, the graph itself, which holds the first
-    two."""
+    (``profiling.captures``: its capture and warm-up ms, its pool bytes)."""
     from raytracebvh_tpu_torch.utils import profiling
 
-    if not hasattr(profiling, "captures"):
-        return entry
     return next(r for r in reversed(profiling.captures(live=True))
                 if r.owner() is entry)
 
 
 def trips_of(entry):
     """The trip counters of a graphs.Captured after its last replay (a
-    graph without loops, or one of a commit before them: [])."""
-    return [int(t) for t in getattr(entry, "trips", ())]
-
-
-def step_graphs(opt):
-    """``train_step_jit``'s captures for ``opt``: ``inverse.step_graphs``,
-    or on a commit before it the module-global dictionary."""
-    from raytracebvh_tpu_torch import graphs
-    from raytracebvh_tpu_torch.models import inverse
-
-    if hasattr(inverse, "step_graphs"):
-        return inverse.step_graphs(opt)
-    return inverse._STEP_GRAPHS.setdefault(opt, graphs.Cache())
+    graph without loops: [])."""
+    return [int(t) for t in entry.trips]
 
 
 def kernel_nodes(entry):
@@ -239,14 +221,14 @@ def culled_steps(name, scene, cam, cfg):
             params = inverse.init_params(scene)
             opt = inverse.make_optimizer(params, 1e-2, capturable=True)
             debug = k == CULLED_CAPTURES
-            step_graphs(opt).debug = debug
+            inverse.step_graphs(opt).debug = debug
 
             def step():
                 inverse.train_step_jit(params, opt, scene, cam, target, run,
                                        lr=1e-2)
 
             step()
-            (entry,) = step_graphs(opt).entries.values()
+            (entry,) = inverse.step_graphs(opt).entries.values()
             entry = entry.captured
             if debug:
                 nodes = kernel_nodes(entry)

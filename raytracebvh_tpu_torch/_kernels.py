@@ -64,10 +64,6 @@ _SIGNATURES = {
     "rtbvh_gather_cols_f32": [_P, _I, _I, _P, _I, _P, _P],
     # codes, n, sorted, order, scratch (nullable), stream
     "rtbvh_sort_by_code": [_P, _I, _P, _P, _P, _P],
-    # predicate (bool), capturing stream, body stream
-    "rtbvh_if_begin": [_P, _P, _P],
-    # body stream
-    "rtbvh_if_end": [_P],
     # count (int32), trip counter (int32), capturing stream, body stream,
     # the node's handle (out)
     "rtbvh_while_begin": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],

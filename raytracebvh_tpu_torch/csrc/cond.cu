@@ -1,42 +1,31 @@
-// Conditional CUDA-graph nodes: the device side of graphs.cond and
-// graphs.while_loop, the port's counterparts of jax.lax.cond and of the
-// while loop that XLA compiles lax.map into, inside a compiled program.
+// Conditional CUDA-graph nodes: the device side of graphs.while_loop, the
+// port's counterpart of the while loop that XLA compiles lax.map into,
+// inside a compiled program.
 //
 // The JAX package's chunk loop is a lax.map over ray chunks, culled ones
 // under lax.cond(any hit, shade, background) (raytracebvh_tpu/pipeline.py,
 // shade_rays); under jit it is one while loop on the device with one body.
-// CUDA 12.4 added the counterparts to CUDA graphs: an IF node, whose body
-// graph runs at a launch only where a kernel earlier in the graph set the
-// node's handle to a non-zero value, and a WHILE node, whose body graph
-// runs again and again while the handle is non-zero, checked before each
-// trip (a kernel in the body sets it for the next).
+// The port's culled loop runs over the hit chunks alone (chunk_order).
+// CUDA 12.4 added the counterpart to CUDA graphs: a WHILE node, a
+// conditional node whose body graph runs again and again while the node's
+// handle is non-zero, checked before each trip (a kernel in the body sets
+// it for the next).
 //
-// rtbvh_if_begin adds one IF node to the graph that `stream` is capturing:
-// a one-thread kernel copies the predicate (a bool in device memory, read
-// at each launch of the graph) into a new conditional handle, the IF node
-// follows it, and the node becomes the stream's only capture dependency,
-// so the rest of the capture runs after the node.  Then `body` (a stream
-// no one else uses) starts capturing into the node's body graph, until
-// rtbvh_if_end.  The caller launches the body's work on `body` in
-// between.  This is what torch's CUDAGraph.begin_capture_to_if_node does
-// in the torch releases that have it.
-//
-// rtbvh_while_begin adds one WHILE node the same way: a one-thread kernel
-// sets the trip counter (an int in device memory) to 0 and the handle to
-// count > 0 (count an int in device memory, read at each launch), the
-// node follows, and `body` captures into its body graph.  rtbvh_while_end
-// ends the body with a one-thread kernel that adds one to the counter and
-// sets the handle to counter < count, then ends the body's capture.  The
-// counter outlives the launch: after it, it holds the trips run.
+// rtbvh_while_begin adds one WHILE node to the graph that `stream` is
+// capturing: a one-thread kernel sets the trip counter (an int in device
+// memory) to 0 and a new conditional handle to count > 0 (count an int in
+// device memory, read at each launch of the graph), the WHILE node follows
+// it, and the node becomes the stream's only capture dependency, so the
+// rest of the capture runs after the node.  Then `body` (a stream no one
+// else uses) starts capturing into the node's body graph.  The caller
+// launches the body's work on `body`, then rtbvh_while_end ends the body
+// with a one-thread kernel that adds one to the counter and sets the
+// handle to counter < count, and ends the body's capture.  The counter
+// outlives the launch: after it, it holds the trips run.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-__global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
-                                     const bool* pred) {
-  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
-}
 
 // before a WHILE node: the first trip runs where count > 0
 __global__ void while_start_kernel(cudaGraphConditionalHandle handle,
@@ -80,11 +69,11 @@ cudaError_t new_handle(cudaStream_t s, cudaGraphConditionalHandle* handle) {
   return cudaGraphConditionalHandleCreate(handle, graph, 0, 0);
 }
 
-// after the kernel that sets `handle` (launched on `s`): a conditional
-// node of `type` on it, made `s`'s only capture dependency, and `body`
-// capturing into the node's body graph
+// after the kernel that sets `handle` (launched on `s`): a WHILE node on
+// it, made `s`'s only capture dependency, and `body` capturing into the
+// node's body graph
 cudaError_t add_node(cudaStream_t s, cudaGraphConditionalHandle handle,
-                     cudaGraphConditionalNodeType type, cudaStream_t body) {
+                     cudaStream_t body) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaGraph_t graph;
@@ -96,7 +85,7 @@ cudaError_t add_node(cudaStream_t s, cudaGraphConditionalHandle handle,
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = type;
+  params.conditional.type = cudaGraphCondTypeWhile;
   params.conditional.size = 1;
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
@@ -118,22 +107,6 @@ cudaError_t add_node(cudaStream_t s, cudaGraphConditionalHandle handle,
 
 }  // namespace
 
-extern "C" int rtbvh_if_begin(const void* pred, void* stream, void* body) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaGraphConditionalHandle handle;
-  cudaError_t err = new_handle(s, &handle);
-  if (err != cudaSuccess) return err;
-  set_condition_kernel<<<1, 1, 0, s>>>(handle,
-                                       static_cast<const bool*>(pred));
-  return add_node(s, handle, cudaGraphCondTypeIf,
-                  static_cast<cudaStream_t>(body));
-}
-
-extern "C" int rtbvh_if_end(void* body) {
-  cudaGraph_t graph;
-  return cudaStreamEndCapture(static_cast<cudaStream_t>(body), &graph);
-}
-
 extern "C" int rtbvh_while_begin(const void* count, void* trip, void* stream,
                                  void* body, unsigned long long* handle_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -143,8 +116,7 @@ extern "C" int rtbvh_while_begin(const void* count, void* trip, void* stream,
   while_start_kernel<<<1, 1, 0, s>>>(handle, static_cast<const int*>(count),
                                      static_cast<int*>(trip));
   *handle_out = handle;
-  return add_node(s, handle, cudaGraphCondTypeWhile,
-                  static_cast<cudaStream_t>(body));
+  return add_node(s, handle, static_cast<cudaStream_t>(body));
 }
 
 extern "C" int rtbvh_while_end(unsigned long long handle, const void* count,

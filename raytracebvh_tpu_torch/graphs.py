@@ -25,26 +25,17 @@ counters of ``ops/*_cuda.py`` count the capture's launches once: a replay
 runs the kernels again without passing through Python, so the counters do
 not count replays.
 
-``cond`` is ``jax.lax.cond``: eagerly it runs one branch by the host's
-value of the predicate; while capturing it records each branch into a
-conditional node of the graph (CUDA 12.4 and later; the node is
-``csrc/cond.cu``'s, since torch 2.11 has none), an IF node on a 0-d CUDA
-bool that the graph reads at each replay, so the device decides which
-branch runs and the host reads nothing.  It differentiates: its backward
-is a ``cond`` on the same predicate (as JAX transposes ``lax.cond`` into a
-``cond``), which recomputes the branch that ran with autograd and takes
-its vector-Jacobian product.
-
 ``while_loop`` is the while loop that XLA compiles ``lax.map`` into: one
 body run ``count`` times, the trip number a device index.  Eagerly it
 loops in Python; while capturing it records the body once into a WHILE
-node of ``csrc/cond.cu``, whose trip count the graph reads from a 0-d
-device int at each replay.  ``pipeline.shade_rays`` runs its chunk loop
-on it.
+node of ``csrc/cond.cu`` (a CUDA conditional node, CUDA 12.4 and later;
+torch 2.11 offers none), whose trip count the graph reads from a 0-d
+device int at each replay, so the device decides how many trips run and the
+host reads nothing.  ``pipeline.shade_rays`` runs its chunk loop on it.
 
-``Captured``'s warm-up runs both branches of every ``cond`` and every
-loop's body at least once, so that the bodies the capture records have
-run once eagerly (their lazily made constants made outside the capture).
+``Captured``'s warm-up runs every loop's body at least once, so that the
+body the capture records has run once eagerly (its lazily made constants
+made outside the capture).
 
 While ``utils.profiling.spans()`` is open, ``signature`` keys a
 spans-on graph apart (its capture holds the spans' marks), and the host's
@@ -60,7 +51,6 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
-import functools
 import time
 import weakref
 
@@ -163,8 +153,8 @@ _warming = 0
 
 @contextlib.contextmanager
 def warming():
-    """While open, ``cond`` runs both branches (and returns the one the
-    predicate picks), and ``while_loop`` runs its body at least once."""
+    """While open, ``while_loop`` runs its body at least once (a loop of
+    no trips runs it for trip 0)."""
     global _warming
     _warming += 1
     try:
@@ -175,7 +165,7 @@ def warming():
 
 # the conditional nodes' bodies' stream on each device, and the bodies of
 # the graph that ``Captured`` is capturing (None outside a capture: a
-# captured cond or loop needs its warm-up)
+# captured loop needs its warm-up)
 _body_streams: dict = {}
 _bodies = None
 
@@ -229,29 +219,6 @@ class _Bodies:
         if self.held:
             self.held = False
             torch._C._cuda_releasePool(self.index, self.pool)
-
-
-@contextlib.contextmanager
-def _if_node(pred: torch.Tensor):
-    """Capture the block into an IF node of the graph being captured: its
-    body runs at a replay where ``pred`` (a 0-d CUDA bool, read by the
-    graph) is true.  The node is ``csrc/cond.cu``'s; the block runs on the
-    bodies' stream, its memory from their pool."""
-    if pred.dtype != torch.bool or pred.dim() or pred.device.type != "cuda":
-        raise ValueError(f"cond: the predicate of a captured cond must be a "
-                         f"0-d CUDA bool; got {pred.dtype} "
-                         f"{tuple(pred.shape)} on {pred.device}")
-    bodies = _captured_bodies("cond: a captured cond")
-    body = _body_stream(pred.device)
-    _kernels.check(_kernels.load().rtbvh_if_begin(
-        pred.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        body.cuda_stream), "cond: an IF node")
-    try:
-        with torch.cuda.stream(body), bodies.allocating():
-            yield
-    finally:
-        _kernels.check(_kernels.load().rtbvh_if_end(body.cuda_stream),
-                       "cond: an IF node's body")
 
 
 def _captured_bodies(what: str) -> _Bodies:
@@ -329,106 +296,12 @@ def _while_node(count, body, device: torch.device) -> torch.Tensor:
     return trip
 
 
-def _select(pred, true_fn, false_fn):
-    """``true_fn()`` if ``pred`` else ``false_fn()``: both return a tensor
-    or a tuple of tensors of the same shapes and dtypes.  A tensor ``pred``
-    while capturing makes two IF nodes, on ``pred`` and on its negation;
-    the second copies ``false_fn()`` into the first's output, which it
-    returns (torch's ``if_else_node``).  Else a tensor ``pred`` is read on
-    the host."""
-    if isinstance(pred, torch.Tensor) and capturing():
-        not_pred = torch.logical_not(pred)
-        with _if_node(pred):
-            out = true_fn()
-        with _if_node(not_pred):
-            other = false_fn()
-            for o, x in zip(tensors(out), tensors(other), strict=True):
-                if o.shape != x.shape or o.dtype != x.dtype:
-                    raise ValueError(
-                        f"cond: the branches return {o.dtype} "
-                        f"{tuple(o.shape)} and {x.dtype} {tuple(x.shape)}")
-                o.copy_(x)
-        return out
-    pred = bool(pred)
-    if _warming:  # the branch the predicate skips, for its warm-up
-        (false_fn if pred else true_fn)()
-    return true_fn() if pred else false_fn()
-
-
-def cond(pred, true_fn, false_fn, operands: tuple = ()):
-    """``jax.lax.cond(pred, true_fn, false_fn, *operands)``: the result of
-    ``true_fn(*operands)`` where ``pred`` holds, else of
-    ``false_fn(*operands)``, a tensor or a tuple of tensors, equal in shape
-    and dtype.  ``pred`` is a bool (the host's value) or a 0-d bool
-    tensor: while capturing, on the card, the graph's IF nodes decide at
-    each replay; eagerly it is read.
-
-    With grad mode on, the result is differentiable with respect to the
-    tensors in ``operands`` (trees of tuples and dataclasses) that require
-    grad; tensors the branches close over are constants.  The backward is
-    a ``cond`` on the same predicate, as JAX transposes ``lax.cond``: the
-    branch that ran, recomputed with autograd, and its vector-Jacobian
-    product.  Recomputing costs the branch's forward once more and keeps
-    no residual from the forward: autograd runs a node's backward on the
-    stream that ran its forward, which for a branch captured into an IF
-    node is the bodies' stream, whose capture has ended by the time the
-    backward is captured."""
-    leaves = [t for t in tensors(operands) if t.requires_grad] \
-        if torch.is_grad_enabled() else []
-    if not leaves:
-        return _select(pred, lambda: true_fn(*operands),
-                       lambda: false_fn(*operands))
-    one = []
-    out = _Cond.apply(pred, true_fn, false_fn, operands, one, *leaves)
-    return out[0] if one[0] else out
-
-
-class _Cond(torch.autograd.Function):
-    """``cond`` under autograd: its outputs are a tuple of tensors (the
-    false branch's cloned, so that none is a tensor the branch closes
-    over, such as a constant); ``one`` gets whether the branch returned
-    one tensor."""
-
-    @staticmethod
-    def forward(ctx, pred, true_fn, false_fn, operands, one, *leaves):
-        ctx.pred, ctx.fns, ctx.operands = pred, (true_fn, false_fn), operands
-        ctx.leaves = leaves
-        out = _select(pred, lambda: true_fn(*operands),
-                      lambda: _map(torch.clone, false_fn(*operands)))
-        one.append(isinstance(out, torch.Tensor))
-        return tuple(tensors(out))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        vjps = [functools.partial(_vjp, fn, ctx.operands, ctx.leaves, grads)
-                for fn in ctx.fns]
-        return (None,) * 5 + tuple(_select(ctx.pred, *vjps))
-
-
-def _vjp(fn, operands, leaves, grads):
-    """The gradients of ``fn(*operands)``'s outputs against ``grads`` with
-    respect to ``leaves`` (tensors in ``operands``), ``fn`` recomputed with
-    autograd: a tuple of tensors, zeros where an output does not depend on
-    a leaf."""
-    with torch.enable_grad():
-        fresh = [t.detach().requires_grad_(True) for t in leaves]
-        swap = {id(t): f for t, f in zip(leaves, fresh)}
-        outs = tensors(fn(*_map(lambda t: swap.get(id(t), t), operands)))
-        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-        got = torch.autograd.grad(
-            [o for o, _ in pairs], fresh, [g for _, g in pairs],
-            allow_unused=True) if pairs else [None] * len(fresh)
-    return tuple(torch.zeros_like(f) if g is None else g
-                 for f, g in zip(fresh, got))
-
-
 class Captured:
     """One CUDA graph of ``fn(*inputs)``.
 
     ``inputs`` are copied into static tensors (``static_copy``).
     ``warmup`` (default ``fn``) runs once on ``stream`` with the static
-    inputs, both branches of every ``cond`` and every loop's body included
-    (``warming``), then ``prepare()`` where given, then ``fn`` is captured
+    inputs, every loop's body at least once (``warming``), then ``prepare()`` where given, then ``fn`` is captured
     on ``stream`` into a graph with a memory pool of its own, and its
     conditional nodes' bodies with another (``_Bodies``), released with
     the graph.  A capture that fails raises, and leaves the allocator as

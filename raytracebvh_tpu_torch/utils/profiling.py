@@ -449,8 +449,8 @@ def clock_offset(device=None, rounds: int = 50) -> ClockOffset:
 @dataclasses.dataclass
 class CaptureRecord:
     """One capture of ``graphs.Captured``: its ``name`` (``frame``,
-    ``step``, a stage's), the eager warm-up's ms (both branches of every
-    ``cond`` and every loop body included), the capture's ms, the device
+    ``step``, a stage's), the eager warm-up's ms (every loop body
+    included), the capture's ms, the device
     memory the allocator reserved during it (``pool_bytes``) and the most
     its allocations held at once (``peak_bytes``, what
     ``torch.cuda.max_memory_allocated`` sees of the capture), whether spans

@@ -964,33 +964,6 @@ def test_graphed_culled_frame_is_one_graph_the_device_steers(dev):
     pipeline.FRAME_GRAPHS.clear()
 
 
-def test_captured_cond_steers_by_the_device(dev):
-    """graphs.cond captured: two IF nodes on a 0-d CUDA bool that the
-    graph reads at each replay (csrc/cond.cu), each replay the branch
-    the copied-in predicate picks; its gradient, captured too, the
-    branch's."""
-    from raytracebvh_tpu_torch import graphs
-
-    x0 = torch.arange(1.0, 7.0, device=dev)
-
-    def fn(x, pred):
-        a = x.detach().requires_grad_(True)
-        out = graphs.cond(pred, lambda v: (v * v).sin(), lambda v: v.exp(),
-                          (a,))
-        (grad,) = torch.autograd.grad(out.sum(), a)
-        return out.detach(), grad
-
-    stream = torch.cuda.Stream(dev)
-    captured = graphs.Captured(fn, (x0, torch.tensor(True, device=dev)),
-                               stream)
-    for pred in (True, False, True):
-        p = torch.tensor(pred, device=dev)
-        got = [t.clone() for t in captured(x0 + 1.0, p)]
-        want = fn(x0 + 1.0, pred)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), pred
-        assert not captured.trips
-
-
 def test_profiled_culled_replays_after_traces(dev):
     """torch.profiler over culled graphs in one process, in the order that
     faulted the card with IF nodes: chip_smoke.py's 1080p sparse and

@@ -17,8 +17,6 @@ the CPU can show is held here:
     chunks' hit flags;
   * ``graphs.while_loop`` eagerly for 0, 1 and n trips (at least one
     under ``warming``);
-  * ``graphs.cond``'s eager branches (both under ``warming``) and its
-    gradient, the recomputed branch's, in float64 at rtol 1e-14;
   * the capture-safe constants bit for bit against the host literals
     they replace, in float32, bfloat16 and float16;
   * the unchunked frame issuing no host read and no tensor literal
@@ -147,71 +145,6 @@ def test_two_pass_chunk_loop_equals_one_pass(share, ortho_scale, away,
     hit = any_hit.tolist()
     assert {"some": any(hit) and not all(hit), "none": not any(hit),
             "all": all(hit)}[share], hit
-
-
-def test_cond_runs_the_branch_the_predicate_picks():
-    """graphs.cond eagerly: the branch of the host's value (a bool, or a
-    0-d tensor read on the host), a tensor or a tuple of tensors; under
-    warming() both branches run and the picked one is returned."""
-    calls = []
-
-    def branch(name, value):
-        def fn(x):
-            calls.append(name)
-            return x + value, x * value
-        return fn
-
-    x = torch.arange(4.0)
-    for pred in (True, False, torch.tensor(True), torch.tensor(False)):
-        calls.clear()
-        out = graphs.cond(pred, branch("t", 1.0), branch("f", 2.0), (x,))
-        want = (x + 1.0, x * 1.0) if bool(pred) else (x + 2.0, x * 2.0)
-        assert all(torch.equal(a, b) for a, b in zip(out, want))
-        assert calls == ["t" if bool(pred) else "f"]
-        calls.clear()
-        with graphs.warming():
-            again = graphs.cond(pred, branch("t", 1.0), branch("f", 2.0),
-                                (x,))
-        assert sorted(calls) == ["f", "t"]
-        assert all(torch.equal(a, b) for a, b in zip(again, want))
-    one = graphs.cond(False, lambda: x + 1, lambda: x - 1)
-    assert torch.equal(one, x - 1)
-    assert not graphs.capturing()
-
-
-@pytest.mark.parametrize("pred", [True, False])
-def test_cond_gradient_is_the_branch_that_ran(pred):
-    """cond's backward is the vector-Jacobian product of the branch the
-    predicate picked, recomputed: the gradients of each branch written
-    out alone, and zeros (not None) for an operand that branch does not
-    read; a tensor a branch closes over is a constant."""
-    gen = torch.Generator().manual_seed(3)
-    x = torch.randn(5, 3, generator=gen, dtype=torch.float64)
-    y = torch.randn(5, 3, generator=gen, dtype=torch.float64)
-    c = torch.randn(5, 3, generator=gen, dtype=torch.float64,
-                    requires_grad=True)
-    true_fn = lambda a, b: (a * b).sin() * c  # noqa: E731
-    false_fn = lambda a, b: a.exp() + 0 * c.detach()  # noqa: E731
-    w = torch.randn(5, 3, generator=gen, dtype=torch.float64)
-
-    def grads(fn):
-        a, b = (t.clone().requires_grad_(True) for t in (x, y))
-        (fn(a, b) * w).sum().backward()
-        return [torch.zeros_like(x) if t.grad is None else t.grad
-                for t in (a, b)]
-
-    a, b = (t.clone().requires_grad_(True) for t in (x, y))
-    out = graphs.cond(pred, true_fn, false_fn, (a, b))
-    assert out.requires_grad
-    (out * w).sum().backward()
-    assert c.grad is None  # closed over: a constant
-    want = grads(true_fn if pred else false_fn)
-    assert torch.equal(out.detach(), (true_fn if pred else false_fn)(x, y)
-                       .detach())
-    assert torch.allclose(a.grad, want[0], rtol=1e-14, atol=0)
-    assert torch.allclose(b.grad, want[1], rtol=1e-14, atol=0)
-    with torch.no_grad():
-        assert not graphs.cond(pred, true_fn, false_fn, (a, b)).requires_grad
 
 
 def test_trace_chunks_flags_are_the_chunks_any_hit():

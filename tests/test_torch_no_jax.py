@@ -107,7 +107,7 @@ def test_no_module_imports_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_frames.py",
-                                    "walk_sass.py", "repro_trace_fault.py"])
+                                    "walk_sass.py"])
 def test_chip_scripts_import_no_jax(script):
     """The scripts run on the GPU machine, which has no JAX."""
     with open(os.path.join(ROOT, script)) as fh:

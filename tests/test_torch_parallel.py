@@ -299,9 +299,10 @@ def test_train_step_sharded_matches_jax(flat):
 
 def test_culled_train_step_sharded_matches_jax(flat):
     """A step whose ray chunks cull (ray_chunk 8: half rows, about half of
-    them all-miss), each chunk's shading and gradient under graphs.cond,
-    against JAX's sharded step through lax.map of lax.cond and the same
-    unculled step on the port, at the unculled step's tolerances."""
+    them all-miss), the hit chunks' shading and gradients in
+    graphs.while_loop, against JAX's sharded step through lax.map of
+    lax.cond and the same unculled step on the port, at the unculled
+    step's tolerances."""
     cfg_kw = dict(CFG16, ray_chunk=8)
     hits = _port_frame(SCENE16, CFG16)
     bg = np.asarray(T.RenderConfig().background, np.float32)

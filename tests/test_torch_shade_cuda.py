@@ -1,9 +1,8 @@
 """The frames' shading kernels (``ops/shade_cuda.py``, ``csrc/shade.cu``).
 
 On the CPU: the rule that routes a shading pass to the kernels, as a pure
-function of the config and the pass's input tensors, and the kernels' C
-entry points in ``_kernels._SIGNATURES`` with as many arguments as the
-source gives them.
+function of the config and the pass's input tensors (the kernels' C entry
+points are held to ``_kernels._SIGNATURES`` in ``test_torch_kernels.py``).
 
 Marked ``gpu`` (they skip without a CUDA device; a CUDA kernel has no CPU
 mode): the kernel route against the plain route on the same inputs, bit
@@ -23,8 +22,6 @@ not have JAX:
 
 import contextlib
 import dataclasses
-import re
-from pathlib import Path
 from types import SimpleNamespace
 from unittest import mock
 
@@ -32,11 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from raytracebvh_tpu_torch import _kernels, pipeline
+from raytracebvh_tpu_torch import pipeline
 from raytracebvh_tpu_torch.config import RenderConfig
 from raytracebvh_tpu_torch.ops import shade_cuda
-
-ENTRIES = ("rtbvh_shade_surface", "rtbvh_shade_finish")
 
 
 def _fake(device="cuda", dtype=torch.float32, requires_grad=False):
@@ -96,24 +91,6 @@ def test_cpu_frame_takes_the_plain_shading():
     img = render_frame(scene, Camera.default("cpu"), cfg)
     assert shade_cuda.launches == before
     assert bool(torch.isfinite(img).all())
-
-
-def _c_arguments(name: str) -> int:
-    """The number of parameters of ``extern "C" int name(...)`` in the
-    kernels' sources."""
-    for src in _kernels.sources():
-        m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{",
-                      src.read_text(), re.S)
-        if m:
-            return len([a for a in m.group(1).split(",") if a.strip()])
-    raise AssertionError(f"{name} is in no source")
-
-
-@pytest.mark.parametrize("name", ENTRIES)
-def test_shading_entries_are_declared(name):
-    assert name in _kernels._SIGNATURES
-    assert len(_kernels._SIGNATURES[name]) == _c_arguments(name)
-    assert Path(_kernels.CSRC / "shade.cu") in _kernels.sources()
 
 
 # ---------------------------------------------------------------- the card
