@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (raytracebvh_tpu_torch) on one
-NVIDIA GPU: builds the hand-written kernels K1-K8 and S (the frames'
-shading), holds each against its plain PyTorch version at the main path's shapes, renders nine 1920x1080
+NVIDIA GPU: builds the hand-written kernels K1-K8, S (the frames'
+shading) and P (the build's leaf pack), holds each against its plain
+PyTorch version at the main path's shapes, renders nine 1920x1080
 frames through ``render_frame`` (forward, shadowed, refractive, the
 small-scene on-chip configuration and bfloat16), runs the
 inverse-rendering training step at 1920x1080 on three frames, runs
@@ -160,6 +161,12 @@ Phases (one line of output each, or more):
      frame's primary and bounce passes timed, kernels against plain (CUDA
      events, the profiler's device time), and the kernels' bound: the
      kernel line's row S
+ 14. leaf pack kernel: the build's pack (ops/pack_cuda.py, csrc/pack.cu)
+     on the benchmark's 1 048 576-triangle tetra1m scene, its tables bit
+     for bit the plain pack's; the kernel's device ms, the plain tail +
+     pack_tables' ms and kernels, and the byte bound: the kernel line's
+     row P (P's launches, one a float32 frame's build and none in a step,
+     are held in every phase's route checks)
 
 Launch counts include phases 10's and 11's (not phase 12's, whose
 processes count their own).  The Python launch counters count a graph's
@@ -363,6 +370,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def back_to_back_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` from CUDA events around ``calls`` calls
+    queued back to back (the host runs ahead, so the card waits on no
+    launch), the median of ``reps`` rounds after one warm-up call; for a
+    call whose device time the profiler's records may leave out."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -1249,8 +1275,10 @@ def render_counted(name, scene, cam, cfg):
     return img, counts, refr
 
 
-# K1-K8 and S, the frames' shading (ops/shade_cuda.py: two kernels a pass)
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "S")
+# K1-K8, S, the frames' shading (ops/shade_cuda.py: two kernels a pass),
+# and P, the build's leaf pack (ops/pack_cuda.py: one a build that needs
+# no gradient, in float32)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "S", "P")
 # the configs whose walks are K5/K6 (a 3 072-leaf tree through 'auto' or
 # 'shared'), and those that also gather with K7 and sort with K8
 ONCHIP_WALKS = ("sparse", "sparse_shadows", "dense_onchip",
@@ -1266,11 +1294,14 @@ CHUNK_BODY = {"sparse": dict(K5=1, K2=4, S=4),
               "sparse_train_culled": dict(K5=2, K2=8, K3=2, S=4)}
 
 
-def culled_routes(name, shaded):
+def culled_routes(name, shaded, builds=None):
     """K -> launches of the culled config ``name`` of whose chunks
-    ``shaded`` are shaded."""
+    ``shaded`` are shaded, with ``builds`` P launches (None: a frame's
+    build, 1, a step's, 0; a call that shades a built tree, 0)."""
     want = dict.fromkeys(KERNELS, 0)
     want["K5"] = 1
+    want["P"] = (0 if CHUNK_BODY[name].get("K3") else 1) if builds is None \
+        else builds
     for k, v in CHUNK_BODY[name].items():
         want[k] += shaded * v
     return want
@@ -1307,7 +1338,7 @@ def culled_replay_routes(call, captured, name, want, tries=5):
     replay) give the trips; the launches, the trace's and, where it held
     one trip a loop, the further trips' bodies, are held to ``want``."""
     shaded = want["K2"] // CHUNK_BODY[name]["K2"]
-    once = culled_routes(name, min(shaded, 1))
+    once = culled_routes(name, min(shaded, 1), want["P"])
     seen, total, _ = replay_routes(call, (want, once), tries)
     trips = check_trips(name, captured, name, want)
     ran = seen
@@ -1325,7 +1356,7 @@ def capture_routes(name, want, in_graph):
     warm = want
     if name in CHUNK_BODY:
         warm = culled_routes(name, max(
-            want["K2"] // CHUNK_BODY[name]["K2"], 1))
+            want["K2"] // CHUNK_BODY[name]["K2"], 1), want["P"])
     return {k: warm[k] + in_graph[k] for k in KERNELS}
 
 
@@ -1343,18 +1374,19 @@ ONCHIP_ALL = ("dense_onchip", "dense_bf16_onchip", "onchip_train")
 
 def reset_counts():
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
-                                           shade_cuda, sort_cuda,
+                                           pack_cuda, shade_cuda, sort_cuda,
                                            traverse_cuda, traverse_shared_cuda)
 
     traverse_cuda.launches = traverse_cuda.any_launches = 0
     gather_cuda.launches = gather_cuda.scatter_launches = 0
     traverse_shared_cuda.launches = traverse_shared_cuda.any_launches = 0
     gather_cols_cuda.launches = sort_cuda.launches = shade_cuda.launches = 0
+    pack_cuda.launches = 0
 
 
 def read_counts():
     from raytracebvh_tpu_torch.ops import (gather_cols_cuda, gather_cuda,
-                                           shade_cuda, sort_cuda,
+                                           pack_cuda, shade_cuda, sort_cuda,
                                            traverse_cuda, traverse_shared_cuda)
 
     return {"K1": traverse_cuda.launches, "K2": gather_cuda.launches,
@@ -1363,7 +1395,7 @@ def read_counts():
             "K5": traverse_shared_cuda.launches,
             "K6": traverse_shared_cuda.any_launches,
             "K7": gather_cols_cuda.launches, "K8": sort_cuda.launches,
-            "S": shade_cuda.launches}
+            "S": shade_cuda.launches, "P": pack_cuda.launches}
 
 
 def shade_launches(cfg):
@@ -1375,6 +1407,12 @@ def shade_launches(cfg):
     if cfg.dtype != "float32":
         return 0
     return 2 * (traversal_passes(cfg) - int(cfg.enable_shadows))
+
+
+def pack_launches(cfg):
+    """P's launches in one frame of ``cfg``: one a build in float32 (the
+    frame needs no gradient), none in bfloat16 (the plain pack)."""
+    return int(cfg.dtype == "float32")
 
 
 def check_routes(name, n, builds=1):
@@ -1420,6 +1458,8 @@ def phase_main_path(frames):
             check(n["S"] == shade_launches(cfg),
                   f"{name}: {n['S']} S launches, not {shade_launches(cfg)}")
         check(n["K3"] == 0, f"{name}: K3 launched in a forward frame")
+        check(n["P"] == pack_launches(cfg),
+              f"{name}: {n['P']} P launches, not {pack_launches(cfg)}")
         if not cfg.enable_shadows:
             check(n[anyk] == 0, f"{name}: {anyk} launched without shadows")
         elif cfg.ray_chunk:
@@ -1926,13 +1966,16 @@ def phase_culled_stage(frames):
         _, ne = counted(eager["trace_shade"])
     torch.cuda.synchronize()
     shaded = ne["K2"] // CHUNK_BODY["sparse"]["K2"]
-    check(ne == culled_routes("sparse", shaded),
+    check(ne == culled_routes("sparse", shaded, 0),
           f"trace_shade: eager launches {ne}")
-    # trace_shade's and frame_total's warm-ups and captures
-    each = capture_routes("sparse", ne, culled_routes("sparse", 1))
-    check(n == {k: 2 * v for k, v in each.items()},
-          f"trace_shade and frame_total: captures' launches {n}, not twice "
-          f"{each}")
+    # trace_shade's and frame_total's warm-ups and captures; P, the eager
+    # build the stages start from, build_total's and frame_total's
+    # warm-ups and captures
+    each = capture_routes("sparse", ne, culled_routes("sparse", 1, 0))
+    want = {k: 2 * v for k, v in each.items()}
+    want["P"] = 1 + 2 + 2
+    check(n == want, f"trace_shade, build_total and frame_total: captures' "
+          f"launches {n}, not {want}")
     trace_shade = stages["trace_shade"]
     check(isinstance(trace_shade, graphs.Captured),
           f"trace_shade is a {type(trace_shade).__name__}, not one graph")
@@ -1994,7 +2037,8 @@ def phase_depth_and_loader(objs, small, device):
         f"graphed, {eager_ms:.2f} ms eager (host clock, both with the "
         f"host's byte conversion)")
     check(img.shape == (500, 500, 3) and hits > 0, "depth image: no hit")
-    check(n["K5"] + n["K1"] == 2 and n["K2"] == n["K3"] == 0,
+    check(n["K5"] + n["K1"] == 2 and n["K2"] == n["K3"] == 0
+          and n["P"] == 2,
           f"depth image: launches {n} in the warm-up and capture")
     check(not any(n2.values()), f"depth image: a replay counted {n2}")
     check(ndiff == [0, 0, 0], f"depth image: pixels off {ndiff}")
@@ -2024,9 +2068,9 @@ SHARDED_FRAMES = (("render_sharded", "dense"), ("render_geo_sharded", "large"),
                   ("render_geo_sharded", "dense_shadows"),
                   ("render_sharded", "sparse"),
                   ("render_geo_sharded", "sparse_shadows"))
-SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4, S=4),
-                    "large": dict(K1=1, K2=2, S=2),
-                    "dense_shadows": dict(K1=1, K2=2, K4=1, S=2)}
+SHARDED_LAUNCHES = {"dense": dict(K1=2, K2=4, S=4, P=1),
+                    "large": dict(K1=1, K2=2, S=2, P=1),
+                    "dense_shadows": dict(K1=1, K2=2, K4=1, S=2, P=1)}
 # the sharded steps: (config, grad_chunks)
 SHARDED_STEPS = (("sparse_train", 1), ("sparse_train", 4),
                  ("sparse_train_culled", 1))
@@ -2384,6 +2428,8 @@ def kernel_of(name):
         return "K8"
     if "shade_surface_kernel" in name or "shade_finish_kernel" in name:
         return "S"
+    if "leaf_pack_kernel" in name:
+        return "P"
     return None
 
 
@@ -2450,8 +2496,9 @@ def step_routes(name, shaded=None):
     """K -> calls of one training step of ``name``: a walk and a leaf
     gather a pass (2), K2 for the texture quads (2), K3 twice (the two
     leaf gathers' backward), K8 once a build where the config sorts with
-    it, no S (every pass is differentiated); for the culled step, ``culled_routes`` with ``shaded`` of its
-    chunks shaded."""
+    it, no S and no P (every pass and the build are differentiated); for
+    the culled step, ``culled_routes`` with ``shaded`` of its chunks
+    shaded."""
     if name in CHUNK_BODY:
         return culled_routes(name, shaded)
     want = dict.fromkeys(KERNELS, 0)
@@ -2999,6 +3046,89 @@ def phase_shade(frames) -> dict:
                 bounce=out["bounce"])
 
 
+def pack_bytes(n: int) -> int:
+    """Bytes the leaf pack must move at ``n`` leaves, each read and write
+    once: a leaf reads its prim (4 B), its face's 3 indices (12 B), 3
+    corners of 32 B (position, normal, uv) and material index (4 B), and
+    two node rows' boxes (2 x 24 B) and links (2 x 8 B); it writes its
+    160-byte attribute row, tri_mat (4 B), two 32-byte node rows and the
+    48-byte K1 leaf row.  The material table is a few hundred bytes."""
+    return n * (4 + 12 + 3 * 32 + 4 + 2 * 24 + 2 * 8
+                + 160 + 4 + 2 * 32 + 48)
+
+
+def phase_pack(dev) -> dict:
+    """The build's leaf pack (ops/pack_cuda.py, csrc/pack.cu) on the
+    benchmark's tetra1m scene, 1 048 576 triangles (rtbench's SPD tetra
+    at size factor 9, seed 1), built by build_bvh: the kernel's tables
+    bit for bit the plain pack's (pipeline._pack_leaves, then
+    traverse_cuda.pack_tables) on the same inputs; the kernel's device
+    ms (``back_to_back_ms``) and CUDA-event ms around one call (median of
+    5), the plain tail + pack_tables' of both and its kernels
+    (torch.profiler), beside the byte bound.  Returns the kernel line's
+    row P."""
+    from raytracebvh_tpu_torch import pipeline
+    from raytracebvh_tpu_torch.config import RenderConfig
+    from raytracebvh_tpu_torch.ops import pack_cuda, traverse_cuda
+    from rtbench import harness, scenes, scenes_spd
+
+    man = harness.manifest()
+    conf = harness.config_of(man, harness.cell(man, "tetra1m-frame_shadows"))
+    raw = scenes_spd.make_scene(conf, 1, dev)
+    scene = scenes.port_scene(raw)
+    cam = scenes.port_camera(scenes.camera(conf, dev))
+    cfg = RenderConfig(width=W, height=H, ortho_scale=conf["ortho_scale"],
+                       traversal_backend="cuda")
+    with torch.inference_mode(), Recorder(pack_cuda, "pack") as rec:
+        bvh = pipeline.build_bvh(
+            scene, *pipeline.build_transforms(cam, cfg)[1:], cfg)
+        torch.cuda.synchronize()
+    check(len(rec.calls) == 1, f"pack: {len(rec.calls)} launches a build")
+    (tensors,), _ = rec.calls[0]
+    n = bvh.n_leaves
+    f32 = torch.float32
+
+    def kernel():
+        return pack_cuda.pack(tensors)
+
+    def plain():
+        leaves = pipeline._pack_leaves(scene, tensors["verts"],
+                                       tensors["normals"], tensors["prim"],
+                                       f32)
+        nodes, k1 = traverse_cuda.pack_tables(bvh.replace(**leaves))
+        return dict(leaves, node_table=nodes, leaf_table=k1)
+
+    with torch.inference_mode():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for name, w in want.items():
+            g = got[name]
+            same = g.dtype == w.dtype and g.shape == w.shape and (
+                torch.equal(g.view(torch.int32), w.view(torch.int32))
+                if w.dtype == f32 else torch.equal(g, w))
+            check(same, f"pack {name}: the kernel's differs from the plain "
+                  f"pack's ({g.dtype} {tuple(g.shape)}, {w.dtype} "
+                  f"{tuple(w.shape)})")
+        row = {"leaves": n, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+               "device_ms": back_to_back_ms(kernel),
+               "plain_device_ms": back_to_back_ms(plain)}
+        names = {name for name, _ in kernel_durations(kernel, 10)}
+        log(f"  pack: a traced launch's kernels {sorted(names)}")
+        row["plain_kernels"] = profiled(plain)[0]
+    nbytes = pack_bytes(n)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+    row["bytes"] = nbytes
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    log(f"  pack, {n} leaves: bit for bit the plain pack's on every table; "
+        f"kernel {row['device_ms']:.4f} ms device ({row['ms']:.4f} ms CUDA "
+        f"events), plain tail + pack_tables {row['plain_ms']:.4f} ms "
+        f"({row['plain_kernels']} kernels, device "
+        f"{row['plain_device_ms']:.4f} ms); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {nbytes / 1e6:.1f} MB), "
+        f"{100 * row['bound_share']:.1f}% of it")
+    return dict(max_abs_err=0.0, library_ms=None, **row)
+
+
 def sharded_rank() -> int:
     """One rank of run_sharded_ranks: the cases of sharded_cases on a
     geo=2 mesh over all ranks, against this card's own render_frame and
@@ -3137,6 +3267,9 @@ def main() -> int:
         log("phase 13 shading kernels:")
         kern["S"] = phase_shade(frames)
         phase_done(13)
+        log("phase 14 leaf pack kernel:")
+        kern["P"] = phase_pack(dev)
+        phase_done(14)
     except SmokeFailure as e:
         return fail(str(e))
     sources = {"K1": ("raytracebvh_tpu_torch/csrc/traverse.cu",
@@ -3156,7 +3289,9 @@ def main() -> int:
                "K8": ("raytracebvh_tpu_torch/csrc/sort.cu",
                       "raytracebvh_tpu/ops/sort_pallas.py:139"),
                # no TPU kernel: the JAX package leaves the shading to XLA
-               "S": ("raytracebvh_tpu_torch/csrc/shade.cu", None)}
+               "S": ("raytracebvh_tpu_torch/csrc/shade.cu", None),
+               # no TPU kernel: the JAX package leaves the pack to XLA
+               "P": ("raytracebvh_tpu_torch/csrc/pack.cu", None)}
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         return fail(f"{missing} never launched on the main path")

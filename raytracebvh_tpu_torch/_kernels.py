@@ -90,6 +90,10 @@ _SIGNATURES = {
                            _P, _L, _P, _P, _P, _P, _P, _P, _P, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F,
                            _P, _P, _P, _P, _P, _P, _P, _P],
+    # prim, indices, verts, normals, uv, mat_index, ambient, diffuse,
+    # specular, shininess, optical density, alpha, tex_id, bbmin, bbmax,
+    # entry, skip, n, leaf_attrs, tri_mat, node table, leaf table, stream
+    "rtbvh_leaf_pack": [_P] * 17 + [_I] + [_P] * 5,
 }
 
 _lib = None

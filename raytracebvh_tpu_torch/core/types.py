@@ -142,7 +142,9 @@ class BVH:
     specular (32-35), shininess, optical density, alpha, tex_id (36-39).
 
     ``node_table``/``leaf_table`` hold the CUDA traversal's packed tables
-    (``ops.traverse_cuda.pack_tables``); the pipeline packs them once per
+    (``ops.traverse_cuda.pack_tables``, or the build's kernel pack
+    ``ops.pack_cuda``, which also makes ``tri_verts``, ``tri_normals`` and
+    ``tri_uv`` views of ``leaf_attrs``); the pipeline packs them once per
     build and every traversal of the frame reuses them.  None = pack on
     demand."""
 

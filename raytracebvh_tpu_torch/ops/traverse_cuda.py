@@ -5,7 +5,8 @@ traversal (``ops/traverse_hbm.py`` ``_make_refill_kernel``, with
 ``ops.traverse.traverse`` and ``traverse_any``, which run instead for CPU
 tensors.
 
-The kernel reads two tables, packed once per build (``pack_tables``):
+The kernel reads two tables, packed once per build (``pack_tables``, or
+the build's kernel pack ``ops.pack_cuda``, which writes the same bits):
 a node table [2n, 8] float32 (bbmin xyz, bbmax xyz, and the entry and
 skip links as int32 bits: one 32-byte load per node) and a leaf table
 [n, 12] float32 (v0, e1 = v1 - v0, e2 = v2 - v0, padding), with the

@@ -10,7 +10,9 @@ traversal is kernel K5 with the tree in shared memory
 (``ops.gather_cuda``) or, for ``shade_gather_backend='shared'``, K7 on the
 channel-major table (``ops.gather_cols_cuda``); the texture-quad gather
 is K2; the build's sort is K8 (``ops.sort_cuda``) for
-``sort_backend`` ``bitonic`` or ``auto``.  A shading pass that needs no
+``sort_backend`` ``bitonic`` or ``auto``.  A build that needs no gradient,
+on the card and in float32, packs its leaf rows and K1's tables in one
+hand-written kernel (``ops.pack_cuda``).  A shading pass that needs no
 gradient, on the card, in float32 and on a kernel gather, runs its
 arithmetic as two hand-written kernels around the texture gather
 (``ops.shade_cuda``); the plain tensor code is the reference and the
@@ -50,7 +52,8 @@ from .ops.ieee import div, sqrt
 from .ops import morton as morton_ops
 from .ops import shade as shade_ops
 from .ops import sort as sort_ops
-from .ops import shade_cuda, sort_cuda, traverse_cuda, traverse_shared_cuda
+from .ops import (pack_cuda, shade_cuda, sort_cuda, traverse_cuda,
+                  traverse_shared_cuda)
 from .utils import profiling
 
 I32 = torch.int32
@@ -91,8 +94,12 @@ def sort_codes(codes, sort_backend: str):
 def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
                  cfg: RenderConfig) -> BVH:
     """Sort + Karras + AABB fit + links + leaf-attribute pack from per-face
-    leaf data in face-id order: the spans ``sort``, ``topology``, ``fit``
-    and ``links`` (inside the caller's ``build``)."""
+    leaf data in face-id order: the spans ``sort``, ``topology``, ``fit``,
+    ``links`` and ``pack`` (inside the caller's ``build``).  The pack is
+    one kernel (``ops.pack_cuda``) where ``pack_cuda.engages`` holds, and
+    then also writes K1's tables (``node_table``, ``leaf_table``); else
+    the plain pack (``_pack_leaves``), and the tables are packed later
+    (``shade_setup``)."""
     dtype = cfg.torch_dtype
     dev = verts_t.device
     sort_backend = resolve_sort_backend(cfg, dev)
@@ -123,7 +130,34 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
     with profiling.span("links", codes):
         entry, skip = bvh_ops.compute_links(topo, n)
 
-    # leaf triangle data in morton order, gathered once per build
+    tensors = pack_cuda.inputs(scene, verts_t, normals_t, prim, bbmin, bbmax,
+                               entry, skip)
+    with profiling.span("pack", codes):
+        if pack_cuda.engages(cfg, tensors):
+            leaves = pack_cuda.pack(tensors)
+        else:
+            leaves = _pack_leaves(scene, verts_t, normals_t, prim, dtype)
+
+    return BVH(
+        codes=sorted_codes,
+        prim=prim,
+        bbmin=bbmin,
+        bbmax=bbmax,
+        child_l=topo.child_l,
+        child_r=topo.child_r,
+        parent=topo.parent,
+        entry_link=entry,
+        skip_link=skip,
+        **leaves,
+    )
+
+
+def _pack_leaves(scene: Scene, verts_t, normals_t, prim, dtype) -> dict:
+    """The plain leaf pack: the leaf triangle data in morton order
+    (``prim``; a padding leaf takes face 0's), gathered once per build ->
+    the BVH's ``tri_verts``, ``tri_normals``, ``tri_uv``, ``tri_mat`` and
+    ``leaf_attrs``.  The reference for ``ops.pack_cuda`` and the
+    differentiable path."""
     safe_prim = torch.clamp(prim, min=0).long()
     corner = scene.indices.reshape(-1, 3)[safe_prim].long()  # [n, 3]
     vrow8 = torch.cat([verts_t, normals_t, scene.uv.to(dtype)], dim=1)
@@ -142,17 +176,7 @@ def assemble_bvh(scene: Scene, verts_t, normals_t, codes, lmin, lmax,
          A[0][:, 3:6], A[1][:, 3:6], A[2][:, 3:6],
          A[0][:, 6:8], A[1][:, 6:8], A[2][:, 6:8], mrow16[tri_mat.long()]],
         dim=-1)  # [n, 40]
-
-    return BVH(
-        codes=sorted_codes,
-        prim=prim,
-        bbmin=bbmin,
-        bbmax=bbmax,
-        child_l=topo.child_l,
-        child_r=topo.child_r,
-        parent=topo.parent,
-        entry_link=entry,
-        skip_link=skip,
+    return dict(
         tri_verts=torch.stack([a[:, 0:3] for a in A], dim=1),
         tri_normals=torch.stack([a[:, 3:6] for a in A], dim=1),
         tri_uv=torch.stack([a[:, 6:8] for a in A], dim=1),

@@ -34,7 +34,7 @@ from raytracebvh_tpu_torch.utils import profiling
 
 LIGHT = (10.0, 80.0, -40.0)
 BUILD = ("build", [("morton", []), ("sort", []), ("topology", []),
-                   ("fit", []), ("links", [])])
+                   ("fit", []), ("links", []), ("pack", [])])
 GATHERS = [("gather", []), ("gather", [])]  # the leaf rows, the texture
 BOUNCE = ("bounce", [("walk.bounce", []), ("shade.bounce", GATHERS)])
 CONFIGS = {
